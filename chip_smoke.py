@@ -27,6 +27,33 @@ toolkit. In order, each phase printing one JSON line:
   profile  device time by kernel over one 4K frame in each tail mode
            (torch.profiler), and the device's idle share.
 
+Then the training slice, bf16 with TRUNK_MODE="packed" unless named:
+
+  kernel   the trunk kernels K4 (forward) and K5 (backward) against their
+           plain versions at the training shape (16, 24, 24, 64), n = 16,
+           and an edge shape (3, 22, 26, 64), n = 2, in f32 and bf16, K5
+           on the residuals K4 saved; a second run of each must give the
+           same bits (the reductions are deterministic). Then their times
+           at the training shape, bounds, plain times and a cuDNN
+           yardstick (the unfused trunk of F.conv2d + F.batch_norm +
+           F.prelu, forward and autograd backward);
+  train    seeded full-width G (16 RCB, 64 ch) and D (64 ch), batch 16 of
+           synthetic uint8 96x96 patches, through warmup() then train()
+           (3 batches each, D_UPDATE_INTERVAL=2) in a temporary working
+           directory; launch counts reset just before and read just after
+           (K4 = K5 = 1 per G step, kernel A = 1 per G forward); then one
+           more G and D step checked for finite losses, moved parameters,
+           and D statistics that move in the G step;
+  check    one GAN step (G step + D step) with the packed and the unfused
+           trunk from the same seeded state: parameters within 2.01 lr
+           (Adam's first update moves a weight by less than lr, either way,
+           plus the f32 rounding of the weight), losses within 1e-2
+           relative (3.4e-4 measured on the H100; each bf16 trunk's
+           distance to the f32 step is printed for scale);
+  time     ms per warmup step, per G step and per GAN step (G + D), packed
+           and unfused, by CUDA events (median of 10), and patches/s;
+  profile  one GAN step of each trunk under torch.profiler.
+
 Then the card's name and power limit as nvidia-smi prints them, one
 {"kernels": [...]} line, and last {"ok": true, "device": {...}}. Any failed
 gate raises and the script exits non-zero without that last line; so does
@@ -69,6 +96,13 @@ SHAPES_A = (SHAPE_A_TRAIN, SHAPE_A_4K, (16, 288, 288, 256), (1, 768, 1084, 256))
 # whose 542 quarter-resolution columns end in a partial tile
 SHAPE_B_4K = (1, 1080, 1920, 64)
 SHAPES_B = (SHAPE_B_4K, (1, 768, 1084, 64))
+
+
+# The trunk kernels' inputs: the training shape, then an edge shape whose
+# pixel count and width do not divide the kernels' 64-pixel tiles
+TRUNK_SHAPES = (((16, 24, 24, 64), 16), ((3, 22, 26, 64), 2))
+EPS = 1e-5
+TRAIN_STEPS = 3  # batches per epoch of warmup() and train() in the train phase
 
 
 def emit(phase: str, **fields) -> None:
@@ -309,7 +343,7 @@ def phase_serve(fns, frames) -> tuple[dict, dict]:
         outs[(mode, frame)] = sr
     counts = launch_counts()
     emit("serve", launches_total=counts)
-    if min(counts.values()) < 1:
+    if min(counts["coarse_conv_s2d"], counts["serving_tail"]) < 1:
         raise AssertionError(f"a kernel of the path never launched: {counts}")
     torch.cuda.synchronize()
     return outs, counts
@@ -376,36 +410,373 @@ def phase_time(fns, rng, dev) -> dict:
     return rec
 
 
-def phase_profile(fns, rng, dev) -> dict:
-    """Device time by kernel over one 4K frame in each tail mode
-    (torch.profiler), and the device's idle share of the window from the
-    first kernel's start to the last one's end."""
+def profile_once(fn) -> dict:
+    """Device time by kernel over one fn() (torch.profiler, after one
+    warm-up call), and the device's idle share of the window from the first
+    kernel's start to the last one's end."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    x = torch.from_numpy(rng.random((1, *LR_4K, 3), np.float32)).to(dev)
-    rec = {}
-    for mode in ("composed", "fused"):
-        fns[mode](x)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fns[mode](x)
-            torch.cuda.synchronize()
-        by_name, starts, ends = {}, [], []
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-                starts.append(e.time_range.start)
-                ends.append(e.time_range.end)
-        busy = sum(by_name.values())
-        window = (max(ends) - min(starts)) / 1e3 if ends else 0.0
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-        rec[mode] = {"device_busy_ms": busy, "device_window_ms": window,
-                     "idle_share": 1 - busy / window if window else None,
-                     "kernels": len(starts),
-                     "top_ms": [[name[:100], ms] for name, ms in top]}
+    by_name, starts, ends = {}, [], []
+    for e in prof.events():
+        # user-annotation ranges on the device timeline (the optimizer's
+        # "Optimizer.step#...") span kernels counted on their own
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+            starts.append(e.time_range.start)
+            ends.append(e.time_range.end)
+    busy = sum(by_name.values())
+    window = (max(ends) - min(starts)) / 1e3 if ends else 0.0
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return {"device_busy_ms": busy, "device_window_ms": window,
+            "idle_share": 1 - busy / window if window else None,
+            "kernels": len(starts),
+            "top_ms": [[name[:100], ms] for name, ms in top]}
+
+
+def phase_profile(fns, rng, dev) -> dict:
+    """Device time by kernel over one 4K frame in each tail mode."""
+    import torch
+
+    x = torch.from_numpy(rng.random((1, *LR_4K, 3), np.float32)).to(dev)
+    rec = {mode: profile_once(lambda: fns[mode](x)) for mode in ("composed", "fused")}
     emit("profile", frame="960x540 -> 3840x2160", **rec)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# the training slice
+
+def _rel(got, ref) -> float:
+    return max_abs(got, ref) / max(float(ref.float().abs().max()), 1e-30)
+
+
+def _trunk_inputs(gen, dev, shape, n):
+    """x, the stacked block parameters (as the Generator passes them) and a
+    cotangent dy, all f32."""
+    import torch
+
+    c = shape[-1]
+
+    def r(*s):
+        return torch.randn(*s, generator=gen, device=dev)
+
+    params = [r(n, 3, 3, c, c) * 0.05, r(n, 3, 3, c, c) * 0.05, 1 + 0.1 * r(n, c),
+              0.1 * r(n, c), 1 + 0.1 * r(n, c), 0.1 * r(n, c), 0.25 + 0.01 * r(n)]
+    return r(*shape), params, r(*shape)
+
+
+def _bwd_params(p):
+    """(w1s, w2s, g1s, b1s, g2s, als): what the backward reads."""
+    return (p[0], p[1], p[2], p[3], p[4], p[6])
+
+
+GRAD_NAMES = ("dx", "dw1", "dw2", "dg1", "db1", "dg2", "db2", "dal")
+
+
+def phase_kernel_trunk(gen, dev) -> tuple[dict, dict]:
+    """K4 and K5 against their plain versions at TRUNK_SHAPES. f32 (TF32
+    off): y and stats within 1e-4 max|ref|, every gradient within 1e-3
+    max|ref| (K5 fed the residuals K4 saved, so that both versions take the
+    same PReLU branches; the sums run in another order over up to 9,216
+    pixels). bf16: within 2x the plain version's bf16-vs-f32 envelope on
+    the same inputs. Each kernel run twice must give the same bits."""
+    import torch
+
+    from srgan_st_tpu_torch.kernels import packed_trunk as pt
+
+    fwd_rec, bwd_rec = {"errors": []}, {"errors": []}
+    for shape, n in TRUNK_SHAPES:
+        x, p, dy = _trunk_inputs(gen, dev, shape, n)
+        bp = _bwd_params(p)
+        got = pt._launch_fwd(x, *p, EPS)
+        ref = pt._reference_forward(x, *p, EPS)
+        gb = pt._launch_bwd(dy, *got[1:], *bp, EPS)
+        rb = pt._reference_backward(dy, *got[1:], *bp, EPS)
+        f32_fwd = {"y": _rel(got[0], ref[0]), "stats": _rel(got[4], ref[4])}
+        f32_bwd = {k: _rel(a, b) for k, a, b in zip(GRAD_NAMES, gb, rb)}
+
+        xb, dyb = x.bfloat16(), dy.bfloat16()
+        p16 = [p[0].bfloat16().float(), p[1].bfloat16().float(), *p[2:]]
+        got16 = pt._launch_fwd(xb, *p, EPS)
+        plain16 = pt._reference_forward(xb, *p, EPS)
+        ref32 = pt._reference_forward(xb.float(), *p16, EPS)
+        res16 = got16[1:]
+        res32 = [t.float() for t in res16[:3]] + [res16[3]]
+        gb16 = pt._launch_bwd(dyb, *res16, *bp, EPS)
+        pb16 = pt._reference_backward(dyb, *res16, *bp, EPS)
+        rb32 = pt._reference_backward(dyb.float(), *res32, *_bwd_params(p16), EPS)
+        deterministic = {
+            "fwd": all(torch.equal(a, b) for a, b in
+                       zip(got16, pt._launch_fwd(xb, *p, EPS))),
+            "bwd": all(torch.equal(a, b) for a, b in
+                       zip(gb16, pt._launch_bwd(dyb, *res16, *bp, EPS)))}
+        torch.cuda.synchronize()
+        bf16_fwd = {k: (max_abs(got16[i], ref32[i]), max_abs(plain16[i], ref32[i]))
+                    for k, i in (("y", 0), ("stats", 4))}
+        bf16_bwd = {k: (max_abs(a, r), max_abs(b, r))
+                    for k, a, b, r in zip(GRAD_NAMES, gb16, pb16, rb32)}
+        rec = {"shape": list(shape), "n": n, "f32_rel_err_fwd": f32_fwd,
+               "f32_rel_err_bwd": f32_bwd, "bf16_err_and_envelope_fwd": bf16_fwd,
+               "bf16_err_and_envelope_bwd": bf16_bwd, "bitwise_repeatable": deterministic}
+        emit("kernel", kernel="packed_trunk", **rec)
+        bad = ([k for k, e in f32_fwd.items() if not e <= 1e-4]
+               + [k for k, e in f32_bwd.items() if not e <= 1e-3]
+               + [k for k, (e, env) in {**bf16_fwd, **bf16_bwd}.items()
+                  if not (env > 0 and e <= 2 * env)]
+               + [k for k, ok in deterministic.items() if not ok])
+        if bad:
+            raise AssertionError(f"packed_trunk at {shape}, n={n}: {bad} out of bounds")
+        fwd_rec["errors"].append({"shape": list(shape), "f32_rel": f32_fwd, "bf16": bf16_fwd})
+        bwd_rec["errors"].append({"shape": list(shape), "f32_rel": f32_bwd, "bf16": bf16_bwd})
+        if shape == TRUNK_SHAPES[0][0]:
+            timed = (xb, p, dyb, res16)
+        del got, ref, gb, rb, got16, plain16, ref32, gb16, pb16, rb32
+    _time_trunk(*timed, fwd_rec, bwd_rec)
+    return fwd_rec, bwd_rec
+
+
+def _cudnn_trunk(x, p):
+    """The yardstick: the unfused trunk as cuDNN convs, cuDNN train-mode
+    BatchNorm and F.prelu, in x's dtype (bf16), channels_last."""
+    import torch
+    import torch.nn.functional as F
+
+    w1s, w2s, g1s, b1s, g2s, b2s, als = p
+    h = x.permute(0, 3, 1, 2)
+    for i in range(w1s.shape[0]):
+        t = F.conv2d(h, w1s[i], padding=1)
+        t = F.batch_norm(t, None, None, g1s[i], b1s[i], training=True, eps=EPS)
+        t = F.prelu(t, als[i:i + 1])
+        t = F.conv2d(t, w2s[i], padding=1)
+        h = h + F.batch_norm(t, None, None, g2s[i], b2s[i], training=True, eps=EPS)
+    return h
+
+
+def _time_trunk(xb, p, dyb, res16, fwd_rec, bwd_rec) -> None:
+    import torch
+
+    from srgan_st_tpu_torch.kernels import packed_trunk as pt
+
+    bp = _bwd_params(p)
+    n, b, h, w, c = res16[0].shape
+    act = b * h * w * c
+    conv_flops = 2 * b * h * w * 9 * c * c  # one 3x3 conv
+    weights = 2 * n * 9 * c * c
+    # forward: read x and the weights, write y, the three residuals, stats
+    f_bytes = 2 * act + 2 * weights + 2 * act + 3 * 2 * n * act + 4 * n * 4 * c
+    # backward: read dy, the residuals, stats, weights; write dx, dW (f32),
+    # the BN and slope gradients
+    b_bytes = (2 * act + 3 * 2 * n * act + 4 * n * 4 * c + 2 * weights
+               + 2 * act + 4 * weights + 4 * n * (4 * c + 1))
+    lib = [t.detach().clone() for t in p]
+    lib[0], lib[1] = (w.bfloat16().permute(0, 4, 3, 1, 2).contiguous() for w in lib[:2])
+    lib[6] = lib[6].bfloat16()
+    for t in lib:
+        t.requires_grad_()
+    xl = xb.detach().clone().requires_grad_()
+    dyl = dyb.permute(0, 3, 1, 2)
+
+    def lib_fwd_bwd():
+        torch.autograd.backward(_cudnn_trunk(xl, lib), dyl)
+
+    lib_fwd = cuda_ms(lambda: _cudnn_trunk(xl, lib))
+    lib_total = cuda_ms(lib_fwd_bwd)
+    for rec, nbytes, flops, ms, plain in (
+        (fwd_rec, f_bytes, 2 * n * conv_flops,
+         cuda_ms(lambda: pt._launch_fwd(xb, *p, EPS)),
+         cuda_ms(lambda: pt._reference_forward(xb, *p, EPS), iters=5)),
+        (bwd_rec, b_bytes, 4 * n * conv_flops,
+         cuda_ms(lambda: pt._launch_bwd(dyb, *res16, *bp, EPS)),
+         cuda_ms(lambda: pt._reference_backward(dyb, *res16, *bp, EPS), iters=5)),
+    ):
+        rec.update(shape=[b, h, w, c], n=n, ms=ms, plain_ms=plain, bytes=nbytes,
+                   flops=flops, launches_per_call=(6 if rec is fwd_rec else 12) * n)
+        rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, flops)
+    fwd_rec["library_ms"] = lib_fwd
+    bwd_rec["library_ms"] = lib_total - lib_fwd
+    bwd_rec["library_fwd_bwd_ms"] = lib_total
+    emit("kernel_time", kernel="packed_trunk_fwd",
+         **{k: v for k, v in fwd_rec.items() if k != "errors"})
+    emit("kernel_time", kernel="packed_trunk_bwd",
+         **{k: v for k, v in bwd_rec.items() if k != "errors"})
+
+
+def _train_config(trunk: str, name: str):
+    from srgan_st_tpu_torch.core.config import Config, apply_overrides
+
+    return apply_overrides(Config(), [
+        "TPU.COMPUTE_DTYPE=bfloat16", f"TPU.TRUNK_MODE={trunk}", "DATA.SYNTHETIC=true",
+        f"DATA.SYNTHETIC_N_BATCHES={TRAIN_STEPS}", "EXP.N_EPOCHS=1",
+        "SOLVER.D_UPDATE_INTERVAL=2", "LOG_TRAIN_PERIOD=1", f"EXP.NAME={name}"])
+
+
+def _gan_state(cfg, dev):
+    from srgan_st_tpu_torch.models.discriminator import Discriminator
+    from srgan_st_tpu_torch.models.generator import Generator
+    from srgan_st_tpu_torch.train.steps import create_gan_state
+
+    return create_gan_state(cfg, Generator.from_config(cfg),
+                            Discriminator.from_config(cfg), TRAIN_STEPS, dev)
+
+
+def _flat(module):
+    import torch
+
+    return torch.cat([p.detach().float().reshape(-1) for p in module.parameters()])
+
+
+def _running(module):
+    import torch
+
+    return torch.cat([b.detach().float().reshape(-1) for name, b in module.named_buffers()
+                      if name.endswith(("running_mean", "running_var"))])
+
+
+def phase_train(dev, batch) -> dict:
+    """The slice's main path: warmup() then train() at full width, launch
+    counts reset just before and read just after; then one more G and D
+    step checked."""
+    import torch
+
+    from srgan_st_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from srgan_st_tpu_torch.losses.registry import build_criterions
+    from srgan_st_tpu_torch.train.steps import make_gan_steps
+    from srgan_st_tpu_torch.train.train import train
+    from srgan_st_tpu_torch.train.warmup import warmup
+
+    cfg_w, cfg_t = _train_config("packed", "smoke-warmup"), _train_config("packed", "smoke-train")
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            warmup(cfg_w, device=dev)
+            after_warmup = launch_counts()
+            state = train(cfg_t, device=dev)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = launch_counts()
+            files = sorted(os.listdir(os.path.join(tmp, "results", "smoke-train")))
+        finally:
+            os.chdir(cwd)
+    # per phase: TRAIN_STEPS G steps (one K4 and one K5 each) and
+    # TRAIN_STEPS + 3 G forwards (the steps and the 3 validation pairs)
+    steps = TRAIN_STEPS
+    want = {"packed_trunk_fwd": 2 * steps, "packed_trunk_bwd": 2 * steps,
+            "coarse_conv_s2d": 2 * (steps + 3), "serving_tail": 0}
+    fresh = _gan_state(cfg_t, dev)
+    moved = {"g": bool((_flat(state.g_model) != _flat(fresh.g_model)).any()),
+             "d": bool((_flat(state.d_model) != _flat(fresh.d_model)).any())}
+    g_step, d_step = make_gan_steps(cfg_t, build_criterions(cfg_t))
+    d_params, d_stats = _flat(state.d_model), _running(state.d_model)
+    g_params = _flat(state.g_model)
+    state, sr, g_metrics = g_step(state, batch)
+    d_stats_move_in_g_step = bool((_running(state.d_model) != d_stats).any())
+    d_params_fixed_in_g_step = bool(torch.equal(_flat(state.d_model), d_params))
+    g_params_move = bool((_flat(state.g_model) != g_params).any())
+    state, d_metrics = d_step(state, batch, sr)
+    metrics = {k: float(v) for k, v in {**g_metrics, **d_metrics}.items()}
+    finite = all(np.isfinite(v) for v in metrics.values()) and bool(
+        torch.isfinite(_flat(state.g_model)).all() and torch.isfinite(_flat(state.d_model)).all())
+    rec = {"seconds": seconds, "launches_after_warmup": after_warmup,
+           "launches_total": counts, "launches_expected": want, "results_files": files,
+           "params_moved_by_training": moved, "step_metrics": metrics,
+           "d_stats_move_in_g_step": d_stats_move_in_g_step,
+           "d_params_fixed_in_g_step": d_params_fixed_in_g_step,
+           "g_params_move": g_params_move, "finite": finite}
+    emit("train", **rec)
+    if counts != want or after_warmup["packed_trunk_fwd"] != steps:
+        raise AssertionError(f"train launches {counts}, expected {want}")
+    if not (all(moved.values()) and finite and d_stats_move_in_g_step
+            and d_params_fixed_in_g_step and g_params_move):
+        raise AssertionError(f"train checks failed: {rec}")
+    return rec
+
+
+def phase_check_train(dev, batch) -> dict:
+    """One GAN step, packed vs unfused trunk, from the same seeded state."""
+    from srgan_st_tpu_torch.losses.registry import build_criterions
+    from srgan_st_tpu_torch.train.steps import make_gan_steps
+
+    out = {}
+    for trunk in ("packed", "unfused", "f32"):
+        cfg = _train_config("unfused" if trunk == "f32" else trunk, "check")
+        if trunk == "f32":
+            cfg.TPU.COMPUTE_DTYPE = "float32"
+        state = _gan_state(cfg, dev)
+        g_step, d_step = make_gan_steps(cfg, build_criterions(cfg))
+        state, sr, gm = g_step(state, batch)
+        state, dm = d_step(state, batch, sr)
+        out[trunk] = ({k: float(v) for k, v in {**gm, **dm}.items()},
+                      _flat(state.g_model), _flat(state.d_model))
+    lr = _train_config("packed", "check").SOLVER.G_BASE_LR
+
+    def loss_rel(a, b):
+        return max(abs(v - out[b][0][k]) / abs(out[b][0][k])
+                   for k, v in out[a][0].items() if "Probability" not in k)
+
+    rec = {"losses": {t: o[0] for t, o in out.items()},
+           "loss_rel_diff": loss_rel("packed", "unfused"),
+           "g_param_max_diff": max_abs(out["packed"][1], out["unfused"][1]),
+           "d_param_max_diff": max_abs(out["packed"][2], out["unfused"][2]),
+           "param_bound": 2.01 * lr,
+           # for scale: each bf16 trunk against the f32 unfused step
+           "loss_rel_diff_vs_f32": {t: loss_rel(t, "f32") for t in ("packed", "unfused")},
+           "g_param_max_diff_vs_f32": {t: max_abs(out[t][1], out["f32"][1])
+                                       for t in ("packed", "unfused")}}
+    emit("check", train=rec)
+    if not (rec["loss_rel_diff"] <= 1e-2 and rec["g_param_max_diff"] <= 2.01 * lr
+            and rec["d_param_max_diff"] <= 2.01 * lr):
+        raise AssertionError(f"packed vs unfused GAN step out of bounds: {rec}")
+    return rec
+
+
+def phase_time_train(dev, batch) -> dict:
+    """ms per warmup step, G step and GAN step (G + D) for both trunks;
+    the batch is already on the device (data loading is set-up)."""
+    import torch
+
+    from srgan_st_tpu_torch.losses.registry import build_criterions, build_warmup_criterions
+    from srgan_st_tpu_torch.models.generator import Generator
+    from srgan_st_tpu_torch.train.steps import (
+        create_generator_state, make_gan_steps, make_warmup_step,
+    )
+
+    rec, profiles = {}, {}
+    for trunk in ("packed", "unfused"):
+        cfg = _train_config(trunk, "time")
+        w_state = create_generator_state(cfg, Generator.from_config(cfg), TRAIN_STEPS,
+                                         dev, milestones=False)
+        w_step = make_warmup_step(cfg, build_warmup_criterions(cfg))
+        state = _gan_state(cfg, dev)
+        g_step, d_step = make_gan_steps(cfg, build_criterions(cfg))
+
+        def gan():
+            _, sr, _ = g_step(state, batch)
+            d_step(state, batch, sr)
+
+        torch.cuda.reset_peak_memory_stats()
+        warm_ms = cuda_ms(lambda: w_step(w_state, batch))
+        g_ms = cuda_ms(lambda: g_step(state, batch))
+        gan_ms = cuda_ms(gan)
+        b = batch.shape[0]
+        rec[trunk] = {"ms_per_warmup_step": warm_ms, "ms_per_g_step": g_ms,
+                      "ms_per_gan_step": gan_ms,
+                      "patches_per_s_warmup": b / (warm_ms / 1e3),
+                      "patches_per_s_gan_step": b / (gan_ms / 1e3),
+                      "patches_per_s_d_every_100": b / ((g_ms + (gan_ms - g_ms) / 100) / 1e3),
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        profiles[trunk] = profile_once(gan)
+    emit("time", train="batch 16, 96x96 GT, x4, bf16", **rec)
+    emit("profile", train="one GAN step (G + D)", **profiles)
     return rec
 
 
@@ -463,6 +834,15 @@ def run(dev) -> int:
     phase_check(fns, frames, outs, rng)
     phase_time(fns, rng, dev)
     phase_profile(fns, rng, dev)
+    del fns, outs
+    torch.cuda.empty_cache()
+
+    rec_k4, rec_k5 = phase_kernel_trunk(gen, dev)
+    torch.cuda.empty_cache()
+    batch = torch.from_numpy(rng.integers(0, 256, (16, 96, 96, 3), dtype=np.uint8)).to(dev)
+    train_counts = phase_train(dev, batch)["launches_total"]
+    phase_check_train(dev, batch)
+    phase_time_train(dev, batch)
 
     kernels = []
     for rec, name, source, replaces in (
@@ -478,6 +858,23 @@ def run(dev) -> int:
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "shape": rec["shape"], "f32_max_abs_err": rec["f32_max_abs_err"],
+            "train_launches": train_counts[name],
+        })
+    for rec, name, replaces in (
+        (rec_k4, "packed_trunk_fwd",
+         "srgan_st_tpu/kernels/packed_trunk.py:195 (_fwd_kernel)"),
+        (rec_k5, "packed_trunk_bwd",
+         "srgan_st_tpu/kernels/packed_trunk.py:308 (_bwd_kernel)"),
+    ):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "srgan_st_tpu_torch/csrc/packed_trunk.cu", "replaces": replaces,
+            "launches": train_counts[name],
+            "max_abs_err": max(e for r in rec["errors"] for e, _ in r["bf16"].values()),
+            "f32_max_rel_err": max(e for r in rec["errors"] for e in r["f32_rel"].values()),
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            "shape": rec["shape"], "n": rec["n"],
         })
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,6 +1,8 @@
 """Command-line front door: ``python -m srgan_st_tpu_torch <command>``.
 
 Usage:
+    python -m srgan_st_tpu_torch warmup ...     # SRResNet warmup (pixel loss)
+    python -m srgan_st_tpu_torch train ...      # adversarial training
     python -m srgan_st_tpu_torch infer ...      # upscale arbitrary images
     python -m srgan_st_tpu_torch validate ...   # PSNR/SSIM eval on a test set
 
@@ -15,6 +17,14 @@ import sys
 
 # command -> (module, attr, one-line help)
 _COMMANDS: dict[str, tuple[str, str, str]] = {
+    "warmup": (
+        "srgan_st_tpu_torch.train.warmup", "cli",
+        "PSNR-oriented SRResNet warmup (pixel loss only)",
+    ),
+    "train": (
+        "srgan_st_tpu_torch.train.train", "cli",
+        "adversarial (GAN) training",
+    ),
     "validate": (
         "srgan_st_tpu_torch.eval.validate", "main",
         "PSNR/SSIM evaluation on a test set (Set5-style layout)",

@@ -49,6 +49,28 @@ def _kernel_weights(w2: torch.Tensor, device, dtype) -> torch.Tensor:
     return wt.reshape(18, wt.shape[-2], wt.shape[-1]).transpose(1, 2).contiguous()
 
 
+class KernelWeights:
+    """`_kernel_weights` of one conv's weight (an OIHW parameter of a 9x9
+    conv to 3 channels) in a compute dtype, made again only when the
+    weight's storage or version changes: once per parameter version, not
+    once per call."""
+
+    def __init__(self) -> None:
+        self._key = None
+        self._wt = None
+
+    def get(self, weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        key = (weight.data_ptr(), weight._version, weight.device, dtype)
+        if key != self._key:
+            from srgan_st_tpu_torch.ops.subpixel_conv import _coarse_kernel
+
+            with torch.no_grad():
+                w2 = _coarse_kernel(weight.detach().permute(2, 3, 1, 0).to(dtype), 2)
+                self._wt = _kernel_weights(w2, weight.device, dtype)
+            self._key = key
+        return self._wt
+
+
 def coarse_conv_s2d_reference(x: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
     """The plain version: `F.conv2d` of the coarse kernel, then
     space_to_depth(2), in f32."""
@@ -57,12 +79,15 @@ def coarse_conv_s2d_reference(x: torch.Tensor, w2: torch.Tensor) -> torch.Tensor
     return space_to_depth(conv_nhwc(x.float(), w2.float()), 2)
 
 
-def coarse_conv_s2d(x: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+def coarse_conv_s2d(x: torch.Tensor, w2: torch.Tensor,
+                    wt: torch.Tensor | None = None) -> torch.Tensor:
     """x (B, H, W, C), w2 (5, 5, C, N2) -> (B, H/2, W/2, 4*N2) f32.
-    A CPU tensor takes the plain version; a CUDA tensor the kernel."""
+    A CPU tensor takes the plain version; a CUDA tensor the kernel, with
+    `wt` the kernel's layout of w2 where the caller has it
+    (`KernelWeights`)."""
     if x.device.type == "cpu":
         return coarse_conv_s2d_reference(x, w2)
-    return _launch(x, w2)
+    return _launch(x, w2, wt)
 
 
 def fits(x_shape, w2_shape, dtype) -> bool:
@@ -76,7 +101,8 @@ def fits(x_shape, w2_shape, dtype) -> bool:
             and (2 * c) % _K_CHUNK[dtype] == 0 and tuple(w2_shape) == (5, 5, c, N2))
 
 
-def _launch(x: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+def _launch(x: torch.Tensor, w2: torch.Tensor, wt: torch.Tensor | None = None
+            ) -> torch.Tensor:
     global launches
     if x.device.type != "cuda":
         raise ValueError(f"coarse_conv_s2d: no kernel for device {x.device}")
@@ -89,7 +115,8 @@ def _launch(x: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("coarse_conv_s2d: x must be contiguous NHWC, 16-byte aligned")
     b, h, w, c = x.shape
-    wt = _kernel_weights(w2, x.device, x.dtype)
+    if wt is None:
+        wt = _kernel_weights(w2, x.device, x.dtype)
     out = torch.empty((b, h // 2, w // 2, 4 * N2), device=x.device,
                       dtype=torch.float32)
     lib = _build.load("coarse_conv", _SIGNATURES)

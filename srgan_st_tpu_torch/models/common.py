@@ -2,29 +2,61 @@
 
 Modules keep torch's state_dict conventions (conv `weight` OIHW + `bias`,
 BatchNorm `weight`/`bias`/`running_mean`/`running_var`, PReLU `weight` of
-shape (1,)), so reference checkpoints load unchanged. Only eval mode is
-ported in this slice.
+shape (1,)), so reference checkpoints load unchanged. Parameters and
+buffers are float32, as the flax modules' are; each module casts them to
+its input's dtype at use, explicitly, as the flax modules do with `dtype=`
+(no autocast, whose per-op rules differ from those casts).
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d whose float32 weight and bias are cast to the input's
+    dtype at use. The bias is added after the conv, in that dtype, as
+    flax's nn.Conv adds it."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = F.conv2d(x, self.weight.to(x.dtype), None, self.stride, self.padding)
+        if self.bias is None:
+            return out
+        return out + self.bias.to(x.dtype).view(1, -1, 1, 1)
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """Eval-mode BatchNorm over NCHW, computed in the input's dtype with
-    the running statistics cast to it, as the JAX BatchNorm does
-    (common.py:102-106): (x - mean) * rsqrt(var + eps) * scale + bias.
-    Train-mode batch statistics wait for the training slice."""
+    """BatchNorm over NCHW with the JAX BatchNorm's numerics
+    (common.py:58-106). Eval: the running statistics cast to the input's
+    dtype. Train: f32 batch moments, var = max(E[x^2] - m^2, 0), the
+    normalize in the input's dtype with the f32 moments cast to it, and the
+    running-stat EMA (momentum 0.1) of the UNBIASED variance updated in
+    place on the f32 buffers. Both: (x - m) * rsqrt(var + eps) * w + b."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         dt = x.dtype
         shape = (1, -1, 1, 1)
-        mean = self.running_mean.to(dt).view(shape)
-        var = self.running_var.to(dt).view(shape)
-        y = (x - mean) * torch.rsqrt(var + torch.tensor(self.eps, dtype=dt))
+        if train:
+            xf = x.float()
+            mean = xf.mean((0, 2, 3))
+            var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
+            self.update_running(mean, var, x.numel() // x.shape[1])
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (x - mean.to(dt).view(shape)) * torch.rsqrt(
+            var.to(dt).view(shape) + torch.tensor(self.eps, dtype=dt))
         return y * self.weight.to(dt).view(shape) + self.bias.to(dt).view(shape)
+
+    @torch.no_grad()
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor, n: int) -> None:
+        """EMA of the batch mean and of the unbiased batch variance of n
+        elements (biased `var` times n/(n-1)), in place."""
+        self.running_mean.mul_(0.9).add_(0.1 * mean)
+        self.running_var.mul_(0.9).add_(0.1 * var * (n / max(n - 1, 1)))
 
 
 class PReLU(nn.Module):
@@ -63,6 +95,11 @@ class TapConv(nn.Module):
         self.pre_shuffle_factor = pre_shuffle_factor
         self.inner_factor = inner_factor
         self.subpixel_factor = subpixel_factor
+        # the coarse conv kernel's layout of the weight, rebuilt only when
+        # the weight changes
+        from srgan_st_tpu_torch.kernels.coarse_conv import KernelWeights
+
+        self._kernel_weights = KernelWeights()
 
     def hwio(self, dtype: torch.dtype) -> torch.Tensor:
         return self.weight.permute(2, 3, 1, 0).to(dtype)
@@ -77,9 +114,32 @@ class TapConv(nn.Module):
         f = self.pre_shuffle_factor
         if f:
             return conv2d_subpixel_pre_shuffled(
-                x, w, b, factor=f, inner_factor=self.inner_factor)
+                x, w, b, factor=f, inner_factor=self.inner_factor,
+                kernel_weights=functools.partial(
+                    self._kernel_weights.get, self.weight, x.dtype))
         factor = 1 if self.mode == "xla" else self.subpixel_factor
         return conv2d_subpixel(x, w, b, factor=factor)
+
+
+@torch.no_grad()
+def init_weights(module: nn.Module, generator: torch.Generator | None = None) -> None:
+    """The JAX package's initializers on every conv and dense layer of
+    `module` (reference model.py:130-136): kaiming-normal conv kernels
+    (fan_in, gain sqrt 2), flax's lecun-normal dense kernels (a normal of
+    variance 1/fan_in truncated at 2 std), zero biases. BatchNorm and
+    PReLU keep their constructor values (scale 1, bias 0; slope 0.25)."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, TapConv)):
+            nn.init.kaiming_normal_(m.weight, mode="fan_in", nonlinearity="relu",
+                                    generator=generator)
+        elif isinstance(m, nn.Linear):
+            std = (1.0 / m.in_features) ** 0.5 / 0.87962566103423978
+            nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std,
+                                  generator=generator)
+        else:
+            continue
+        if m.bias is not None:
+            nn.init.zeros_(m.bias)
 
 
 def pixel_shuffle(x: torch.Tensor, factor: int) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""SRResNet generator (port of srgan_st_tpu/models/generator.py, eval mode).
+"""SRResNet generator (port of srgan_st_tpu/models/generator.py).
 
 Architecture parity with reference model.py:74-184: 9x9 conv + PReLU head,
 `num_rcb` residual conv blocks (conv3x3-BN-PReLU-conv3x3-BN + identity), a
@@ -7,16 +7,23 @@ sub-pixel upsample blocks (conv3x3 to channels*r^2 + PReLU + pixel-shuffle),
 a 9x9 reconstruction conv and a clamp to [0, 1].
 
 Input and output are NHWC, as in the JAX package. Inside, the NCHW modules
-run in `torch.channels_last` memory format, so the pre-shuffle activation
-that reaches a kernel is already NHWC in memory. The state_dict keys are
-the reference's (`conv1.0.weight`, `trunk.{i}.rcb.{0..4}`,
+run in `torch.channels_last` memory format, so the activation that reaches
+a kernel is already NHWC in memory. The state_dict keys are the
+reference's (`conv1.0.weight`, `trunk.{i}.rcb.{0..4}`,
 `upsampling.{i}.upsample_block.{0,2}`, `conv3.*`; see
-tests/reference_impls.py TorchSRResNet).
+tests/reference_impls.py TorchSRResNet). Parameters are float32 and cast
+to the compute dtype at use, as the JAX package's are.
 
-The last upsample block's shuffle is elided and the reconstruction conv
-runs on its pre-shuffle activation (conv2d_subpixel_pre_shuffled), through
-the hand-written coarse conv kernel by default; TAIL_MODE="fused" runs the
-last up-conv, PReLU and conv3 as one kernel (kernels/serving_tail.py).
+`forward(x, train=True)` normalizes with batch statistics and updates the
+running statistics in place (the JAX package's mutable batch_stats). The
+trunk then runs as per-block modules ("unfused") or, with
+trunk_mode="packed" in a bf16 train step, through the hand-written K4/K5
+kernels (kernels/packed_trunk.py); "hybrid" is the plain forward with the
+K5 backward. The last upsample block's shuffle is elided and the
+reconstruction conv runs on its pre-shuffle activation
+(conv2d_subpixel_pre_shuffled), through the hand-written coarse conv kernel
+by default; TAIL_MODE="fused" runs the last up-conv, PReLU and conv3 as one
+kernel in eval (kernels/serving_tail.py).
 """
 
 from __future__ import annotations
@@ -27,25 +34,43 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from srgan_st_tpu_torch.models.common import BatchNorm, PReLU, TapConv, pixel_shuffle
+from srgan_st_tpu_torch.models.common import (
+    BatchNorm, Conv2d, PReLU, TapConv, init_weights, pixel_shuffle,
+)
 
-_TRAIN_TODO = ("train mode waits for the training slice (ROADMAP.md Queue A, "
-               "item 1: the warmup/GAN training path)")
+_XPACK_TODO = ("trunk_mode='xpack' (the W-parity lane packing of the trunk as "
+               "plain convs) is not ported yet (ROADMAP.md Queue A, item 1)")
+_FUSED_TODO = ("trunk_mode='fused' (the whole-trunk forward kernel, K6) is not "
+               "ported yet (ROADMAP.md Queue B, item 2)")
+_TRUNK_MODES = ("unfused", "packed", "hybrid")
 
 
 class ResidualConvBlock(nn.Module):
     def __init__(self, channels: int):
         super().__init__()
         self.rcb = nn.Sequential(
-            nn.Conv2d(channels, channels, 3, 1, 1, bias=False),
+            Conv2d(channels, channels, 3, 1, 1, bias=False),
             BatchNorm(channels),
             PReLU(),
-            nn.Conv2d(channels, channels, 3, 1, 1, bias=False),
+            Conv2d(channels, channels, 3, 1, 1, bias=False),
             BatchNorm(channels),
         )
 
-    def forward(self, x):
-        return self.rcb(x) + x
+    def forward(self, x, train: bool = False):
+        conv1, bn1, prelu, conv2, bn2 = self.rcb
+        return bn2(conv2(prelu(bn1(conv1(x), train))), train) + x
+
+
+def stack_rcb_params(blocks) -> tuple:
+    """The residual blocks' parameters stacked as the trunk kernels take
+    them (kernels/fused_trunk.py stack_rcb_params): conv kernels
+    (n, 3, 3, C, C) HWIO, BN scales and biases (n, C), PReLU slopes (n,).
+    Differentiable: gradients flow back to each block's parameters."""
+    rcbs = [blk.rcb for blk in blocks]
+    hwio = lambda i: torch.stack([r[i].weight for r in rcbs]).permute(0, 3, 4, 2, 1)  # noqa: E731
+    vec = lambda i, name: torch.stack([getattr(r[i], name) for r in rcbs])  # noqa: E731
+    return (hwio(0), hwio(3), vec(1, "weight"), vec(1, "bias"), vec(4, "weight"),
+            vec(4, "bias"), torch.cat([r[2].weight for r in rcbs]))
 
 
 class UpsampleBlock(nn.Module):
@@ -61,7 +86,7 @@ class UpsampleBlock(nn.Module):
         self.upscale_factor = r
         self.fuse_shuffle = fuse_shuffle
         self.upsample_block = nn.Sequential(
-            nn.Conv2d(channels, channels * r * r, 3, 1, 1),
+            Conv2d(channels, channels * r * r, 3, 1, 1),
             nn.PixelShuffle(r),
             PReLU(),
         )
@@ -78,9 +103,9 @@ class UpsampleBlock(nn.Module):
 class Generator(nn.Module):
     """SRResNet. Input NHWC in [0, 1]; output NHWC float32 in [0, 1].
 
-    The parameters are held in the compute dtype `dtype`; loading a float32
-    state_dict casts, as the JAX package casts its float32 parameters at
-    use."""
+    The parameters are float32 and every module casts them to the compute
+    dtype `dtype` at use, as the JAX package does. Weights are initialized
+    as the reference's (kaiming-normal convs, zero biases)."""
 
     def __init__(self, in_channels: int = 3, out_channels: int = 3,
                  channels: int = 64, num_rcb: int = 16, upscale: int = 4,
@@ -94,6 +119,12 @@ class Generator(nn.Module):
         self.out_channels = out_channels
         self.upscale = upscale
         self.dtype = dtype
+        if trunk_mode is not None and trunk_mode not in _TRUNK_MODES:
+            if trunk_mode.startswith("xpack"):
+                raise NotImplementedError(_XPACK_TODO)
+            if trunk_mode.startswith("fused"):
+                raise NotImplementedError(_FUSED_TODO)
+            raise ValueError(f"unknown trunk_mode {trunk_mode!r}")
         self.trunk_mode = trunk_mode
         self.tail_mode = tail_mode
         factors = self._up_factors()
@@ -109,7 +140,7 @@ class Generator(nn.Module):
         self.conv1 = nn.Sequential(stem, PReLU())
         self.trunk = nn.Sequential(*[ResidualConvBlock(channels) for _ in range(num_rcb)])
         self.conv2 = nn.Sequential(
-            nn.Conv2d(channels, channels, 3, 1, 1, bias=False), BatchNorm(channels))
+            Conv2d(channels, channels, 3, 1, 1, bias=False), BatchNorm(channels))
         self.upsampling = nn.Sequential(*[
             UpsampleBlock(channels, r, fuse_shuffle=self.fuse and i == len(factors) - 1)
             for i, r in enumerate(factors)
@@ -118,7 +149,8 @@ class Generator(nn.Module):
             channels, out_channels, 9, mode=conv3_mode,
             pre_shuffle_factor=factors[-1] if self.fuse else 0,
             inner_factor=conv3_inner)
-        self.to(dtype=dtype, memory_format=torch.channels_last)
+        init_weights(self)
+        self.to(memory_format=torch.channels_last)
 
     @classmethod
     def from_config(cls, config, dtype: torch.dtype | None = None) -> "Generator":
@@ -167,27 +199,54 @@ class Generator(nn.Module):
             up[0].bias, up[2].weight, self.conv3.hwio(dt), self.conv3.bias)
         return torch.clamp(out.float(), 0.0, 1.0)
 
+    def _packed_ok(self, x: torch.Tensor) -> bool:
+        """Gate of the K4/K5 trunk (generator.py:164-189): bf16, even W, C a
+        multiple of 64 (packed_trunk.fits). The JAX gate's single-device
+        condition is the port's single device; its VMEM cap is a TPU
+        budget with no counterpart. x: NHWC."""
+        from srgan_st_tpu_torch.kernels.packed_trunk import fits
+
+        return x.dtype == torch.bfloat16 and fits(x.shape, x.dtype)
+
+    def _trunk(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        """The residual trunk on NHWC x; NHWC out. Auto runs the unfused
+        blocks in eval and in training (the JAX package's bf16-train auto,
+        xpack, is a TPU lane packing of the same function); "packed" and
+        "hybrid" run only in a train step inside the kernels' gate, as in
+        the JAX package, and fall back to the unfused blocks elsewhere."""
+        mode = self.trunk_mode or "unfused"
+        if mode == "unfused" or not train or not self._packed_ok(x):
+            h = x.permute(0, 3, 1, 2)
+            for blk in self.trunk:
+                h = blk(h, train)
+            return h.permute(0, 2, 3, 1)
+        from srgan_st_tpu_torch.kernels.packed_trunk import hybrid_trunk, packed_trunk
+
+        fn = hybrid_trunk if mode == "hybrid" else packed_trunk
+        y, stats = fn(x.contiguous(), *stack_rcb_params(self.trunk), 1e-5)
+        nelem = x.numel() // x.shape[-1]
+        for i, blk in enumerate(self.trunk):
+            blk.rcb[1].update_running(stats[i, 0], stats[i, 1], nelem)
+            blk.rcb[4].update_running(stats[i, 2], stats[i, 3], nelem)
+        return y
+
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        if train:
-            raise NotImplementedError(_TRAIN_TODO)
-        if self.trunk_mode is not None and self.trunk_mode.startswith("xpack"):
-            raise NotImplementedError(
-                "trunk_mode='xpack' (the BN-folded eval trunk) is not ported "
-                "yet (ROADMAP.md Queue A, item 1: xpack_trunk as torch "
-                "functions)")
+        """x NHWC in [0, 1]. train=True: batch statistics, running
+        statistics updated in place."""
         x = x.to(self.dtype)
 
         # Low-frequency information extraction layer (model.py:100-103)
-        conv1 = self.conv1[1](self.conv1[0](x)).permute(0, 3, 1, 2)
+        conv1 = self.conv1[1](self.conv1[0](x))
 
         # High-frequency trunk + linear fusion layer + global skip
-        h = self.trunk(conv1)
-        h = self.conv2(h) + conv1
+        h = self._trunk(conv1, train).permute(0, 3, 1, 2)
+        conv_fuse, bn_fuse = self.conv2
+        h = bn_fuse(conv_fuse(h), train) + conv1.permute(0, 3, 1, 2)
 
         # Sub-pixel zoom blocks (model.py:118-124)
         factors = self._up_factors()
         for i, r in enumerate(factors):
-            if i == len(factors) - 1 and self._use_fused_tail(h, r):
+            if i == len(factors) - 1 and not train and self._use_fused_tail(h, r):
                 return self._fused_tail(h, i)
             h = self.upsampling[i](h)
 

@@ -93,7 +93,7 @@ _KERNEL_INNER = (None, "pallas", "pallas-tiled")
 
 def conv2d_subpixel_pre_shuffled(
     y: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
-    factor: int = 2, inner_factor: int | str | None = 1,
+    factor: int = 2, inner_factor: int | str | None = 1, kernel_weights=None,
 ) -> torch.Tensor:
     """conv2d_subpixel(pixel_shuffle(y, f), w, b, factor=f) WITHOUT
     materializing the shuffle: s2d(pixel_shuffle(y)) == y, so the coarse
@@ -104,13 +104,18 @@ def conv2d_subpixel_pre_shuffled(
     holds: factor 2, even H and W, a 9x9 conv to 3 channels
     (coarse_conv.fits). Other shapes take the plain path, as in the JAX
     package. 1 forces the plain coarse conv, 2 the plain inner
-    space-to-depth factoring of it."""
+    space-to-depth factoring of it. The kernel path is differentiable: its
+    backward is autograd of the plain composition (`_PreShuffledF2`).
+    `kernel_weights`, where given, returns the kernel's layout of w
+    (coarse_conv.KernelWeights.get)."""
     from srgan_st_tpu_torch.kernels import coarse_conv
 
     w2 = _coarse_kernel(w, factor)
     if inner_factor in _KERNEL_INNER:
         if factor == 2 and coarse_conv.fits(y.shape, w2.shape, y.dtype):
-            return _pre_shuffled_f2_kernel(y, w2, b)
+            if b is None:
+                b = torch.zeros(w.shape[-1], dtype=y.dtype, device=y.device)
+            return _PreShuffledF2.apply(y, w, b, kernel_weights)
         inner_factor = 1
     if inner_factor > 1:
         out = conv2d_subpixel(y, w2, None, factor=inner_factor)
@@ -125,16 +130,39 @@ def _pre_shuffled_f2_reference(y, w, b):
     return depth_to_space(conv_nhwc(y, w2), 2) + b
 
 
-def _pre_shuffled_f2_kernel(y, w2, b):
+def _pre_shuffled_f2_kernel(y, w2, b, wt=None):
     """conv2d_subpixel_pre_shuffled(f=2) through the coarse conv kernel,
-    given the coarse kernel w2: quarter-resolution (n2, ry, rx) output,
-    rounded to the compute dtype, then both depth-to-spaces and the bias."""
+    given the coarse kernel w2 (and, optionally, the kernel's layout of
+    it): quarter-resolution (n2, ry, rx) output, rounded to the compute
+    dtype, then both depth-to-spaces and the bias."""
     from srgan_st_tpu_torch.kernels.coarse_conv import coarse_conv_s2d
 
-    z = coarse_conv_s2d(y, w2).to(y.dtype)  # (B, H/2, W/2, 4*N2)
+    z = coarse_conv_s2d(y, w2) if wt is None else coarse_conv_s2d(y, w2, wt)
+    z = z.to(y.dtype)  # (B, H/2, W/2, 4*N2)
     out = depth_to_space(z, 2)   # inner factor undone -> (B, H, W, N2)
     out = depth_to_space(out, 2)  # outer factor -> (B, 2H, 2W, n)
     return out if b is None else out + b
+
+
+class _PreShuffledF2(torch.autograd.Function):
+    """Kernel forward, plain backward: the gradient of (y, w, b) is
+    autograd of `_pre_shuffled_f2_reference` on the saved inputs, as the
+    JAX package's `_pre_shuffled_f2_pallas` custom_vjp does
+    (srgan_st_tpu/ops/subpixel_conv.py:183-206)."""
+
+    @staticmethod
+    def forward(ctx, y, w, b, kernel_weights):
+        ctx.save_for_backward(y, w, b)
+        wt = kernel_weights() if kernel_weights is not None and y.is_cuda else None
+        return _pre_shuffled_f2_kernel(y, _coarse_kernel(w, 2), b, wt)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            out = _pre_shuffled_f2_reference(*inputs)
+            grads = torch.autograd.grad(out, inputs, g)
+        return (*grads, None)
 
 
 def conv2d_subpixel(x: torch.Tensor, w: torch.Tensor,

@@ -1,16 +1,19 @@
-"""Checkpoint interchange (port of srgan_st_tpu/train/checkpoint.py, npz part).
+"""Checkpoints (port of srgan_st_tpu/train/checkpoint.py).
 
 * npz weight files in the JAX package's format: flat archives keyed by the
   '/'-joined path of the variables tree ({"params", "batch_stats"}), so a
   `g_best.npz` written by the JAX package loads here and the reverse.
-* the weight carry-over between that variables tree (HWIO kernels, scalar
-  PReLU slopes, BN scale/bias + mean/var) and the port's torch state_dict
-  (OIHW, (1,) slopes, BatchNorm2d keys) — the inverse of the reference
-  import tool's mapping (tools/import_torch_checkpoint.py).
+* the weight carry-over between those variables trees (HWIO kernels,
+  scalar PReLU slopes, BN scale/bias + mean/var, D's (H, W, C) flatten)
+  and the port's torch state_dicts (OIHW, (1,) slopes, BatchNorm2d keys,
+  (C, H, W) flatten) — the mapping of tools/import_torch_checkpoint.py.
+* full train states (models, optimizers, step) saved with `torch.save`,
+  and the last / best / epoch{N} policy over them (`CheckpointPolicy`).
 """
 
 from __future__ import annotations
 
+import json
 import os
 import re
 from typing import Any
@@ -161,3 +164,146 @@ def variables_from_generator_state_dict(state_dict: dict) -> dict:
         i += 1
     params["conv3"] = conv("conv3")
     return {"params": params, "batch_stats": stats}
+
+
+def discriminator_state_dict_from_variables(variables: dict) -> dict[str, torch.Tensor]:
+    """JAX discriminator variables {"params", "batch_stats"} -> the port's
+    (and the reference's) discriminator state_dict. fc1's input rows go
+    from the JAX (H, W, C) flatten to torch's (C, H, W), as in
+    tools/import_torch_checkpoint.py."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    sd: dict[str, torch.Tensor] = {}
+    p0 = params["conv0"]
+    sd["features.0.weight"] = _t(np.asarray(p0["kernel"]).transpose(3, 2, 0, 1))
+    sd["features.0.bias"] = _t(p0["bias"])
+    i = 1
+    while f"conv{i}" in params:
+        sd[f"features.{3 * i - 1}.weight"] = _t(
+            np.asarray(params[f"conv{i}"]["kernel"]).transpose(3, 2, 0, 1))
+        bn, st = params[f"bn{i}"], stats[f"bn{i}"]
+        key = f"features.{3 * i}"
+        sd[f"{key}.weight"], sd[f"{key}.bias"] = _t(bn["scale"]), _t(bn["bias"])
+        sd[f"{key}.running_mean"], sd[f"{key}.running_var"] = _t(st["mean"]), _t(st["var"])
+        sd[f"{key}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+        i += 1
+    k1 = np.asarray(params["fc1"]["kernel"])  # (H*W*C, 1024), rows (h, w, c)
+    c = k1.shape[0] // 36
+    sd["classifier.0.weight"] = _t(
+        k1.T.reshape(-1, 6, 6, c).transpose(0, 3, 1, 2).reshape(k1.shape[1], -1))
+    sd["classifier.0.bias"] = _t(params["fc1"]["bias"])
+    sd["classifier.2.weight"] = _t(np.asarray(params["fc2"]["kernel"]).T)
+    sd["classifier.2.bias"] = _t(params["fc2"]["bias"])
+    return sd
+
+
+def variables_from_discriminator_state_dict(state_dict: dict) -> dict:
+    """The port's (or the reference's) discriminator state_dict -> the JAX
+    variables tree {"params", "batch_stats"} of float32 numpy arrays."""
+    sd = {k: v.detach().cpu().float().numpy() for k, v in state_dict.items()
+          if not k.endswith("num_batches_tracked")}
+    params: dict = {"conv0": {"kernel": sd["features.0.weight"].transpose(2, 3, 1, 0).copy(),
+                              "bias": sd["features.0.bias"]}}
+    stats: dict = {}
+    i = 1
+    while f"features.{3 * i - 1}.weight" in sd:
+        key = f"features.{3 * i}"
+        params[f"conv{i}"] = {
+            "kernel": sd[f"features.{3 * i - 1}.weight"].transpose(2, 3, 1, 0).copy()}
+        params[f"bn{i}"] = {"scale": sd[f"{key}.weight"], "bias": sd[f"{key}.bias"]}
+        stats[f"bn{i}"] = {"mean": sd[f"{key}.running_mean"], "var": sd[f"{key}.running_var"]}
+        i += 1
+    w1 = sd["classifier.0.weight"]  # (1024, C*H*W), columns (c, h, w)
+    c = w1.shape[1] // 36
+    params["fc1"] = {
+        "kernel": w1.reshape(-1, c, 6, 6).transpose(0, 2, 3, 1).reshape(w1.shape[0], -1).T.copy(),
+        "bias": sd["classifier.0.bias"]}
+    params["fc2"] = {"kernel": sd["classifier.2.weight"].T.copy(),
+                     "bias": sd["classifier.2.bias"]}
+    return {"params": params, "batch_stats": stats}
+
+
+# ---------------------------------------------------------------------------
+# full train states
+
+def save_train_state(path: str, state) -> None:
+    """Models (parameters and running statistics), both optimizers (with
+    their update counts) and the step, in one `torch.save` file."""
+    tree = {"step": state.step, "g_model": state.g_model.state_dict(),
+            "g_opt": state.g_opt.state_dict()}
+    if state.d_model is not None:
+        tree.update(d_model=state.d_model.state_dict(), d_opt=state.d_opt.state_dict())
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    torch.save(tree, path)
+
+
+def load_train_state(path: str, state):
+    """Restore a `save_train_state` file into `state` in place; raises
+    KeyError or ValueError, before changing anything, when it does not fit
+    (another phase, other shapes)."""
+    dev = next(state.g_model.parameters()).device
+    tree = torch.load(path, map_location=dev, weights_only=True)
+    has_d = state.d_model is not None
+    if has_d != ("d_model" in tree):
+        raise KeyError(f"{path}: a {'GAN' if 'd_model' in tree else 'warmup'} "
+                       "train state")
+    for key in ("g_model", "d_model") if has_d else ("g_model",):
+        want = getattr(state, key).state_dict()
+        got = tree[key]
+        if set(got) != set(want) or any(got[k].shape != want[k].shape for k in want):
+            raise ValueError(f"{path}: {key} does not fit the model (keys or shapes)")
+    state.g_model.load_state_dict(tree["g_model"])
+    state.g_opt.load_state_dict(tree["g_opt"])
+    if has_d:
+        state.d_model.load_state_dict(tree["d_model"])
+        state.d_opt.load_state_dict(tree["d_opt"])
+    state.step = int(tree["step"])
+    return state
+
+
+class CheckpointPolicy:
+    """last / best / periodic train-state policy (reference
+    train.py:207-226): `last` every epoch; `best` when PSNR AND SSIM both
+    improve; `epoch{N}` every `interval` epochs for epoch > 0. The best
+    metrics persist in `_policy.json`, so a resumed run keeps them."""
+
+    def __init__(self, results_dir: str, interval: int = 100):
+        self.results_dir = os.path.abspath(results_dir)
+        self.interval = interval
+        self.best_psnr = self.best_ssim = 0.0
+        os.makedirs(self.results_dir, exist_ok=True)
+        self._meta_path = os.path.join(self.results_dir, "_policy.json")
+        if os.path.exists(self._meta_path):
+            with open(self._meta_path) as f:
+                meta = json.load(f)
+            self.best_psnr = float(meta.get("best_psnr", 0.0))
+            self.best_ssim = float(meta.get("best_ssim", 0.0))
+
+    def _path(self, name: str) -> str:
+        return os.path.join(self.results_dir, f"{name}.state.pt")
+
+    def save_epoch(self, state, epoch: int, psnr: float, ssim: float) -> bool:
+        """Apply the policy for a finished epoch; returns is_best."""
+        save_train_state(self._path("last"), state)
+        is_best = self.best_psnr < psnr and self.best_ssim < ssim
+        if is_best:
+            save_train_state(self._path("best"), state)
+            self.best_psnr, self.best_ssim = psnr, ssim
+            with open(self._meta_path, "w") as f:
+                json.dump({"best_psnr": psnr, "best_ssim": ssim, "epoch": epoch}, f)
+        if 0 < epoch and epoch % self.interval == 0:
+            save_train_state(self._path(f"epoch{epoch}"), state)
+        return is_best
+
+    def restore_latest(self, state) -> bool:
+        """Restore `last` into `state` if present. One that does not fit
+        (e.g. a warmup state found by a GAN run sharing the directory) is
+        skipped with a warning. Returns whether a state was restored."""
+        path = self._path("last")
+        if not os.path.exists(path):
+            return False
+        try:
+            load_train_state(path, state)
+        except (KeyError, ValueError) as e:
+            print(f"skipping incompatible 'last' checkpoint in {self.results_dir}: {e}")
+            return False
+        return True

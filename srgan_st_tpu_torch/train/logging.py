@@ -1,0 +1,42 @@
+"""Experiment logging (port of srgan_st_tpu/train/logging.py).
+
+A TensorBoard writer per experiment at `tensorboard/{EXP.NAME}` with the
+reference's scalar names (Train/G_Loss, Train/G_{criterion}, Train/D_Loss,
+Train/D(GT)_Probability, Train/D(SR)_Probability, Test/PSNR, Test/SSIM)
+and the config text under Config/Params. Without tensorboardX the scalars
+go to `scalars.jsonl` in the same directory.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+
+
+class ExperimentWriter:
+    def __init__(self, config, log_dir: str | None = None):
+        self._tb = self._jsonl = None
+        self.log_dir = log_dir or os.path.join("tensorboard", config.EXP.NAME)
+        os.makedirs(self.log_dir, exist_ok=True)
+        try:
+            from tensorboardX import SummaryWriter
+        except ImportError:
+            self._jsonl = open(os.path.join(self.log_dir, "scalars.jsonl"), "a")
+        else:
+            self._tb = SummaryWriter(self.log_dir)
+            self._tb.add_text("Config/Params", config.get_all_params())
+
+    def add_scalar(self, tag: str, value, step: int) -> None:
+        value = float(value)
+        if self._tb is not None:
+            self._tb.add_scalar(tag, value, step)
+        else:
+            self._jsonl.write(json.dumps(
+                {"ts": time.time(), "tag": tag, "value": value, "step": step}) + "\n")
+
+    def close(self) -> None:
+        if self._tb is not None:
+            self._tb.close()
+        else:
+            self._jsonl.close()

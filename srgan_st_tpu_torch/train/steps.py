@@ -1,0 +1,224 @@
+"""Training steps (port of srgan_st_tpu/train/steps.py).
+
+The JAX package's steps are pure functions of a train state; here the
+state holds the modules and their optimizers, and a step updates them in
+place (parameters, BatchNorm running statistics, optimizer moments) and
+returns (state, metrics). Metrics are 0-dim tensors, read by the training
+loop only when it logs, so a step does not wait for the device.
+
+  * `warmup_step(state, gt_u8)` — /255 + MATLAB bicubic degradation, the
+    generator forward in train mode, the weighted criterion sum, Adam.
+  * `g_step(state, gt_u8)` — the same with the adversarial term, whose
+    discriminator forward runs in train mode and updates D's running
+    statistics (as torch does in the reference); gradients go to G only.
+  * `d_step(state, gt_u8, sr)` — the every-D_UPDATE_INTERVAL
+    discriminator update on (gt, smoothed real) and (sr, fake), two
+    sequential train-mode forwards whose statistics chain.
+
+warmup() and train() call them once per batch, as the reference's loop does
+(train.py:116-164): the JAX package's `lax.scan` chunking is a TPU
+dispatch device with no counterpart here.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+from srgan_st_tpu_torch.data.pipeline import DATA_TODO
+from srgan_st_tpu_torch.losses.functions import adversarial_loss
+from srgan_st_tpu_torch.ops.resize import resize_bicubic
+
+
+@dataclass
+class GANTrainState:
+    g_model: torch.nn.Module
+    g_opt: "Adam"
+    d_model: torch.nn.Module | None = None
+    d_opt: "Adam | None" = None
+    step: int = 0
+
+
+def multistep_lr(base_lr: float, milestones_steps: list[int], gamma: float
+                 ) -> Callable[[int], float]:
+    """MultiStepLR in update counts: the lr of update k (0-based) is
+    base * gamma^(number of milestones <= k), as optax counts."""
+    bounds = sorted(milestones_steps)
+    return lambda count: base_lr * gamma ** sum(count >= m for m in bounds)
+
+
+class Adam:
+    """optax.adam (or optax.adamw with weight decay) with a step schedule:
+    `torch.optim.Adam` / `AdamW` stepped with the explicit lr of each update,
+    lr_fn(k) for update k. Both put eps outside the square root, as optax
+    does: lr * mhat / (sqrt(vhat) + eps)."""
+
+    def __init__(self, params, lr_fn: Callable[[int], float], beta1: float,
+                 beta2: float, eps: float, weight_decay: float):
+        self.params = [p for p in params if p.requires_grad]
+        cls = torch.optim.AdamW if weight_decay else torch.optim.Adam
+        self.opt = cls(self.params, lr=lr_fn(0), betas=(beta1, beta2), eps=eps,
+                       weight_decay=weight_decay)
+        self.lr_fn = lr_fn
+        self.count = 0
+
+    def step(self, grads) -> None:
+        """Apply one update with `grads` (one per parameter, in order)."""
+        for p, g in zip(self.params, grads, strict=True):
+            p.grad = g
+        for group in self.opt.param_groups:
+            group["lr"] = self.lr_fn(self.count)
+        self.opt.step()
+        self.opt.zero_grad(set_to_none=True)
+        self.count += 1
+
+    def state_dict(self) -> dict:
+        return {"opt": self.opt.state_dict(), "count": self.count}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.opt.load_state_dict(state["opt"])
+        self.count = int(state["count"])
+
+
+def make_optimizer(params, base_lr, beta1, beta2, eps, weight_decay,
+                   milestones_steps, gamma) -> Adam:
+    """Adam with the reference's hyperparameters — eps=1e-4, not torch's
+    default (reference config.py:107,114)."""
+    return Adam(params, multistep_lr(base_lr, milestones_steps, gamma), beta1, beta2,
+                eps, weight_decay)
+
+
+def make_g_optimizer(config, params, steps_per_epoch: int, milestones: bool = True):
+    ms = [m * steps_per_epoch for m in config.SCHEDULER.MILESTONES] if milestones else []
+    s = config.SOLVER
+    return make_optimizer(params, s.G_BASE_LR, s.G_BETA1, s.G_BETA2, s.G_EPS,
+                          s.G_WEIGHT_DECAY, ms, config.SCHEDULER.GAMMA)
+
+
+def make_d_optimizer(config, params, steps_per_epoch: int):
+    """D's Adam + MultiStepLR with the milestones in D-UPDATE counts:
+    ceil(steps_per_epoch / D_UPDATE_INTERVAL) D updates happen per epoch
+    (steps.py:87-103)."""
+    d_updates_per_epoch = -(-steps_per_epoch // config.SOLVER.D_UPDATE_INTERVAL)
+    ms = [m * d_updates_per_epoch for m in config.SCHEDULER.MILESTONES]
+    s = config.SOLVER
+    return make_optimizer(params, s.D_BASE_LR, s.D_BETA1, s.D_BETA2, s.D_EPS,
+                          s.D_WEIGHT_DECAY, ms, config.SCHEDULER.GAMMA)
+
+
+def _check_data_options(config) -> None:
+    if config.DATA.AUGMENT:
+        raise NotImplementedError(DATA_TODO.format("DATA.AUGMENT"))
+
+
+def _prepare_batch(gt, config, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """uint8 NHWC GT batch -> (gt, lr) float32 on `device`: /255, then
+    MATLAB-bicubic x(1/upscale) with its quantization (reference
+    dataset.py:23-32)."""
+    s = int(config.DATA.GT_IMAGE_SIZE)
+    if gt.shape[1] != s or gt.shape[2] != s:
+        raise NotImplementedError(DATA_TODO.format(
+            f"a tile of {tuple(gt.shape[1:3])} (random crops to GT_IMAGE_SIZE {s})"))
+    gt = torch.as_tensor(gt).to(device)
+    if gt.dtype == torch.uint8:
+        gt = gt.float() / 255.0
+    return gt, resize_bicubic(gt, 1.0 / config.DATA.UPSCALE_FACTOR, method="matlab")
+
+
+def _device(state: GANTrainState) -> torch.device:
+    return next(state.g_model.parameters()).device
+
+
+def _criterion_sum(criterions, sr, gt, adversarial=None):
+    total, values = 0.0, {}
+    for name, (fn, weight) in criterions.items():
+        term = (adversarial(sr) if fn is None else fn(sr, gt)) * weight
+        values[f"G_{name}"] = term.detach()
+        total = total + term
+    return total, values
+
+
+def make_warmup_step(config, criterions):
+    """Generator-only pretraining step (reference warmup.py:74-96)."""
+    _check_data_options(config)
+
+    def warmup_step(state: GANTrainState, gt_u8):
+        gt, lr = _prepare_batch(gt_u8, config, _device(state))
+        sr = state.g_model(lr, train=True)
+        total, values = _criterion_sum(criterions, sr, gt)
+        state.g_opt.step(torch.autograd.grad(total, state.g_opt.params))
+        state.step += 1
+        return state, dict(values, G_Loss=total.detach())
+
+    return warmup_step
+
+
+def make_gan_steps(config, criterions):
+    """(g_step, d_step) for adversarial training (train.py:116-164)."""
+    _check_data_options(config)
+    real_label = 1.0 - config.EXP.LABEL_SMOOTHING
+
+    def g_step(state: GANTrainState, gt_u8):
+        gt, lr = _prepare_batch(gt_u8, config, _device(state))
+        sr = state.g_model(lr, train=True)
+
+        def adversarial(sr_):
+            return adversarial_loss(state.d_model(sr_, train=True), real_label)
+
+        total, values = _criterion_sum(criterions, sr, gt, adversarial)
+        # gradients of G's parameters only: D's are not computed
+        state.g_opt.step(torch.autograd.grad(total, state.g_opt.params))
+        state.step += 1
+        return state, sr.detach(), dict(values, G_Loss=total.detach())
+
+    def d_step(state: GANTrainState, gt_u8, sr):
+        gt, _ = _prepare_batch(gt_u8, config, _device(state))
+        sr = sr.detach()
+        pred_gt = state.d_model(gt, train=True)
+        pred_sr = state.d_model(sr, train=True)  # statistics chained after gt's
+        d_loss = adversarial_loss(pred_gt, real_label) + adversarial_loss(pred_sr, 0.0)
+        state.d_opt.step(torch.autograd.grad(d_loss, state.d_opt.params))
+        metrics = {
+            "D_Loss": d_loss.detach(),
+            "D(GT)_Probability": torch.sigmoid(pred_gt.detach().mean()),
+            "D(SR)_Probability": torch.sigmoid(pred_sr.detach().mean()),
+        }
+        return state, metrics
+
+    return g_step, d_step
+
+
+def _seeded(config, generator: torch.Generator | None) -> torch.Generator:
+    return generator if generator is not None else torch.Generator().manual_seed(
+        int(config.DATA.SEED))
+
+
+def create_generator_state(config, g_model, steps_per_epoch: int, device,
+                           milestones: bool = True,
+                           generator: torch.Generator | None = None) -> GANTrainState:
+    """Initialize `g_model` from a seeded CPU `torch.Generator` (DATA.SEED
+    by default), move it to `device` and give it its Adam."""
+    from srgan_st_tpu_torch.models.common import init_weights
+
+    init_weights(g_model, _seeded(config, generator))
+    g_model.to(device)
+    return GANTrainState(g_model=g_model, g_opt=make_g_optimizer(
+        config, g_model.parameters(), steps_per_epoch, milestones))
+
+
+def create_gan_state(config, g_model, d_model, steps_per_epoch: int, device,
+                     generator: torch.Generator | None = None) -> GANTrainState:
+    """G then D initialized from one seeded generator, both on `device`."""
+    from srgan_st_tpu_torch.models.common import init_weights
+
+    gen = _seeded(config, generator)
+    state = create_generator_state(config, g_model, steps_per_epoch, device,
+                                   generator=gen)
+    init_weights(d_model, gen)
+    d_model.to(device)
+    state.d_model = d_model
+    state.d_opt = make_d_optimizer(config, d_model.parameters(), steps_per_epoch)
+    return state
+

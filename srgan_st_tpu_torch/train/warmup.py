@@ -1,0 +1,110 @@
+"""Generator pretraining ("SRResNet" warmup) loop (port of
+srgan_st_tpu/train/warmup.py).
+
+Mirrors reference warmup.py:14-148: Adam on G only (no LR schedule), the
+WARMUP_CRITERIONS set (default pixel MSE), validation at each epoch end,
+the reference's scalar names, and the g_last / g_best / g_epoch{N} npz
+checkpoints beside the full train state of `CheckpointPolicy`. One device,
+one step per batch; runs on CUDA unless `device` says otherwise.
+"""
+
+from __future__ import annotations
+
+import os
+
+from srgan_st_tpu_torch.core.device import resolve_device
+from srgan_st_tpu_torch.data.pipeline import make_train_source
+from srgan_st_tpu_torch.eval.validate import make_generator_apply, validate
+from srgan_st_tpu_torch.losses.registry import build_warmup_criterions
+from srgan_st_tpu_torch.models.generator import Generator
+from srgan_st_tpu_torch.train.checkpoint import (
+    CheckpointPolicy,
+    save_variables_npz,
+    variables_from_generator_state_dict,
+)
+from srgan_st_tpu_torch.train.logging import ExperimentWriter
+from srgan_st_tpu_torch.train.steps import create_generator_state, make_warmup_step
+from srgan_st_tpu_torch.train.utils import make_test_pairs
+
+
+def resume(config, policy: CheckpointPolicy, state, steps_per_epoch: int) -> int:
+    """The epoch to start from: from the restored `last` state's step
+    when one fits (EXP.AUTO_RESUME, or START_EPOCH > 0), else START_EPOCH."""
+    start_epoch = config.EXP.START_EPOCH
+    if (start_epoch > 0 or config.EXP.AUTO_RESUME) and policy.restore_latest(state):
+        start_epoch = state.step // steps_per_epoch
+        if start_epoch != config.EXP.START_EPOCH:
+            print(f"resuming at epoch {start_epoch} (from checkpoint step), "
+                  f"not START_EPOCH={config.EXP.START_EPOCH}")
+    return start_epoch
+
+
+def validate_epoch(config, state, test_pairs, writer, epoch: int, device):
+    """PSNR/SSIM of the generator's eval mode on the test pairs; returns
+    (psnr, ssim, the JAX-format variables tree)."""
+    variables = variables_from_generator_state_dict(state.g_model.state_dict())
+    psnr, ssim = validate(make_generator_apply(config, variables, device=device),
+                          test_pairs, config)
+    if epoch % config.LOG_VALIDATION_PERIOD == 0:
+        print(f"[Test: {epoch+1}/{config.EXP.N_EPOCHS}] [PSNR: {psnr}] [SSIM: {ssim}]")
+    writer.add_scalar("Test/PSNR", psnr, epoch + 1)
+    writer.add_scalar("Test/SSIM", ssim, epoch + 1)
+    return psnr, ssim, variables
+
+
+def warmup(config, device=None):
+    dev = resolve_device(device)
+    source = make_train_source(config)
+    steps_per_epoch = len(source)
+    criterions = build_warmup_criterions(config)
+    step = make_warmup_step(config, criterions)
+    state = create_generator_state(config, Generator.from_config(config),
+                                   steps_per_epoch, dev, milestones=False)
+
+    writer = ExperimentWriter(config)
+    results_dir = f"results/{config.EXP.NAME}"
+    policy = CheckpointPolicy(results_dir, config.G_CHECKPOINT_INTERVAL)
+    test_pairs = make_test_pairs(config)
+    start_epoch = resume(config, policy, state, steps_per_epoch)
+
+    batches_done = start_epoch * steps_per_epoch
+    for epoch in range(start_epoch, config.EXP.N_EPOCHS):
+        print(f"Beginning train epoch: {epoch+1}")
+        for gt in source.epoch(epoch):
+            batch_num = batches_done % steps_per_epoch
+            batches_done += 1
+            state, metrics = step(state, gt)
+            if batch_num % config.LOG_TRAIN_PERIOD != 0:
+                continue
+            for name, val in metrics.items():
+                writer.add_scalar(f"Train/{name}", val, batches_done)
+            print(f"[Epoch {epoch+1}/{config.EXP.N_EPOCHS}] "
+                  f"[Batch {batch_num}/{steps_per_epoch}] "
+                  f"[G loss: {float(metrics['G_Loss'])}]")
+
+        psnr, ssim, g_variables = validate_epoch(config, state, test_pairs, writer,
+                                                 epoch, dev)
+        save_variables_npz(os.path.join(results_dir, "g_last.npz"), g_variables)
+        if policy.save_epoch(state, epoch, psnr, ssim):
+            save_variables_npz(os.path.join(results_dir, "g_best.npz"), g_variables)
+        if 0 < epoch and epoch % config.G_CHECKPOINT_INTERVAL == 0:
+            save_variables_npz(os.path.join(results_dir, f"g_epoch{epoch}.npz"),
+                               g_variables)
+
+    writer.close()
+    return state
+
+
+def cli(argv=None) -> None:
+    """``python -m srgan_st_tpu_torch warmup``; same flags as train.cli."""
+    from srgan_st_tpu_torch.core.config import parse_driver_cli
+
+    config, device = parse_driver_cli(
+        argv, description="PSNR-oriented SRResNet warmup phase (pixel loss only); "
+        "produces the generator checkpoint the GAN phase starts from.",
+        set_example="--set TPU.COMPUTE_DTYPE=bfloat16 --set DATA.SYNTHETIC=true")
+    warmup(config, device)
+
+
+if __name__ == "__main__":
+    cli()

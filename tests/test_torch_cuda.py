@@ -126,3 +126,164 @@ def test_generator_tail_modes_agree(dev):
     env = _err(outs["composed"], outs["f32"])
     assert 0 < env < 0.1
     assert _err(outs["fused"], outs["composed"]) <= 2 * env
+
+
+def _trunk_inputs(dev, shape, n, seed=3):
+    rng = np.random.default_rng(seed)
+    c = shape[-1]
+
+    def r(*s):
+        return torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
+
+    params = [r(n, 3, 3, c, c) * 0.05, r(n, 3, 3, c, c) * 0.05, 1 + 0.1 * r(n, c),
+              0.1 * r(n, c), 1 + 0.1 * r(n, c), 0.1 * r(n, c), 0.25 + 0.01 * r(n)]
+    return r(*shape), params
+
+
+def _trunk_run(fn, x, params):
+    xg = x.clone().requires_grad_()
+    pg = [p.clone().requires_grad_() for p in params]
+    y, stats = fn(xg, *pg)
+    (y.float() ** 2).sum().backward()
+    torch.cuda.synchronize()
+    return [y.detach(), stats] + [t.grad for t in (xg, *pg)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 8, 8, 64), (3, 6, 10, 128)])
+def test_packed_trunk_matches_plain(dev, shape):
+    """K4 forward and K5 backward through the autograd Function against the
+    plain version at small shapes (one and two channel tiles), n = 2. f32:
+    y and stats within 1e-4
+    max|ref|, each of the 8 gradients within 1e-3 max|ref|. bf16: each
+    within 2x the plain version's bf16-vs-f32 envelope."""
+    from srgan_st_tpu_torch.kernels import packed_trunk as pt
+
+    x, params = _trunk_inputs(dev, shape, 2)
+    before = (pt.fwd_launches, pt.bwd_launches)
+    got = _trunk_run(pt.packed_trunk, x, params)
+    assert (pt.fwd_launches, pt.bwd_launches) == (before[0] + 1, before[1] + 1)
+    ref = _trunk_run(pt.packed_trunk_reference, x, params)
+    for i, (g, r) in enumerate(zip(got, ref)):
+        assert g.dtype == r.dtype and g.shape == r.shape
+        assert _err(g, r) <= (1e-4 if i < 2 else 1e-3) * float(r.abs().max()), i
+    xb = x.bfloat16()
+    p16 = [params[0].bfloat16().float(), params[1].bfloat16().float(), *params[2:]]
+    ref32 = _trunk_run(pt.packed_trunk_reference, xb.float(), p16)
+    plain16 = _trunk_run(pt.packed_trunk_reference, xb, params)
+    got16 = _trunk_run(pt.packed_trunk, xb, params)
+    for i, (g, p, r) in enumerate(zip(got16, plain16, ref32)):
+        env = _err(p, r)
+        assert 0 < env and _err(g, r) <= 2 * env, (i, _err(g, r), env)
+
+
+@pytest.mark.cuda
+def test_packed_trunk_on_saved_residuals_at_40960_pixels(dev):
+    """At (8, 64, 80, 64), n = 2, the wgrad's split-K grows its blocks past
+    256 pixels to stay at 128 of them. K4 against the plain forward, and K5
+    against the plain backward on the residuals K4 saved (so that both
+    take the same PReLU branches: fed their own forwards, a PReLU input
+    within f32 rounding of 0 can take the other branch at one of 5 M
+    elements). f32, TF32 off: within 1e-4 (forward) and 1e-3 (gradients)
+    of max|ref|."""
+    from srgan_st_tpu_torch.kernels import packed_trunk as pt
+
+    x, params = _trunk_inputs(dev, (8, 64, 80, 64), 2)
+    dy = torch.randn_like(x)
+    bp = (params[0], params[1], params[2], params[3], params[4], params[6])
+    got = pt._launch_fwd(x, *params, 1e-5)
+    ref = pt._reference_forward(x, *params, 1e-5)
+    gb = pt._launch_bwd(dy, *got[1:], *bp, 1e-5)
+    rb = pt._reference_backward(dy, *got[1:], *bp, 1e-5)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert _err(g, r) <= 1e-4 * float(r.abs().max())
+    for i, (g, r) in enumerate(zip(gb, rb)):
+        assert _err(g, r) <= 1e-3 * float(r.abs().max()), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_trunk_is_deterministic(dev, dtype):
+    """Two runs of K4 and of K5 on the same inputs give the same bits: the
+    BN sums and the split-K wgrad reduce in a fixed order."""
+    from srgan_st_tpu_torch.kernels import packed_trunk as pt
+
+    x, params = _trunk_inputs(dev, (4, 16, 16, 64), 3)
+    x = x.to(dtype)
+    fwd = [pt._launch_fwd(x, *params, 1e-5) for _ in range(2)]
+    dy = torch.randn_like(x)
+    bp = (params[0], params[1], params[2], params[3], params[4], params[6])
+    bwd = [pt._launch_bwd(dy, *fwd[0][1:], *bp, 1e-5) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*fwd):
+        assert torch.equal(a, b)
+    for a, b in zip(*bwd):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_packed_trunk_raises_outside_its_gate(dev):
+    """A CUDA tensor the kernels do not take raises; it never takes the
+    plain version."""
+    from srgan_st_tpu_torch.kernels import packed_trunk as pt
+
+    _, params = _trunk_inputs(dev, (1, 4, 4, 64), 1)
+    with pytest.raises(ValueError, match="even"):
+        pt.packed_trunk(torch.zeros(1, 4, 7, 64, device=dev), *params)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        pt.packed_trunk(torch.zeros(1, 4, 4, 32, device=dev), *[p[..., :32, :32] if p.dim() == 5
+                                                                else p[..., :32] if p.dim() == 2
+                                                                else p for p in params])
+    with pytest.raises(ValueError, match="bf16/f32"):
+        pt.packed_trunk(torch.zeros(1, 4, 4, 64, device=dev, dtype=torch.float16), *params)
+    with pytest.raises(ValueError, match="contiguous"):
+        pt.packed_trunk(torch.zeros(1, 64, 4, 4, device=dev).permute(0, 2, 3, 1), *params)
+
+
+@pytest.mark.cuda
+def test_conv3_kernel_path_has_the_plain_gradients(dev):
+    """The coarse conv kernel's autograd Function: a kernel-A forward whose
+    gradients are not zero and equal the plain path's (f32, TF32 off;
+    tolerance: accumulation order)."""
+    from srgan_st_tpu_torch.kernels import coarse_conv as cc
+    from srgan_st_tpu_torch.ops.subpixel_conv import conv2d_subpixel_pre_shuffled
+
+    rng = np.random.default_rng(8)
+    y0 = _rand(rng, 2, 12, 16, 256, dev=dev) + 0.5
+    w0 = _rand(rng, 9, 9, 64, 3, scale=0.05, dev=dev)
+    b0 = _rand(rng, 3, dev=dev)
+    grads = []
+    for inner in (None, 1):
+        y, w, b = (t.clone().requires_grad_() for t in (y0, w0, b0))
+        before = cc.launches
+        out = conv2d_subpixel_pre_shuffled(y, w, b, factor=2, inner_factor=inner)
+        assert cc.launches == before + (inner is None)
+        (out ** 2).sum().backward()
+        grads.append([t.grad for t in (y, w, b)])
+    for a, b in zip(*grads):
+        assert float(a.abs().max()) > 0
+        assert _err(a, b) <= 1e-4 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+def test_generator_train_step_launches_the_kernels(dev):
+    """A bf16 train-mode forward and backward of a narrow-depth full-width
+    generator with trunk "packed" launches K4, K5 and kernel A once each,
+    and gives every parameter a finite gradient, conv3's not zero."""
+    from srgan_st_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from srgan_st_tpu_torch.models.generator import Generator, random_variables
+    from srgan_st_tpu_torch.train.checkpoint import generator_state_dict_from_variables
+
+    g = Generator(num_rcb=2, dtype=torch.bfloat16, trunk_mode="packed")
+    g.load_state_dict(generator_state_dict_from_variables(random_variables(0, num_rcb=2)))
+    g.to(dev)
+    lr = torch.rand(4, 24, 24, 3, device=dev)
+    reset_launch_counts()
+    g(lr, train=True).square().mean().backward()
+    torch.cuda.synchronize()
+    assert launch_counts() == {"coarse_conv_s2d": 1, "serving_tail": 0,
+                               "packed_trunk_fwd": 1, "packed_trunk_bwd": 1}
+    for name, p in g.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+    assert float(g.conv3.weight.grad.abs().max()) > 0
