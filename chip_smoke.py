@@ -54,8 +54,38 @@ Then the training slice, bf16 with TRUNK_MODE="packed" unless named:
            and unfused, by CUDA events (median of 10), and patches/s;
   profile  one GAN step of each trunk under torch.profiler.
 
+Then the structure-tensor loss study (`run`, job 1: Adversarial +
+PatchwiseST + ContentDiscriminator), bf16:
+
+  kernel   the buddy selection K7 against its plain version on the
+           PatchwiseST features of a seeded batch at its shape (16, 1024, 27)
+           x (16, 1344, 27), bf16 and f32, on the Gram features (d = 9), at
+           an edge shape whose N and M divide no tile, on a duplicate-heavy
+           bank, and in l1 at a small shape. Gates: (a) each index equal to
+           the plain version's, or its f64 score within 1e-6 relative of the
+           f64 minimum; (b) on the duplicate-heavy bank, no index into the
+           copied half and the f64 argmin on every row that is not a near
+           tie; (c) the gathered rows are bank rows bit for bit. Then its
+           time, the plain version's and the library composition's (two
+           torch.baddbmm + torch.argmin, which is also the plain version);
+  kernel   the whole-trunk forward K6 against its plain version at the
+           training shape and the edge shape, f32 and bf16 (the K4 gates),
+           y, the residuals and the stats, and a second run's bits; its time
+           beside K4's and the cuDNN trunk's on the same inputs;
+  run      main.py's job 1 (`python -m srgan_st_tpu_torch run --job_index
+           1`) at full width in a temporary directory, 3 batches, with
+           TRUNK_MODE "fused" and then "unfused", then jobs 3 and 4 with
+           "packed"; launch counts reset just before each and read just
+           after (K7 = 1 per G step of job 1, K6 = 1 per G step forward
+           under "fused");
+  check    one GAN step of job 1 with the fused and the unfused trunk from
+           the same seeded state, within the train gates above;
+  time     ms per warmup, G and GAN step of job 1 for the fused, packed and
+           unfused trunks, and patches/s; a profile of the fused GAN step.
+
 Then the card's name and power limit as nvidia-smi prints them, one
-{"kernels": [...]} line, and last {"ok": true, "device": {...}}. Any failed
+{"kernels": [...]} line (a row for each of the TPU kernels K1-K7), and last
+{"ok": true, "device": {...}}. Any failed
 gate raises and the script exits non-zero without that last line; so does
 a machine with no GPU, or a directory without the port beside the script.
 
@@ -128,9 +158,9 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -569,15 +599,12 @@ def _time_trunk(xb, p, dyb, res16, fwd_rec, bwd_rec) -> None:
     act = b * h * w * c
     conv_flops = 2 * b * h * w * 9 * c * c  # one 3x3 conv
     weights = 2 * n * 9 * c * c
-    # forward: read x and the weights, write y, the three residuals, stats
-    f_bytes = 2 * act + 2 * weights + 2 * act + 3 * 2 * n * act + 4 * n * 4 * c
+    f_bytes = _trunk_fwd_bytes(n, b, h, w, c)
     # backward: read dy, the residuals, stats, weights; write dx, dW (f32),
     # the BN and slope gradients
     b_bytes = (2 * act + 3 * 2 * n * act + 4 * n * 4 * c + 2 * weights
                + 2 * act + 4 * weights + 4 * n * (4 * c + 1))
-    lib = [t.detach().clone() for t in p]
-    lib[0], lib[1] = (w.bfloat16().permute(0, 4, 3, 1, 2).contiguous() for w in lib[:2])
-    lib[6] = lib[6].bfloat16()
+    lib = _cudnn_inputs(xb, p)
     for t in lib:
         t.requires_grad_()
     xl = xb.detach().clone().requires_grad_()
@@ -671,7 +698,8 @@ def phase_train(dev, batch) -> dict:
     # TRAIN_STEPS + 3 G forwards (the steps and the 3 validation pairs)
     steps = TRAIN_STEPS
     want = {"packed_trunk_fwd": 2 * steps, "packed_trunk_bwd": 2 * steps,
-            "coarse_conv_s2d": 2 * (steps + 3), "serving_tail": 0}
+            "coarse_conv_s2d": 2 * (steps + 3), "serving_tail": 0, "fused_trunk": 0,
+            "buddy_select": 0}
     fresh = _gan_state(cfg_t, dev)
     moved = {"g": bool((_flat(state.g_model) != _flat(fresh.g_model)).any()),
              "d": bool((_flat(state.d_model) != _flat(fresh.d_model)).any())}
@@ -780,6 +808,344 @@ def phase_time_train(dev, batch) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# the structure-tensor loss study (run, job 1)
+
+RUN_STEPS = 3  # batches per epoch of main.py's job 1 in the run phase
+RUN_NAME = "patchwise-st-disc"  # job 1's experiment
+
+
+def _buddy_features(batch, dtype, kind):
+    """p1, p2 and the bank of the PatchwiseST ("pst") or Gram ("gram") loss
+    on the GT batch and a noisy copy as sr, by the loss module's own
+    feature functions in `dtype`, as the bf16 step computes them."""
+    import torch
+
+    from srgan_st_tpu_torch.losses import functions as LF
+
+    gt = batch.float() / 255.0
+    noise = torch.randn(gt.shape, device=gt.device,
+                        generator=torch.Generator(device=gt.device).manual_seed(1))
+    sr, gt = (gt + 0.05 * noise).clamp(0, 1).to(dtype), gt.to(dtype)
+    feat = ((lambda x: LF._st_patches(x, 0.5, 2.0, 3)) if kind == "pst"
+            else (lambda x: LF._gram_patches(x, 3)))
+    with torch.no_grad():
+        return feat(sr), feat(gt), LF._bank(gt, feat)
+
+
+def _buddy_case(name, p1, p2, bank, dist_norm="l2", dup_half=None, exact=False) -> dict:
+    """Gates (a) and (c), and (b) when the bank's second half copies the
+    first (dup_half): no index in the copy, and each row without a near
+    tie the f64 argmin, or with `exact` every row the f64 first-occurrence
+    argmin; returns the case's record."""
+    import torch
+
+    from srgan_st_tpu_torch.kernels import _checks
+    from srgan_st_tpu_torch.kernels import buddy_select as bs
+
+    idx = bs._launch(p1, p2, bank, 1.0, 1.0, dist_norm)
+    ref = bs.buddy_select_reference(p1, p2, bank, dist_norm=dist_norm)
+    torch.cuda.synchronize()
+    scores = _checks.f64_scores(p1, p2, bank, dist_norm=dist_norm)
+    pick = lambda i: torch.gather(scores, 2, i.long()[..., None])[..., 0]  # noqa: E731
+    sel = bs.gather_rows(bank, idx)
+    rec = {"case": name, "dtype": str(p1.dtype).split(".")[-1], "p": list(p1.shape),
+           "bank": list(bank.shape), "dist_norm": dist_norm,
+           "index_agreement": float((idx == ref).float().mean()),
+           "max_abs_err": float((pick(idx) - pick(ref)).abs().max()),
+           "gate_a": bool(_checks.near_tie_agrees(idx, ref, scores).all()),
+           "gate_c": bool(torch.equal(sel, torch.gather(
+               bank, 1, idx.long()[..., None].expand(-1, -1, bank.shape[-1]))))}
+    if dup_half is not None:
+        rec["gate_b"] = _checks.first_occurrence_holds(idx, scores, dup_half)
+        if exact:
+            rec["gate_b"] = rec["gate_b"] and torch.equal(
+                idx.cpu().long(), torch.argmin(scores.cpu(), dim=2))
+    emit("kernel", kernel="buddy_select", **rec)
+    if not (rec["gate_a"] and rec["gate_c"] and rec.get("gate_b", True)):
+        raise AssertionError(f"buddy_select {name}: a gate failed: {rec}")
+    return rec
+
+
+def phase_kernel_buddy(dev, batch) -> dict:
+    """K7 against its plain version at the path's shapes; times at the
+    PatchwiseST shape in bf16."""
+    import torch
+
+    from srgan_st_tpu_torch.kernels import buddy_select as bs
+
+    cases = []
+    for dt in (torch.bfloat16, torch.float32):
+        feats = _buddy_features(batch, dt, "pst")
+        cases.append(_buddy_case("patchwise_st", *feats))
+        if dt == torch.bfloat16:
+            timed = feats
+        cases.append(_buddy_case("gram", *_buddy_features(batch, dt, "gram")))
+    p1, p2, bank = timed
+    cases.append(_buddy_case("edge", p1[:3, :97].contiguous(), p2[:3, :97].contiguous(),
+                             bank[:3, :131].contiguous()))
+    b, n, d = p1.shape
+    m = bank.shape[1]
+    # duplicate-heavy banks (a 1/255 grid, the second half a copy of the
+    # first): at the path's shape, and at the JAX package's first-occurrence
+    # test (tests/test_kernels.py: its shape, seed and draws), where no f64
+    # near tie occurs and the indices must equal the f64 argmin exactly
+    for case, seed, (bb, nn, mm), exact in (("duplicate_heavy", 2, (b, n, m), False),
+                                            ("duplicate_heavy_exact", 0, (2, 40, 70), True)):
+        for dt in (torch.bfloat16, torch.float32):
+            rng = np.random.default_rng(seed)
+            q1, q2, dup = (np.round(rng.standard_normal((bb, k, d)) * 32).astype(np.float32) / 255
+                           for k in (nn, nn, mm))
+            dup[:, mm // 2:] = dup[:, : mm - mm // 2]
+            q1, q2, dup = (torch.from_numpy(a).to(dev, dt) for a in (q1, q2, dup))
+            cases.append(_buddy_case(case, q1, q2, dup, dup_half=mm // 2, exact=exact))
+    cases.append(_buddy_case("l1", p1[:2, :100].contiguous(), p2[:2, :100].contiguous(),
+                             bank[:2, :150].contiguous(), dist_norm="l1"))
+
+    def library():  # two baddbmm + argmin: also the plain version
+        q1, q2, bf = p1.float(), p2.float(), bank.float()
+        bt, bn = bf.transpose(1, 2), (bf * bf).sum(2)[:, None, :]
+        s1 = torch.baddbmm((q1 * q1).sum(2)[:, :, None] + bn, q1, bt, alpha=-2.0).clamp_(min=0)
+        s2 = torch.baddbmm((q2 * q2).sum(2)[:, :, None] + bn, q2, bt, alpha=-2.0).clamp_(min=0)
+        return torch.argmin(s1 + s2, dim=2)
+
+    nbytes = (p1.numel() + p2.numel() + bank.numel()) * p1.element_size() + b * n * 4
+    flops = 4 * d * b * n * m  # two d-wide dots per (n, m) pair
+    rec = {"kernel": "buddy_select", "shape": [list(p1.shape), list(bank.shape)],
+           "dtype": "bfloat16",
+           "ms": cuda_ms(lambda: bs._launch(p1, p2, bank, 1.0, 1.0, "l2")),
+           "plain_ms": cuda_ms(lambda: bs.buddy_select_reference(p1, p2, bank)),
+           "library_ms": cuda_ms(library), "bytes": nbytes, "flops": flops,
+           "max_abs_err": max(c["max_abs_err"] for c in cases),
+           "gated_cases": [c["case"] + "/" + c["dtype"] for c in cases]}
+    # bf16 x bf16 products are exact in f32, so the function's bound is the
+    # bf16 tensor-core peak (the kernel's SIMT f32 FMAs are its own choice)
+    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, flops)
+    emit("kernel_time", **rec)
+    return rec
+
+
+FWD_NAMES = ("y", "xs", "a1s", "a2s", "stats")
+
+
+def _trunk_fwd_bytes(n, b, h, w, c) -> int:
+    """bf16: read x and the weights, write y, the three residuals, stats."""
+    act, weights = b * h * w * c, 2 * n * 9 * c * c
+    return 2 * act + 2 * weights + 2 * act + 3 * 2 * n * act + 4 * n * 4 * c
+
+
+def _cudnn_inputs(xb, p):
+    """The cuDNN yardstick's operands: OIHW bf16 convs, bf16 slopes."""
+    lib = [t.detach().clone() for t in p]
+    lib[0], lib[1] = (w.bfloat16().permute(0, 4, 3, 1, 2).contiguous() for w in lib[:2])
+    lib[6] = lib[6].bfloat16()
+    return lib
+
+
+def phase_kernel_fused(gen, dev) -> dict:
+    """K6 against its plain version at TRUNK_SHAPES, the K4 forward gates:
+    f32 (TF32 off) y, residuals and stats within 1e-4 max|ref|, bf16 within
+    2x the plain version's envelope, the same bits on a second run. Times
+    at the training shape beside K4's and the cuDNN trunk's."""
+    import torch
+
+    from srgan_st_tpu_torch.kernels import fused_trunk as ft
+    from srgan_st_tpu_torch.kernels import packed_trunk as pt
+
+    rec = {"errors": []}
+    for shape, n in TRUNK_SHAPES:
+        x, p, _ = _trunk_inputs(gen, dev, shape, n)
+        got = ft._launch_fwd(x, *p, EPS)
+        grid = ft.last_grid
+        ref = ft.fused_trunk_reference(x, *p, EPS)
+        f32 = {k: _rel(a, b) for k, a, b in zip(FWD_NAMES, got, ref)}
+        xb = x.bfloat16()
+        p16 = [p[0].bfloat16().float(), p[1].bfloat16().float(), *p[2:]]
+        got16 = ft._launch_fwd(xb, *p, EPS)
+        plain16 = ft.fused_trunk_reference(xb, *p, EPS)
+        ref32 = ft.fused_trunk_reference(xb.float(), *p16, EPS)
+        bf16 = {k: (max_abs(a, r), max_abs(b, r))
+                for k, a, b, r in zip(FWD_NAMES, got16, plain16, ref32)}
+        same = {"f32": all(torch.equal(a, b) for a, b in zip(got, ft._launch_fwd(x, *p, EPS))),
+                "bf16": all(torch.equal(a, b)
+                            for a, b in zip(got16, ft._launch_fwd(xb, *p, EPS)))}
+        torch.cuda.synchronize()
+        r = {"shape": list(shape), "n": n, "grid_blocks": grid, "f32_rel_err": f32,
+             "bf16_err_and_envelope": bf16, "bitwise_repeatable": same}
+        emit("kernel", kernel="fused_trunk", **r)
+        bad = ([k for k, e in f32.items() if not e <= 1e-4]
+               + [k for k, (e, env) in bf16.items() if not (env > 0 and e <= 2 * env)]
+               + [k for k, ok in same.items() if not ok])
+        if bad:
+            raise AssertionError(f"fused_trunk at {shape}, n={n}: {bad} out of bounds")
+        rec["errors"].append({"shape": list(shape), "f32_rel": f32, "bf16": bf16})
+        if shape == TRUNK_SHAPES[0][0]:
+            timed = (xb, p)
+        del got, ref, got16, plain16, ref32
+    xb, p = timed
+    n, (b, h, w, c) = p[0].shape[0], xb.shape
+    lib = _cudnn_inputs(xb, p)
+    nbytes, flops = _trunk_fwd_bytes(n, b, h, w, c), 2 * n * 2 * b * h * w * 9 * c * c
+    rec.update(shape=[b, h, w, c], n=n, ms=cuda_ms(lambda: ft._launch_fwd(xb, *p, EPS)),
+               packed_fwd_ms=cuda_ms(lambda: pt._launch_fwd(xb, *p, EPS)),
+               plain_ms=cuda_ms(lambda: ft.fused_trunk_reference(xb, *p, EPS), iters=5),
+               library_ms=cuda_ms(lambda: _cudnn_trunk(xb, lib)), bytes=nbytes, flops=flops,
+               launches_per_call=1, grid_syncs_per_call=6 * n - 1)
+    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, flops)
+    emit("kernel_time", kernel="fused_trunk", **{k: v for k, v in rec.items() if k != "errors"})
+    return rec
+
+
+def _run_sets(trunk: str) -> list[str]:
+    return ["TPU.COMPUTE_DTYPE=bfloat16", f"TPU.TRUNK_MODE={trunk}", "DATA.SYNTHETIC=true",
+            f"DATA.SYNTHETIC_N_BATCHES={RUN_STEPS}", "EXP.N_EPOCHS=1",
+            "SOLVER.D_UPDATE_INTERVAL=2", "LOG_TRAIN_PERIOD=1"]
+
+
+def _run_config(trunk: str):
+    from srgan_st_tpu_torch.core.config import Config, apply_overrides
+    from srgan_st_tpu_torch.main import st_experiment
+
+    return apply_overrides(st_experiment(Config(), 1), _run_sets(trunk))
+
+
+# (job, trunk) of the run phase: job 1 with the fused and the unfused trunk
+# (the slice's main path), then jobs 3 (ST + ContentDiscriminator) and 4
+# (the pixel baseline) with the packed one
+RUNS = ((1, "fused"), (1, "unfused"), (3, "packed"), (4, "packed"))
+
+
+def phase_run(dev) -> dict:
+    """The slice's main path: `run --job_index j` through main.main (train,
+    then test) at full width in a temporary directory for each of RUNS;
+    launch counts reset just before each and read just after."""
+    import contextlib
+    import io
+
+    import torch
+
+    from srgan_st_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from srgan_st_tpu_torch.main import VARIANTS
+    from srgan_st_tpu_torch.main import main as run_main
+
+    out, cwd = {}, os.getcwd()
+    for job, trunk in RUNS:
+        name = VARIANTS[job][0]
+        argv = ["--job_index", str(job), "--device", "cuda"]
+        for item in _run_sets(trunk):
+            argv += ["--set", item]
+        log = io.StringIO()
+        with tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)
+            try:
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(log):
+                    run_main(argv)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                counts = launch_counts()
+                files = sorted(os.listdir(os.path.join("results", name)))
+                shots = sorted(os.listdir(os.path.join("results", "_test", name)))
+            finally:
+                os.chdir(cwd)
+        lines = log.getvalue().splitlines()
+        # per run: RUN_STEPS G steps (one K7 each in job 1, one trunk kernel
+        # forward each, and K5 under "packed"), RUN_STEPS + 6 G forwards
+        # through kernel A (the steps, 3 validation and 3 test pairs)
+        steps = {t: RUN_STEPS if trunk == t else 0 for t in ("fused", "packed")}
+        want = {"coarse_conv_s2d": RUN_STEPS + 6, "serving_tail": 0,
+                "packed_trunk_fwd": steps["packed"], "packed_trunk_bwd": steps["packed"],
+                "fused_trunk": steps["fused"], "buddy_select": RUN_STEPS if job == 1 else 0}
+        rec = {"job": job, "experiment": name, "trunk": trunk, "seconds": seconds,
+               "launches": counts, "launches_expected": want, "results_files": files,
+               "test_images": shots,
+               "test_line": [ln for ln in lines if ln.startswith("[Test]")][-1:],
+               "g_losses": [ln for ln in lines if ln.startswith("[Epoch")]}
+        emit("run", **rec)
+        if counts != want:
+            raise AssertionError(f"run job {job} {trunk}: launches {counts}, expected {want}")
+        if not ({"g_best.npz", "g_last.npz", "d_last.npz"} <= set(files)
+                and "0.png" in shots and f"Finished job: {job}" in lines
+                and rec["test_line"]):
+            raise AssertionError(f"run job {job} {trunk}: incomplete: {rec}")
+        out[f"{job}/{trunk}"] = rec
+    return out
+
+
+def phase_check_run(dev, batch) -> dict:
+    """One GAN step of job 1 with the fused and the unfused trunk from the
+    same seeded state: parameters within 2.01 lr, losses within 1e-2
+    relative (the train gates)."""
+    from srgan_st_tpu_torch.losses.registry import build_criterions
+    from srgan_st_tpu_torch.train.steps import make_gan_steps
+
+    out = {}
+    for trunk in ("fused", "unfused"):
+        cfg = _run_config(trunk)
+        state = _gan_state(cfg, dev)
+        g_step, d_step = make_gan_steps(cfg, build_criterions(cfg))
+        state, sr, gm = g_step(state, batch)
+        state, dm = d_step(state, batch, sr)
+        out[trunk] = ({k: float(v) for k, v in {**gm, **dm}.items()},
+                      _flat(state.g_model), _flat(state.d_model))
+    lr = _run_config("fused").SOLVER.G_BASE_LR
+    rec = {"losses": {t: o[0] for t, o in out.items()},
+           "loss_rel_diff": max(abs(v - out["unfused"][0][k]) / abs(out["unfused"][0][k])
+                                for k, v in out["fused"][0].items() if "Probability" not in k),
+           "g_param_max_diff": max_abs(out["fused"][1], out["unfused"][1]),
+           "d_param_max_diff": max_abs(out["fused"][2], out["unfused"][2]),
+           "param_bound": 2.01 * lr}
+    emit("check", run=rec)
+    if not (rec["loss_rel_diff"] <= 1e-2 and rec["g_param_max_diff"] <= 2.01 * lr
+            and rec["d_param_max_diff"] <= 2.01 * lr):
+        raise AssertionError(f"fused vs unfused GAN step of job 1 out of bounds: {rec}")
+    return rec
+
+
+def phase_time_run(dev, batch) -> dict:
+    """ms per warmup step, G step and GAN step of job 1 for each trunk;
+    the batch is already on the device."""
+    import torch
+
+    from srgan_st_tpu_torch.losses.registry import build_criterions, build_warmup_criterions
+    from srgan_st_tpu_torch.models.generator import Generator
+    from srgan_st_tpu_torch.train.steps import (
+        create_generator_state, make_gan_steps, make_warmup_step,
+    )
+
+    rec = {}
+    for trunk in ("fused", "packed", "unfused"):
+        cfg = _run_config(trunk)
+        w_state = create_generator_state(cfg, Generator.from_config(cfg), RUN_STEPS, dev,
+                                         milestones=False)
+        w_step = make_warmup_step(cfg, build_warmup_criterions(cfg))
+        state = _gan_state(cfg, dev)
+        g_step, d_step = make_gan_steps(cfg, build_criterions(cfg))
+
+        def gan():
+            _, sr, _ = g_step(state, batch)
+            d_step(state, batch, sr)
+
+        torch.cuda.reset_peak_memory_stats()
+        warm_ms = cuda_ms(lambda: w_step(w_state, batch))
+        g_ms = cuda_ms(lambda: g_step(state, batch))
+        gan_ms = cuda_ms(gan)
+        b = batch.shape[0]
+        rec[trunk] = {"ms_per_warmup_step": warm_ms, "ms_per_g_step": g_ms,
+                      "ms_per_gan_step": gan_ms,
+                      "patches_per_s_gan_step": b / (gan_ms / 1e3),
+                      "patches_per_s_d_every_100": b / ((g_ms + (gan_ms - g_ms) / 100) / 1e3),
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if trunk == "fused":
+            profile = profile_once(gan)
+    emit("time", run="job 1 (Adversarial + PatchwiseST + ContentDiscriminator), batch 16, "
+         "96x96 GT, x4, bf16", **rec)
+    emit("profile", run="one GAN step of job 1, fused trunk", fused=profile)
+    return rec
+
+
+
 def main() -> int:
     try:
         import torch
@@ -843,31 +1209,42 @@ def run(dev) -> int:
     train_counts = phase_train(dev, batch)["launches_total"]
     phase_check_train(dev, batch)
     phase_time_train(dev, batch)
+    torch.cuda.empty_cache()
+
+    rec_k7 = phase_kernel_buddy(dev, batch)
+    torch.cuda.empty_cache()
+    rec_k6 = phase_kernel_fused(gen, dev)
+    torch.cuda.empty_cache()
+    run_counts = phase_run(dev)
+    phase_check_run(dev, batch)
+    phase_time_run(dev, batch)
 
     kernels = []
-    for rec, name, source, replaces in (
-        (rec_a, "coarse_conv_s2d", "srgan_st_tpu_torch/csrc/coarse_conv.cu",
-         "srgan_st_tpu/kernels/coarse_conv.py:45 (_kernel), "
-         "srgan_st_tpu/kernels/coarse_conv.py:86 (_kernel_tiled)"),
-        (rec_b, "serving_tail", "srgan_st_tpu_torch/csrc/serving_tail.cu",
+    for rec, name, tpu, source, replaces in (
+        (rec_a, "coarse_conv_s2d", "K1", "srgan_st_tpu_torch/csrc/coarse_conv.cu",
+         "srgan_st_tpu/kernels/coarse_conv.py:45 (_kernel)"),
+        (rec_a, "coarse_conv_s2d", "K2", "srgan_st_tpu_torch/csrc/coarse_conv.cu",
+         "srgan_st_tpu/kernels/coarse_conv.py:86 (_kernel_tiled; the same kernel as K1)"),
+        (rec_b, "serving_tail", "K3", "srgan_st_tpu_torch/csrc/serving_tail.cu",
          "srgan_st_tpu/kernels/serving_tail.py:70 (_kernel)"),
     ):
         kernels.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "name": name, "tpu_kernel": tpu, "route": "cuda", "source": source,
+            "replaces": replaces,
             "launches": counts[name], "max_abs_err": rec["bf16_max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "shape": rec["shape"], "f32_max_abs_err": rec["f32_max_abs_err"],
             "train_launches": train_counts[name],
         })
-    for rec, name, replaces in (
-        (rec_k4, "packed_trunk_fwd",
+    for rec, name, tpu, replaces in (
+        (rec_k4, "packed_trunk_fwd", "K4",
          "srgan_st_tpu/kernels/packed_trunk.py:195 (_fwd_kernel)"),
-        (rec_k5, "packed_trunk_bwd",
+        (rec_k5, "packed_trunk_bwd", "K5",
          "srgan_st_tpu/kernels/packed_trunk.py:308 (_bwd_kernel)"),
     ):
         kernels.append({
-            "name": name, "route": "cuda",
+            "name": name, "tpu_kernel": tpu, "route": "cuda",
             "source": "srgan_st_tpu_torch/csrc/packed_trunk.cu", "replaces": replaces,
             "launches": train_counts[name],
             "max_abs_err": max(e for r in rec["errors"] for e, _ in r["bf16"].values()),
@@ -876,6 +1253,27 @@ def run(dev) -> int:
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "shape": rec["shape"], "n": rec["n"],
         })
+    kernels.append({
+        "name": "fused_trunk", "tpu_kernel": "K6", "route": "cuda",
+        "source": "srgan_st_tpu_torch/csrc/fused_trunk.cu",
+        "replaces": "srgan_st_tpu/kernels/fused_trunk.py:72 (_kernel)",
+        "launches": run_counts["1/fused"]["launches"]["fused_trunk"],
+        "max_abs_err": max(e for r in rec_k6["errors"] for e, _ in r["bf16"].values()),
+        "f32_max_rel_err": max(e for r in rec_k6["errors"] for e in r["f32_rel"].values()),
+        "ms": rec_k6["ms"], "plain_ms": rec_k6["plain_ms"], "bound_ms": rec_k6["bound_ms"],
+        "bound_by": rec_k6["bound_by"], "library_ms": rec_k6["library_ms"],
+        "packed_fwd_ms": rec_k6["packed_fwd_ms"], "shape": rec_k6["shape"], "n": rec_k6["n"],
+    })
+    kernels.append({
+        "name": "buddy_select", "tpu_kernel": "K7", "route": "cuda",
+        "source": "srgan_st_tpu_torch/csrc/buddy_select.cu",
+        "replaces": "srgan_st_tpu/kernels/buddy_select.py:78 (_buddy_kernel)",
+        "launches": run_counts["1/fused"]["launches"]["buddy_select"],
+        "max_abs_err": rec_k7["max_abs_err"], "ms": rec_k7["ms"],
+        "plain_ms": rec_k7["plain_ms"], "bound_ms": rec_k7["bound_ms"],
+        "bound_by": rec_k7["bound_by"], "library_ms": rec_k7["library_ms"],
+        "shape": rec_k7["shape"],
+    })
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

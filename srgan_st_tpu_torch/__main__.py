@@ -1,6 +1,7 @@
 """Command-line front door: ``python -m srgan_st_tpu_torch <command>``.
 
 Usage:
+    python -m srgan_st_tpu_torch run ...        # job_index experiment sweep
     python -m srgan_st_tpu_torch warmup ...     # SRResNet warmup (pixel loss)
     python -m srgan_st_tpu_torch train ...      # adversarial training
     python -m srgan_st_tpu_torch infer ...      # upscale arbitrary images
@@ -17,6 +18,10 @@ import sys
 
 # command -> (module, attr, one-line help)
 _COMMANDS: dict[str, tuple[str, str, str]] = {
+    "run": (
+        "srgan_st_tpu_torch.main", "main",
+        "job_index-driven experiment sweep: train, then test",
+    ),
     "warmup": (
         "srgan_st_tpu_torch.train.warmup", "cli",
         "PSNR-oriented SRResNet warmup (pixel loss only)",

@@ -10,6 +10,8 @@ factoring, tiled eval), not hardware.
 
 from __future__ import annotations
 
+import os
+
 
 class dotdict(dict):
     """dict with attribute access, so config groups read like the reference's."""
@@ -19,6 +21,12 @@ class dotdict(dict):
     __delattr__ = dict.__delitem__
     __dir__ = dict.keys
     __repr__ = dict.__repr__
+
+
+def get_jobindex(fallback: int = 0) -> int:
+    """Job index set by the cluster scheduler (reference main.py:27-30)."""
+    num = os.getenv("job_index")
+    return int(num) if num else fallback
 
 
 class Config:
@@ -63,8 +71,20 @@ class Config:
         self.MODEL.G_N_CHANNEL = 64
         self.MODEL.G_N_RCB = 16
         self.MODEL.G_LOSS = dotdict()
-        # name -> spec dict ({"kind": ..., **kwargs}); the port builds the
-        # kinds "pixel" and "adversarial" (losses/registry.py)
+        # VGG19 tap points and weights of ContentVGG (reference config.py:60-64)
+        self.MODEL.G_LOSS.VGG19_LAYERS = {
+            "features.17": 1 / 8,
+            "features.26": 1 / 4,
+            "features.35": 1 / 2,
+        }
+        # discriminator tap points of ContentDiscriminator (reference
+        # config.py:66-69)
+        self.MODEL.G_LOSS.DISC_FEATURES_LOSS_LAYERS = {
+            "features.4": 1 / 4,
+            "features.10": 1 / 2,
+        }
+        # name -> spec dict ({"kind": ..., **kwargs}); every kind but
+        # "content_vgg" is built (losses/registry.py)
         self.MODEL.G_LOSS.CRITERIONS = {
             "Adversarial": {"kind": "adversarial"},
         }
@@ -82,6 +102,11 @@ class Config:
             "Pixel": {"kind": "pixel", "criterion": "mse"},
         }
         self.MODEL.G_LOSS.WARMUP_WEIGHTS = {"Pixel": 1.0}
+        # converted VGG19 IMAGENET1K_V1 weights (ContentVGG: not ported yet)
+        self.MODEL.G_LOSS.VGG19_WEIGHTS = "weights/vgg19_imagenet.npz"
+        # D weights (npz) of ContentDiscriminator; "" = a fresh seeded D, as
+        # the reference instantiates a fresh random one (loss.py:263)
+        self.MODEL.G_LOSS.DISC_FEATURES_WEIGHTS = ""
         self.MODEL.D_IN_CHANNEL = 3
         self.MODEL.D_OUT_CHANNEL = 1
         self.MODEL.D_N_CHANNEL = 64
@@ -110,7 +135,8 @@ class Config:
         self.TPU.COMPUTE_DTYPE = "float32"
         # None = auto (eval and bf16 training run the unfused trunk), or
         # "unfused" / "packed" (the K4/K5 kernels) / "hybrid" (plain
-        # forward, K5 backward); "fused" and "xpack*" are not ported
+        # forward, K5 backward) / "fused" (the K6 forward, train only);
+        # "xpack*" is not ported
         self.TPU.TRUNK_MODE = None
         # None = direct 9x9 stem conv, "s2d" = space-to-depth(4) factored
         self.TPU.STEM_MODE = None
@@ -124,6 +150,16 @@ class Config:
         self.TPU.TILED_EVAL = False
         # geometric x8 self-ensemble: waits for the eval/ensemble.py slice
         self.TPU.SELF_ENSEMBLE = False
+
+    def add_g_criterion(self, name: str, spec: dict, weight: float = 1.0) -> None:
+        """Add a generator criterion spec (reference config.py:122-131)."""
+        self.MODEL.G_LOSS.CRITERIONS[name] = spec
+        self.MODEL.G_LOSS.CRITERION_WEIGHTS[name] = weight
+
+    def remove_g_criterion(self, name: str) -> None:
+        if name in self.MODEL.G_LOSS.CRITERIONS:
+            del self.MODEL.G_LOSS.CRITERIONS[name]
+            del self.MODEL.G_LOSS.CRITERION_WEIGHTS[name]
 
     def get_all_params(self) -> str:
         """Stringify every config group for experiment provenance logging."""

@@ -37,14 +37,12 @@
 // pixels) go through per-block partials in the workspace, reduced in a
 // fixed order; there are no float atomics. Measured on one H100 (700 W,
 // chip_smoke.py): 1.9 ms forward and 5.7 ms backward at the training shape.
-#include "tile_mma.cuh"
+#include "trunk_conv.cuh"
 
 using namespace srgan;
 
 namespace {
 
-constexpr int TILE = 64;          // conv: pixels and channels per block tile
-constexpr int CONV_THREADS = 128; // 4 warps, 2 x 2 over the 64 x 64 tile
 constexpr int EW_THREADS = 256;   // partial sums: 64 channels x 4 pixel lanes
 constexpr int PIX_CHUNK = 256;    // pixels per BN partial-sum block
 constexpr int WG_CHUNK = 256;     // least pixels per split-K wgrad block
@@ -54,112 +52,25 @@ constexpr int APPLY_THREADS = 256;
 enum { OUT_ROUND = 0, OUT_F32 = 1, OUT_RESID = 2 };
 enum { RED_STATS = 0, RED_SUMS = 1, RED_SUMS_ALPHA = 2 };
 
-template <typename T>
-struct Chunk;
-template <>
-struct Chunk<__nv_bfloat16> {
-  static constexpr int KC = 32;
-};
-template <>
-struct Chunk<float> {
-  static constexpr int KC = 16;
-};
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// an f32 value rounded to the compute dtype (identity for f32)
-template <typename T>
-__device__ __forceinline__ float rnd(float v) {
-  return to_f(from_f<T>(v));
-}
-
-__device__ __forceinline__ float inv_std(float v, float eps) {
-  return 1.0f / sqrtf(__fadd_rn(v, eps));
-}
-
-// ((a - mT) * invT) * gT + bT with each step rounded to T; the *T
-// arguments are already T values (the Pallas kernel's cdt normalize)
-template <typename T>
-__device__ __forceinline__ float bn_affine(float a, float mT, float invT, float gT,
-                                           float bT) {
-  float t = rnd<T>(__fsub_rn(a, mT));
-  t = rnd<T>(__fmul_rn(t, invT));
-  t = rnd<T>(__fmul_rn(t, gT));
-  return rnd<T>(__fadd_rn(t, bT));
-}
-
 // 3x3 SAME conv of src (P pixels of a B x H x W grid, C channels) with
 // wt [tap][out][in]; one block computes 64 pixels x 64 output channels.
 // OUT_ROUND stores T(acc), OUT_F32 acc, OUT_RESID T(resid + acc) (resid may
 // alias out: each element is read and written by the same thread).
 template <typename T, int MODE>
 __global__ void __launch_bounds__(CONV_THREADS)
-    conv3x3_kernel(const T* __restrict__ src, const T* __restrict__ wt, void* out,
+    conv3x3_kernel(const T* src, const T* __restrict__ wt, void* out,
                    const T* resid, int H, int W, int C, long long P) {
-  constexpr int KC = Chunk<T>::KC;
-  constexpr int EPV = 16 / sizeof(T);
-  constexpr int KS = KC + EPV;  // padded smem row
-  constexpr int VPR = KC / EPV;
+  constexpr int KS = chunk_stride<T>();
   __shared__ __align__(16) T As[TILE * KS];
   __shared__ __align__(16) T Bs[TILE * KS];
 
   const long long p0 = (long long)blockIdx.x * TILE;
   const int n0 = blockIdx.y * TILE;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-
   float acc[2][4][4];
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
-
-  for (int tap = 0; tap < 9; ++tap) {
-    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-    for (int k0 = 0; k0 < C; k0 += KC) {
-      __syncthreads();  // the previous chunk's products are done with smem
-      for (int v = tid; v < TILE * VPR; v += CONV_THREADS) {
-        const int r = v / VPR, part = v % VPR;
-        const long long p = p0 + r;
-        T* dst = As + r * KS + part * EPV;
-        bool ok = p < P;
-        if (ok) {
-          const int w = (int)(p % W), h = (int)((p / W) % H);
-          ok = h + dy >= 0 && h + dy < H && w + dx >= 0 && w + dx < W;
-        }
-        if (ok)
-          copy16(dst, src + (p + (long long)dy * W + dx) * C + k0 + part * EPV);
-        else
-          zero16(dst);
-      }
-      for (int v = tid; v < TILE * VPR; v += CONV_THREADS) {
-        const int r = v / VPR, part = v % VPR;
-        copy16(Bs + r * KS + part * EPV,
-               wt + ((size_t)tap * C + n0 + r) * C + k0 + part * EPV);
-      }
-      __syncthreads();
-      const T* alo[2] = {As + (wm + g) * KS, As + (wm + 16 + g) * KS};
-      const T* ahi[2] = {alo[0] + 8 * KS, alo[1] + 8 * KS};
-#pragma unroll
-      for (int ks = 0; ks < KC / 16; ++ks)
-        warp_k16<2, 4>(acc, alo, ahi, ks * 16, Bs + wn * KS, KS, g, t);
-    }
-  }
+  conv_tile<T>(src, wt, H, W, C, P, p0, n0, As, Bs, acc);
 
 #pragma unroll
   for (int m = 0; m < 2; ++m) {
@@ -284,9 +195,7 @@ __global__ void reduce_kernel(const float* __restrict__ part, int nblocks, int K
     r[k] = (float)s;
   }
   if (mode == RED_STATS) {
-    const float m = __fdiv_rn(r[0], nelem);
-    o0[c] = m;
-    o1[c] = fmaxf(__fsub_rn(__fdiv_rn(r[1], nelem), __fmul_rn(m, m)), 0.f);
+    bn_moments(r[0], r[1], nelem, o0 + c, o1 + c);
     return;
   }
   o0[c] = r[1];
@@ -311,14 +220,8 @@ __global__ void __launch_bounds__(APPLY_THREADS)
                     T* __restrict__ out, float eps, int C, long long total) {
   const long long i = (long long)blockIdx.x * APPLY_THREADS + threadIdx.x;
   if (i >= total) return;
-  const int c = (int)(i % C);
-  float y = bn_affine<T>(to_f(a[i]), rnd<T>(mv[c]), rnd<T>(inv_std(mv[C + c], eps)),
-                         rnd<T>(gam[c]), rnd<T>(bet[c]));
-  if constexpr (PRELU) {
-    if (!(y >= 0.f)) y = rnd<T>(__fmul_rn(rnd<T>(*alpha_p), y));
-  }
-  if constexpr (RESID) y = __fadd_rn(to_f(x[i]), y);
-  out[i] = from_f<T>(y);
+  out[i] = bn_out<T, PRELU, RESID>(to_f(a[i]), (int)(i % C), C, mv, gam, bet, eps,
+                                   PRELU ? rnd<T>(*alpha_p) : 0.f, RESID ? to_f(x[i]) : 0.f);
 }
 
 // BN backward: da = T((gamma * inv) * (dy - dbeta/n - xhat * (dgamma/n))).

@@ -17,7 +17,6 @@ from statistics import NormalDist
 import numpy as np
 import torch
 
-from srgan_st_tpu_torch.data.pipeline import TestPairSource
 from srgan_st_tpu_torch.eval.tiled import to_numpy
 from srgan_st_tpu_torch.ops.color import bgr2ycbcr
 from srgan_st_tpu_torch.ops.metrics import psnr as psnr_fn
@@ -94,9 +93,24 @@ def validate(
 
 
 def _write_png(path: str, bgr_img: np.ndarray) -> None:
-    from PIL import Image
+    """An 8-bit RGB PNG of a uint8 BGR HWC image, written with zlib alone
+    (no imaging library needed)."""
+    import struct
+    import zlib
 
-    Image.fromarray(bgr_img[..., ::-1]).save(path)  # stored via RGB
+    rgb = np.ascontiguousarray(bgr_img[..., ::-1], dtype=np.uint8)
+    h, w, _ = rgb.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, 3 * w)], axis=1)
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw.tobytes()))
+                + chunk(b"IEND", b""))
 
 
 def make_generator_apply(config, variables, device=None):
@@ -135,12 +149,15 @@ def make_generator_apply(config, variables, device=None):
 
 def test(config, save_images: bool = True, g_path: str | None = None,
          concat_w_gt: bool = False, device=None) -> tuple[float, float]:
-    """Test a generator on the configured paired test set."""
+    """Test a generator on the configured paired test set (with
+    DATA.SYNTHETIC, on the seeded synthetic pairs the training loops
+    validate on)."""
     from srgan_st_tpu_torch.train.checkpoint import load_params_npz
+    from srgan_st_tpu_torch.train.utils import make_test_pairs
 
     if config.EXP.NAME in ("bicubic", "nearest"):
         raise NotImplementedError(BASELINE_TODO)
-    pairs = TestPairSource(config.DATA.TEST_GT_IMAGES_DIR, config.DATA.TEST_LR_IMAGES_DIR)
+    pairs = make_test_pairs(config)
     if not g_path:
         g_path = f"results/{config.EXP.NAME}/g_best.npz"
     variables = load_params_npz(g_path)

@@ -1,0 +1,103 @@
+"""Best-buddy selection (port of srgan_st_tpu/kernels/buddy_select.py: K7
+`_buddy_kernel`).
+
+For each batch element and each row n of the candidate patches,
+
+    idx[n] = argmin_m  alpha * s(p1[n], bank[m]) + beta * s(p2[n], bank[m])
+
+with s the squared l2 distance (clamped at 0) or the l1 distance, scores in
+f32 from inputs upcast to f32, ties to the first occurrence (as torch.min
+and jnp.argmin). `buddy_select_index` returns the (B, N) int32 indices: on
+a CUDA tensor it launches the hand-written kernel (csrc/buddy_select.cu),
+on a CPU tensor it runs the plain version `buddy_select_reference`.
+`buddy_select` gathers the selected bank rows outside the kernel, exactly,
+and without gradient: the bank derives from ground truth and an argmin has
+none (the reference's gather backward is dead code).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from srgan_st_tpu_torch.kernels import _build
+from srgan_st_tpu_torch.ops.pairwise import batch_pairwise_distance
+
+# launches of the CUDA kernel since import (or the last reset)
+launches = 0
+
+_FN = {torch.bfloat16: "buddy_select_bf16", torch.float32: "buddy_select_f32"}
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {fn: [_P] * 4 + [_I] * 4 + [_F, _F, _I, _P] for fn in _FN.values()}
+MAX_D = 160  # feature width the kernel takes (ksize 7 gives 3 * 49 = 147)
+
+
+@torch.no_grad()
+def buddy_select_reference(p1, p2, bank, alpha: float = 1.0, beta: float = 1.0,
+                           dist_norm: str = "l2") -> torch.Tensor:
+    """The plain version: f32 upcast, alpha * d(p1, bank) + beta * d(p2,
+    bank) by ops/pairwise.py (l2: ||p||^2 + ||q||^2 - 2 p.q, the cross term
+    a batched product with TF32 off), argmin over the bank (first
+    occurrence). Returns (B, N) int32."""
+    bank = bank.float()
+    score = (alpha * batch_pairwise_distance(p1.float(), bank, dist_norm)
+             + beta * batch_pairwise_distance(p2.float(), bank, dist_norm))
+    return torch.argmin(score, dim=2).to(torch.int32)
+
+
+def _launch(p1, p2, bank, alpha, beta, dist_norm) -> torch.Tensor:
+    global launches
+    if dist_norm not in ("l1", "l2"):
+        raise NotImplementedError(f"{dist_norm} norm has not been supported.")
+    dt = bank.dtype
+    if dt not in _FN or p1.dtype != dt or p2.dtype != dt:
+        raise ValueError(f"buddy_select: the kernel takes bf16 or f32 inputs of one "
+                         f"dtype; got {p1.dtype}, {p2.dtype}, {bank.dtype}")
+    b, n, d = p1.shape
+    m = bank.shape[1]
+    if p2.shape != p1.shape or bank.shape != (b, m, d) or not 0 < d <= MAX_D:
+        raise ValueError(f"buddy_select: p1, p2 (B, N, d) and bank (B, M, d) with "
+                         f"d <= {MAX_D}; got {tuple(p1.shape)}, {tuple(p2.shape)}, "
+                         f"{tuple(bank.shape)}")
+    if min(b, n, m) == 0:
+        raise ValueError("buddy_select: empty input")
+    p1, p2, bank = (t.contiguous() for t in (p1, p2, bank))
+    idx = torch.empty((b, n), device=bank.device, dtype=torch.int32)
+    lib = _build.load("buddy_select", _SIGNATURES)
+    with torch.cuda.device(bank.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, _FN[dt])(p1.data_ptr(), p2.data_ptr(), bank.data_ptr(),
+                                    idx.data_ptr(), b, n, m, d, float(alpha),
+                                    float(beta), int(dist_norm == "l1"), stream)
+    _build.check(err, "buddy_select")
+    launches += 1
+    return idx
+
+
+@torch.no_grad()
+def buddy_select_index(p1, p2, bank, alpha: float = 1.0, beta: float = 1.0,
+                       dist_norm: str = "l2") -> torch.Tensor:
+    """(B, N) int32 indices of the selected bank rows: the CUDA kernel on a
+    CUDA tensor (it raises on inputs it does not take), the plain version
+    on a CPU one."""
+    if bank.device.type == "cpu":
+        return buddy_select_reference(p1, p2, bank, alpha, beta, dist_norm)
+    if bank.device.type != "cuda":
+        raise ValueError(f"buddy_select: no kernel for device {bank.device}")
+    return _launch(p1, p2, bank, alpha, beta, dist_norm)
+
+
+def gather_rows(bank: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """bank[b, idx[b, n]] for every (b, n), without gradient."""
+    index = idx.long()[..., None].expand(-1, -1, bank.shape[-1])
+    return torch.gather(bank.detach(), 1, index)
+
+
+def buddy_select(p1, p2, bank, alpha: float = 1.0, beta: float = 1.0,
+                 dist_norm: str = "l2", return_index: bool = False):
+    """p1, p2 (B, N, d); bank (B, M, d) -> the selected rows (B, N, d)
+    (and the (B, N) int32 indices with `return_index`)."""
+    idx = buddy_select_index(p1, p2, bank, alpha, beta, dist_norm)
+    sel = gather_rows(bank, idx)
+    return (sel, idx) if return_index else sel

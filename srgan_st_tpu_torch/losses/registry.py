@@ -3,14 +3,19 @@
 Builds name -> (fn(sr, gt) | None, weight) from the config's criterion
 specs ({"kind": ..., **kwargs}). "adversarial" maps to None: the GAN step
 handles it by name, with the live discriminator, as the reference does
-(train.py:135-136). The port builds the kinds "pixel" and "adversarial";
-any other kind raises.
+(train.py:135-136). Specs of the image criteria run at TPU.COMPUTE_DTYPE
+unless they pin a "dtype". The buddy kinds keep the JAX package's spec key
+"pallas": False forces the plain selection, None (the default) the
+hand-written kernel on CUDA tensors. "content_vgg" raises until
+ROADMAP.md Queue A item 2.
 """
 
 from __future__ import annotations
 
 import functools
 from typing import Callable
+
+import torch
 
 from srgan_st_tpu_torch.losses import functions as F
 
@@ -26,8 +31,62 @@ CANONICAL_KINDS = {
     "ST": "st",
 }
 
-LOSS_ZOO_TODO = ("criterion kind {!r} is not ported yet (ROADMAP.md Queue A, "
-                 "item 2: the loss zoo)")
+_SIMPLE_KINDS = {
+    "pixel": F.pixel_loss,
+    "best_buddy": F.best_buddy_loss,
+    "gram": F.gram_loss,
+    "patchwise_st": F.patchwise_st_loss,
+    "st": F.st_loss,
+}
+
+CONTENT_VGG_TODO = ("criterion kind 'content_vgg' (ContentVGG and models/vgg.py) is "
+                    "not ported yet (ROADMAP.md Queue A, item 2)")
+
+
+def content_discriminator(config, spec: dict) -> torch.nn.Module:
+    """The frozen content D of ContentDiscriminator in eval mode (running
+    statistics, no update; reference loss.py:263,276): the npz weights of
+    spec["weights"] or MODEL.G_LOSS.DISC_FEATURES_WEIGHTS (the JAX package's
+    variables or the reference's state-dict keys), else a fresh D
+    initialized from a torch generator seeded with 0."""
+    import numpy as np
+
+    from srgan_st_tpu_torch.models.common import init_weights
+    from srgan_st_tpu_torch.models.discriminator import Discriminator
+    from srgan_st_tpu_torch.train.checkpoint import (
+        discriminator_state_dict_from_variables,
+        load_params_npz,
+    )
+
+    model = Discriminator.from_config(config)
+    path = spec.get("weights", config.MODEL.G_LOSS.DISC_FEATURES_WEIGHTS)
+    if path:
+        with np.load(path) as data:
+            sd = ({k: torch.from_numpy(np.asarray(data[k])) for k in data.files}
+                  if all(k.startswith(("features.", "classifier.")) for k in data.files)
+                  else None)
+        if sd is None:
+            sd = discriminator_state_dict_from_variables(load_params_npz(path))
+        model.load_state_dict(sd)
+    else:
+        init_weights(model, torch.Generator().manual_seed(0))
+    model.eval().requires_grad_(False)
+    return model
+
+
+def _build_content_disc(config, spec: dict) -> Callable:
+    layer_weights = dict(config.MODEL.G_LOSS.DISC_FEATURES_LOSS_LAYERS)
+    taps = tuple(layer_weights)
+    model = content_discriminator(config, spec)
+
+    def d_apply(x):
+        if next(model.parameters()).device != x.device:
+            model.to(x.device)  # the content D lives on the step's device
+        return model(x, train=False, taps=taps)
+
+    return functools.partial(F.content_loss_discriminator, d_apply=d_apply,
+                             layer_weights=layer_weights,
+                             criterion=spec.get("criterion", "mse"))
 
 
 def build_one(config, name: str, spec: dict) -> Callable | None:
@@ -39,11 +98,15 @@ def build_one(config, name: str, spec: dict) -> Callable | None:
         raise KeyError(f"criterion '{name}' has no kind and is not canonical")
     if kind == "adversarial":
         return None
-    if kind == "pixel":
+    if kind == "content_vgg":
+        raise NotImplementedError(CONTENT_VGG_TODO)
+    if kind == "content_disc":
+        return _build_content_disc(config, spec)
+    if kind in _SIMPLE_KINDS:
         spec.pop("allow_random_init", None)
         spec.setdefault("dtype", config.TPU.COMPUTE_DTYPE)
-        return functools.partial(F.pixel_loss, **spec)
-    raise NotImplementedError(LOSS_ZOO_TODO.format(kind))
+        return functools.partial(_SIMPLE_KINDS[kind], **spec)
+    raise NotImplementedError(f"criterion kind '{kind}' has not been implemented.")
 
 
 def build_criterions(config) -> dict[str, tuple[Callable | None, float]]:

@@ -13,8 +13,10 @@ package flattens (H, W, C), a fixed permutation of fc1's input rows that
 train/checkpoint.py applies when weights are carried across. The JAX
 package's packed-GEMM stem backward (ops/fastgrad.py StemConv3x3) is a TPU
 scheduling device: here the stem is a plain conv and autograd computes the
-same gradient. Feature taps (the loss zoo's ContentDiscriminator) wait for
-ROADMAP.md Queue A, item 2.
+same gradient. With `taps` (torch node names "features.{3i+1}", the
+LeakyReLU outputs) the forward returns those activations, NHWC, and stops
+after the deepest: ContentDiscriminator's feature taps (reference
+loss.py:259-266).
 """
 
 from __future__ import annotations
@@ -71,10 +73,17 @@ class Discriminator(nn.Module):
             dtype=dtype or compute_dtype(config.TPU.COMPUTE_DTYPE),
         )
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        """train=True: batch statistics, running statistics updated in place."""
+    def forward(self, x: torch.Tensor, train: bool = False, taps: tuple[str, ...] = ()):
+        """train=True: batch statistics, running statistics updated in place.
+        With `taps`: {tap: NHWC activation} instead of the logits."""
         h = x.to(self.dtype).permute(0, 3, 1, 2)
-        for layer in self.features:
+        deepest = max((int(t.split(".")[1]) for t in taps), default=-1)
+        tap_out = {}
+        for i, layer in enumerate(self.features):
             h = layer(h, train) if isinstance(layer, BatchNorm) else layer(h)
+            if f"features.{i}" in taps:
+                tap_out[f"features.{i}"] = h.permute(0, 2, 3, 1)
+            if taps and i >= deepest:
+                return tap_out
         h = h.reshape(h.shape[0], -1)  # torch's (C, H, W) flatten
         return self.classifier(h).float()

@@ -19,7 +19,8 @@ running statistics in place (the JAX package's mutable batch_stats). The
 trunk then runs as per-block modules ("unfused") or, with
 trunk_mode="packed" in a bf16 train step, through the hand-written K4/K5
 kernels (kernels/packed_trunk.py); "hybrid" is the plain forward with the
-K5 backward. The last upsample block's shuffle is elided and the
+K5 backward; "fused", in any train step, runs the K6 forward and its torch
+backward (kernels/fused_trunk.py). The last upsample block's shuffle is elided and the
 reconstruction conv runs on its pre-shuffle activation
 (conv2d_subpixel_pre_shuffled), through the hand-written coarse conv kernel
 by default; TAIL_MODE="fused" runs the last up-conv, PReLU and conv3 as one
@@ -40,9 +41,7 @@ from srgan_st_tpu_torch.models.common import (
 
 _XPACK_TODO = ("trunk_mode='xpack' (the W-parity lane packing of the trunk as "
                "plain convs) is not ported yet (ROADMAP.md Queue A, item 1)")
-_FUSED_TODO = ("trunk_mode='fused' (the whole-trunk forward kernel, K6) is not "
-               "ported yet (ROADMAP.md Queue B, item 2)")
-_TRUNK_MODES = ("unfused", "packed", "hybrid")
+_TRUNK_MODES = ("unfused", "packed", "hybrid", "fused")
 
 
 class ResidualConvBlock(nn.Module):
@@ -122,8 +121,6 @@ class Generator(nn.Module):
         if trunk_mode is not None and trunk_mode not in _TRUNK_MODES:
             if trunk_mode.startswith("xpack"):
                 raise NotImplementedError(_XPACK_TODO)
-            if trunk_mode.startswith("fused"):
-                raise NotImplementedError(_FUSED_TODO)
             raise ValueError(f"unknown trunk_mode {trunk_mode!r}")
         self.trunk_mode = trunk_mode
         self.tail_mode = tail_mode
@@ -211,18 +208,23 @@ class Generator(nn.Module):
     def _trunk(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         """The residual trunk on NHWC x; NHWC out. Auto runs the unfused
         blocks in eval and in training (the JAX package's bf16-train auto,
-        xpack, is a TPU lane packing of the same function); "packed" and
-        "hybrid" run only in a train step inside the kernels' gate, as in
-        the JAX package, and fall back to the unfused blocks elsewhere."""
+        xpack, is a TPU lane packing of the same function). The kernel
+        trunks run only in a train step, as in the JAX package (generator.py:
+        224-262), and read the blocks' parameters stacked: "packed" and
+        "hybrid" inside the K4/K5 gate (else the unfused blocks), "fused"
+        at any dtype and shape (on CUDA its kernel raises on what it does
+        not take)."""
         mode = self.trunk_mode or "unfused"
-        if mode == "unfused" or not train or not self._packed_ok(x):
+        if (mode == "unfused" or not train
+                or (mode in ("packed", "hybrid") and not self._packed_ok(x))):
             h = x.permute(0, 3, 1, 2)
             for blk in self.trunk:
                 h = blk(h, train)
             return h.permute(0, 2, 3, 1)
+        from srgan_st_tpu_torch.kernels.fused_trunk import fused_trunk
         from srgan_st_tpu_torch.kernels.packed_trunk import hybrid_trunk, packed_trunk
 
-        fn = hybrid_trunk if mode == "hybrid" else packed_trunk
+        fn = {"fused": fused_trunk, "hybrid": hybrid_trunk, "packed": packed_trunk}[mode]
         y, stats = fn(x.contiguous(), *stack_rcb_params(self.trunk), 1e-5)
         nelem = x.numel() // x.shape[-1]
         for i, blk in enumerate(self.trunk):

@@ -1,12 +1,35 @@
-"""Color-space helpers (port of srgan_st_tpu/ops/color.py, eval part).
+"""Color-space helpers (port of srgan_st_tpu/ops/color.py).
 
 `bgr2ycbcr` reproduces the reference's BT.601 conversion bit-for-bit
 (reference utils.py:132-154) — PSNR/SSIM are evaluated on this Y channel.
+`rgb_to_grayscale` matches torchvision's Grayscale() (ITU-R 601 luma on
+RGB) used by the ST losses (reference loss.py:330-334, 399-401).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+# torchvision.transforms.Grayscale coefficients (rgb_to_grayscale)
+_GRAY_RGB = (0.2989, 0.587, 0.114)
+
+# ImageNet statistics (reference loss.py:52)
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def rgb_to_grayscale(x: torch.Tensor, channel_axis: int = -1) -> torch.Tensor:
+    """Luma of RGB images; keeps a singleton channel axis."""
+    r, g, b = torch.split(x, 1, dim=channel_axis)
+    return _GRAY_RGB[0] * r + _GRAY_RGB[1] * g + _GRAY_RGB[2] * b
+
+
+def imagenet_normalize(x: torch.Tensor) -> torch.Tensor:
+    """(x - mean) / std per RGB channel, NHWC (reference loss.py:52,62-63)."""
+    mean = torch.tensor(IMAGENET_MEAN, dtype=x.dtype, device=x.device)
+    std = torch.tensor(IMAGENET_STD, dtype=x.dtype, device=x.device)
+    return (x - mean) / std
 
 
 def bgr2ycbcr(img: np.ndarray, only_y: bool = True) -> np.ndarray:

@@ -97,7 +97,7 @@ def _resize_matrices(in_h, in_w, out_h, out_w, scale, method):
 
 
 @contextlib.contextmanager
-def _full_f32_matmul():
+def full_f32_matmul():
     """Full float32 matmuls on the card: TF32 (the JAX package's default
     bf16 passes on the TPU) flips the round(255x)/255 quantization of many
     pixels (the JAX package measured ~15%), so the flag is cleared around
@@ -124,7 +124,7 @@ def resize_bicubic(x: torch.Tensor, scale: float, method: str = "matlab",
     mh = torch.as_tensor(mh, dtype=x.dtype, device=x.device)
     mw = torch.as_tensor(mw, dtype=x.dtype, device=x.device)
     # rows then cols, the reference's order (bicubic.py:94-104)
-    with _full_f32_matmul():
+    with full_f32_matmul():
         out = torch.einsum("oh,bhwc->bowc", mh, x)
         out = torch.einsum("pw,bowc->bopc", mw, out)
     if quantize:

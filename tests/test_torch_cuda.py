@@ -283,7 +283,220 @@ def test_generator_train_step_launches_the_kernels(dev):
     g(lr, train=True).square().mean().backward()
     torch.cuda.synchronize()
     assert launch_counts() == {"coarse_conv_s2d": 1, "serving_tail": 0,
-                               "packed_trunk_fwd": 1, "packed_trunk_bwd": 1}
+                               "packed_trunk_fwd": 1, "packed_trunk_bwd": 1,
+                               "fused_trunk": 0, "buddy_select": 0}
     for name, p in g.named_parameters():
         assert p.grad is not None and torch.isfinite(p.grad).all(), name
     assert float(g.conv3.weight.grad.abs().max()) > 0
+
+
+# ---------------------------------------------------------------------------
+# K7: buddy selection
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dist_norm,b,n,m,d", [
+    ("l2", 2, 1024, 1344, 27),   # PatchwiseST / BestBuddy at 96px GT (batch cut to 2)
+    ("l2", 2, 1024, 1344, 9),    # Gram
+    ("l2", 3, 97, 131, 27),      # N and M divide no tile
+    ("l2", 1, 40, 70, 147),      # ksize 7
+    ("l1", 2, 100, 150, 27),
+])
+def test_buddy_select_matches_plain(dev, dtype, dist_norm, b, n, m, d):
+    """K7 against its plain version: gate (a) on every index against the
+    plain version's and the f64 ground truth of the same inputs, and
+    gate (c): the gathered rows are bank rows, bit for bit."""
+    from srgan_st_tpu_torch.kernels import _checks
+    from srgan_st_tpu_torch.kernels import buddy_select as bs
+
+    rng = np.random.default_rng(11)
+    p1, p2, bank = (_rand(rng, b, k, d, dev=dev).to(dtype) for k in (n, n, m))
+    before = bs.launches
+    sel, idx = bs.buddy_select(p1, p2, bank, dist_norm=dist_norm, return_index=True)
+    torch.cuda.synchronize()
+    assert bs.launches == before + 1
+    assert idx.dtype == torch.int32 and idx.shape == (b, n)
+    ref = bs.buddy_select_reference(p1, p2, bank, dist_norm=dist_norm)
+    scores = _checks.f64_scores(p1, p2, bank, dist_norm=dist_norm)
+    assert bool(_checks.near_tie_agrees(idx, ref, scores).all())
+    assert torch.equal(sel, torch.gather(bank, 1, idx.long()[..., None].expand(-1, -1, d)))
+
+
+def _duplicate_heavy(rng, b, n, m, d, dev, dtype):
+    """p1, p2 and a bank on a 1/255 grid whose second half copies the
+    first, drawn in the order of the JAX package's first-occurrence test."""
+    def grid(*s):
+        return torch.from_numpy(np.round(rng.standard_normal(s) * 32).astype(np.float32) / 255)
+
+    p1, p2, bank = grid(b, n, d), grid(b, n, d), grid(b, m, d)
+    bank[:, m // 2:] = bank[:, : m - m // 2]
+    return tuple(t.to(dev, dtype) for t in (p1, p2, bank))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_buddy_select_first_occurrence(dev, dtype):
+    """Gate (b) on a duplicate-heavy bank at the PatchwiseST shape, for the
+    kernel and its plain version; and gate (a) between them. At this size
+    exact f64 ties between distinct grid rows occur, which f32 rounding
+    may split: rows with a near tie are held by gate (a) alone."""
+    from srgan_st_tpu_torch.kernels import _checks
+    from srgan_st_tpu_torch.kernels import buddy_select as bs
+
+    b, n, m, d = 2, 1024, 1344, 27
+    p1, p2, bank = _duplicate_heavy(np.random.default_rng(12), b, n, m, d, dev, dtype)
+    idx = bs.buddy_select_index(p1, p2, bank)
+    ref = bs.buddy_select_reference(p1, p2, bank)
+    scores = _checks.f64_scores(p1, p2, bank)
+    assert _checks.first_occurrence_holds(idx, scores, m // 2)
+    assert _checks.first_occurrence_holds(ref, scores, m // 2)
+    assert bool(_checks.near_tie_agrees(idx, ref, scores).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_buddy_select_first_occurrence_exact(dev, dtype):
+    """The JAX package's first-occurrence test on the card: its
+    construction and seed (b=2, n=40, m=70, d=27), and the kernel's
+    indices equal to the f64 first-occurrence argmin exactly, never in the
+    copied half, and the gathered rows bank rows bit for bit."""
+    from srgan_st_tpu_torch.kernels import _checks
+    from srgan_st_tpu_torch.kernels import buddy_select as bs
+
+    b, n, m, d = 2, 40, 70, 27
+    p1, p2, bank = _duplicate_heavy(np.random.default_rng(0), b, n, m, d, dev, dtype)
+    sel, idx = bs.buddy_select(p1, p2, bank, return_index=True)
+    want = torch.argmin(_checks.f64_scores(p1.cpu(), p2.cpu(), bank.cpu()), dim=2)
+    assert torch.equal(idx.cpu().long(), want)
+    assert bool((idx < m // 2).all())
+    assert torch.equal(sel, torch.gather(bank, 1, idx.long()[..., None].expand(-1, -1, d)))
+
+
+@pytest.mark.cuda
+def test_buddy_select_raises_on_inputs_it_does_not_take(dev):
+    from srgan_st_tpu_torch.kernels import buddy_select as bs
+
+    x = torch.zeros(1, 4, 161, device=dev)
+    with pytest.raises(ValueError, match="d <= 160"):
+        bs.buddy_select_index(x, x, x)
+    y = torch.zeros(1, 4, 9, device=dev)
+    with pytest.raises(ValueError, match="one dtype"):
+        bs.buddy_select_index(y, y.bfloat16(), y)
+
+
+@pytest.mark.cuda
+def test_registry_picks_the_kernel_on_cuda(dev):
+    """PatchwiseST from the registry launches K7 once per call on CUDA
+    tensors unless its spec says pallas=False; both give the same loss
+    within 1e-6 relative."""
+    from srgan_st_tpu_torch.core.config import Config
+    from srgan_st_tpu_torch.kernels import buddy_select as bs
+    from srgan_st_tpu_torch.losses.registry import build_one
+
+    rng = np.random.default_rng(13)
+    gt = torch.from_numpy(rng.random((2, 96, 96, 3), dtype=np.float32)).to(dev)
+    sr = (gt + 0.05 * torch.randn_like(gt)).clamp(0, 1)
+    vals = []
+    for spec, launched in (({}, 1), ({"pallas": False}, 0)):
+        before = bs.launches
+        vals.append(float(build_one(Config(), "PatchwiseST", spec)(sr, gt)))
+        assert bs.launches == before + launched
+    assert abs(vals[0] - vals[1]) <= 1e-6 * abs(vals[1])
+
+
+# ---------------------------------------------------------------------------
+# K6: the whole-trunk forward
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,n", [((2, 8, 8, 64), 2), ((3, 22, 26, 64), 2),
+                                     ((2, 6, 10, 128), 3)])
+def test_fused_trunk_matches_plain(dev, shape, n):
+    """K6 against its plain version: y, the residuals xs, a1s, a2s and the
+    stats. f32 (TF32 off): within 1e-4 max|ref|. bf16: within 2x the plain
+    version's bf16-vs-f32 envelope. One launch per call."""
+    from srgan_st_tpu_torch.kernels import fused_trunk as ft
+
+    x, params = _trunk_inputs(dev, shape, n, seed=5)
+    before = ft.launches
+    got = ft._launch_fwd(x, *params, 1e-5)
+    ref = ft.fused_trunk_reference(x, *params, 1e-5)
+    torch.cuda.synchronize()
+    assert ft.launches == before + 1 and ft.last_grid > 0
+    for i, (g, r) in enumerate(zip(got, ref)):
+        assert g.dtype == r.dtype and g.shape == r.shape
+        assert _err(g, r) <= 1e-4 * float(r.abs().max()), i
+    xb = x.bfloat16()
+    p16 = [params[0].bfloat16().float(), params[1].bfloat16().float(), *params[2:]]
+    ref32 = ft.fused_trunk_reference(xb.float(), *p16, 1e-5)
+    plain16 = ft.fused_trunk_reference(xb, *params, 1e-5)
+    got16 = ft._launch_fwd(xb, *params, 1e-5)
+    for i, (g, p, r) in enumerate(zip(got16, plain16, ref32)):
+        env = _err(p, r)
+        assert 0 < env and _err(g, r) <= 2 * env, (i, _err(g, r), env)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_trunk_is_deterministic(dev, dtype):
+    """Two runs of K6 on the same inputs give the same bits."""
+    from srgan_st_tpu_torch.kernels import fused_trunk as ft
+
+    x, params = _trunk_inputs(dev, (16, 24, 24, 64), 4)
+    x = x.to(dtype)
+    runs = [ft._launch_fwd(x, *params, 1e-5) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_fused_trunk_gradients_match_plain(dev):
+    """Gradients through fused_trunk on CUDA (K6 forward, the torch
+    backward) equal the backward on the plain forward's residuals: f32,
+    within 1e-3 max|ref| for each of the 8."""
+    from srgan_st_tpu_torch.kernels import fused_trunk as ft
+
+    x, params = _trunk_inputs(dev, (4, 12, 12, 64), 2, seed=6)
+    got = _trunk_run(ft.fused_trunk, x, params)
+    _, xs, a1s, a2s, stats = ft.fused_trunk_reference(x, *params, 1e-5)
+    y = got[0]
+    bp = (params[0], params[1], params[2], params[3], params[4], params[6])
+    ref = ft.fused_trunk_backward(2 * y, xs, a1s, a2s, stats, *bp, 1e-5)
+    for i, (g, r) in enumerate(zip(got[2:], ref)):
+        assert g.shape == r.shape
+        assert _err(g, r) <= 1e-3 * float(r.abs().max()), i
+
+
+@pytest.mark.cuda
+def test_fused_trunk_raises_outside_its_gate(dev):
+    from srgan_st_tpu_torch.kernels import fused_trunk as ft
+
+    _, params = _trunk_inputs(dev, (1, 4, 4, 64), 1)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        ft.fused_trunk(torch.zeros(1, 4, 4, 32, device=dev),
+                       *[p[..., :32, :32] if p.dim() == 5 else p[..., :32] if p.dim() == 2
+                         else p for p in params])
+    with pytest.raises(ValueError, match="contiguous"):
+        ft.fused_trunk(torch.zeros(1, 64, 4, 4, device=dev).permute(0, 2, 3, 1), *params)
+
+
+@pytest.mark.cuda
+def test_generator_fused_trunk_launches_k6(dev):
+    """A bf16 train step of a narrow-depth full-width generator with trunk
+    "fused" launches K6 once and kernel A once, and gives every parameter a
+    finite gradient."""
+    from srgan_st_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from srgan_st_tpu_torch.models.generator import Generator, random_variables
+    from srgan_st_tpu_torch.train.checkpoint import generator_state_dict_from_variables
+
+    g = Generator(num_rcb=2, dtype=torch.bfloat16, trunk_mode="fused")
+    g.load_state_dict(generator_state_dict_from_variables(random_variables(0, num_rcb=2)))
+    g.to(dev)
+    reset_launch_counts()
+    g(torch.rand(4, 24, 24, 3, device=dev), train=True).square().mean().backward()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["fused_trunk"] == 1 and counts["coarse_conv_s2d"] == 1, counts
+    assert counts["packed_trunk_fwd"] == 0 and counts["packed_trunk_bwd"] == 0
+    for name, p in g.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name

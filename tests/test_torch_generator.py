@@ -194,12 +194,12 @@ def test_load_params_npz_with_target_keeps_mismatched(tmp_path):
 
 
 def test_unported_modes_raise():
-    """Train mode runs; the unported trunks "fused" (K6) and "xpack" raise,
-    naming their ROADMAP.md queue."""
+    """Train mode runs, with the trunk "fused" (K6, ported) too; the
+    unported trunk "xpack" raises, naming its ROADMAP.md queue."""
     g = Generator(channels=16, num_rcb=1, upscale=2)
     x = torch.zeros(1, 4, 4, 3)
     assert g(x, train=True).shape == (1, 8, 8, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue B, item 2"):
-        Generator(channels=16, num_rcb=1, upscale=2, trunk_mode="fused")(x, train=True)
+    fused = Generator(channels=16, num_rcb=1, upscale=2, trunk_mode="fused")
+    assert fused(x, train=True).shape == (1, 8, 8, 3)
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
         Generator(channels=16, num_rcb=1, upscale=2, trunk_mode="xpack")(x)

@@ -633,15 +633,15 @@ def test_cli_parses_overrides():
 
 
 def test_unported_training_options_raise():
-    """Criterion kinds of the loss zoo and the data options of Queue A
-    item 4 raise, naming their ROADMAP.md item."""
+    """The loss zoo's unported kind, content_vgg, and the data options of
+    Queue A item 4 raise, naming their ROADMAP.md item."""
     from srgan_st_tpu_torch.core.config import Config
     from srgan_st_tpu_torch.data.pipeline import make_train_source
     from srgan_st_tpu_torch.losses.registry import build_criterions
     from srgan_st_tpu_torch.train.steps import make_warmup_step
 
     cfg = Config()
-    cfg.MODEL.G_LOSS.CRITERIONS = {"ST": {"kind": "st"}}
+    cfg.MODEL.G_LOSS.CRITERIONS = {"ContentVGG": {"kind": "content_vgg"}}
     with pytest.raises(NotImplementedError, match="Queue A, item 2"):
         build_criterions(cfg)
     cfg = Config()
