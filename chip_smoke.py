@@ -7,10 +7,14 @@ From the root of a checkout, with one NVIDIA H100 (sm_90a) and the CUDA
 toolkit. In order, each phase printing one JSON line:
 
   env      torch and CUDA versions, the card and its power limit;
-  build    nvcc builds csrc/*.cu from a clean build directory;
-  kernel   each hand-written kernel against its plain PyTorch version on
-           the same inputs, at the serving path's shapes (and kernel A at
-           its training-scale shape), in f32 (TF32 off) and in bf16;
+  build    nvcc builds csrc/*.cu from a clean build directory; each
+           kernel's registers and spills (ptxas) and the bf16 wgmma
+           kernels' shared memory; a spill in those fails the run;
+  kernel   kernels A and B against their plain PyTorch versions on the
+           same inputs, at the serving path's shapes, kernel A at its
+           training-scale shape, and an edge shape each whose quarter
+           grid divides no tile, in f32 (TF32 off) and in bf16; a second
+           launch must give the same bits;
   serve    seeded full-width weights (16 RCB, 64 channels, x4) written as
            a JAX-format npz and served in bf16 through make_infer_fn /
            upscale_image: a 960x540 frame in the composed tail mode and
@@ -20,10 +24,13 @@ toolkit. In order, each phase printing one JSON line:
   check    the composed, fused and tiled outputs against each other within
            the network's bf16 envelope, and the CUDA f32 network against
            its CPU run (the plain versions) on a small frame;
-  time     each kernel's time at 4K, its bound, its plain version's time
-           and a cuDNN yardstick (printed after its gate), and ms per 4K
-           frame in both tail modes, by CUDA events (median of 10 after
-           warm-up);
+  time     each kernel's time at 4K on laid-out weights, its bound, its
+           design's own floor (the wgmma work its library counts from its
+           tiles, at the bf16 peak), the
+           achieved bandwidth (A) or tensor rate (B), its plain version's
+           time and a cuDNN yardstick (printed after its gate), kernel A's
+           time at the training shape, and ms per 4K frame in both tail
+           modes, by CUDA events (median of 10 after warm-up);
   profile  device time by kernel over one 4K frame in each tail mode
            (torch.profiler), and the device's idle share.
 
@@ -121,11 +128,16 @@ LR_ODD = (383, 541)                 # padded to 384x542 by upscale_image
 # one that is timed.
 SHAPE_A_TRAIN = (16, 48, 48, 256)
 SHAPE_A_4K = (1, 1080, 1920, 256)
-SHAPES_A = (SHAPE_A_TRAIN, SHAPE_A_4K, (16, 288, 288, 256), (1, 768, 1084, 256))
+# an edge shape: a 13 x 70 quarter grid divides neither of the bf16 kernel's
+# 8 x 64 tile sides (nor the f32 kernel's 2 x 64)
+SHAPES_A = (SHAPE_A_TRAIN, SHAPE_A_4K, (16, 288, 288, 256), (1, 768, 1084, 256),
+            (1, 26, 140, 256))
 # Kernel B's inputs (the last upsample block's input): 4K, the odd frame,
-# whose 542 quarter-resolution columns end in a partial tile
+# whose 542 quarter-resolution columns end in a partial tile, and an edge
+# shape whose 5 x 31 quarter grid divides neither side of the bf16 kernel's
+# 4 x 30 tile (nor the f32 kernel's 2 x 16)
 SHAPE_B_4K = (1, 1080, 1920, 64)
-SHAPES_B = (SHAPE_B_4K, (1, 768, 1084, 64))
+SHAPES_B = (SHAPE_B_4K, (1, 768, 1084, 64), (1, 10, 62, 64))
 
 
 # The trunk kernels' inputs: the training shape, then an edge shape whose
@@ -168,20 +180,23 @@ def max_abs(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def envelope_gate(name, shape, got32, ref32, got16, ref16, plain16) -> dict:
+def envelope_gate(name, shape, got32, ref32, got16, ref16, plain16, same_bits) -> dict:
     """f32: max|d| <= 1e-4 max|ref|. bf16: max|kernel - ref16| <= 2x the
     envelope max|plain16 - ref16|, where ref16 is the plain version in f32
-    on the bf16 inputs and plain16 the plain version computed in bf16."""
+    on the bf16 inputs and plain16 the plain version computed in bf16.
+    same_bits: {dtype: a second launch gave the same bits}."""
     err32, scale = max_abs(got32, ref32), float(ref32.abs().max())
     env, err16 = max_abs(plain16, ref16), max_abs(got16, ref16)
     rec = {"kernel": name, "shape": list(shape), "f32_max_abs_err": err32,
            "f32_tol": 1e-4 * scale, "bf16_max_abs_err": err16,
-           "bf16_envelope": env}
+           "bf16_envelope": env, "bitwise_repeatable": same_bits}
     emit("kernel", **rec)
     if not err32 <= 1e-4 * scale:
         raise AssertionError(f"{name} f32 at {shape}: {err32} > 1e-4 * {scale}")
     if not (env > 0 and err16 <= 2 * env):
         raise AssertionError(f"{name} bf16 at {shape}: {err16} > 2 * {env}")
+    if not all(same_bits.values()):
+        raise AssertionError(f"{name} at {shape}: a second launch changed bits {same_bits}")
     return rec
 
 
@@ -200,6 +215,33 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# the kernels ptxas reports by name, and the bf16 wgmma kernels whose
+# dynamic shared memory the library reports (`<C entry>_smem`)
+KERNEL_FUNCS = ("coarse_conv_wgmma", "coarse_conv_kernel", "serving_tail_wgmma",
+                "serving_tail_kernel")
+WGMMA_SMEM = {"coarse_conv_wgmma": ("coarse_conv", "coarse_conv_s2d_bf16_smem"),
+              "serving_tail_wgmma": ("serving_tail", "serving_tail_bf16_smem")}
+
+
+def _ptxas_functions(log: str) -> dict:
+    """{function: {"registers", "spill_stores", "spill_loads"}} from nvcc's
+    -Xptxas -v output, functions named by KERNEL_FUNCS where one matches."""
+    import re
+
+    out, fn = {}, None
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            mangled = ln.split("for", 1)[1].strip()
+            fn = next((k for k in KERNEL_FUNCS if k in mangled), mangled)
+            out[fn] = {}
+        elif fn and "spill stores" in ln:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            out[fn].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif fn and "Used" in ln and "registers" in ln:
+            out[fn]["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+    return out
+
+
 def phase_build() -> None:
     import shutil
 
@@ -209,10 +251,18 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     done = _build.build(ptxas_verbose=True)
     seconds = time.perf_counter() - t0
+    funcs = {}
+    for rec in done.values():
+        funcs.update(_ptxas_functions(rec["log"]))
+    for fn, (lib, entry) in WGMMA_SMEM.items():
+        funcs[fn]["dynamic_smem_bytes"] = _build.load(lib, {entry: []})[entry]()
     ptxas = {name: [ln.strip() for ln in rec["log"].splitlines()
                     if "registers" in ln or "spill" in ln]
              for name, rec in done.items()}
-    emit("build", seconds=seconds, kernels=sorted(done), ptxas=ptxas)
+    emit("build", seconds=seconds, kernels=sorted(done), functions=funcs, ptxas=ptxas)
+    spilled = {fn: funcs[fn] for fn in WGMMA_SMEM if funcs[fn].get("spill_stores", 1)}
+    if spilled:
+        raise AssertionError(f"a bf16 wgmma kernel spills: {spilled}")
 
 
 def _coarse_w2(gen, dev):
@@ -225,51 +275,81 @@ def _coarse_w2(gen, dev):
     return _coarse_kernel(w3, 2)
 
 
+def design_flops(lib: str, entry: str, *dims: int) -> float:
+    """The MMA work of one bf16 launch at `dims`, as the kernel library
+    counts it from its own tiles (`<C entry>_mma_flops`)."""
+    import ctypes
+
+    from srgan_st_tpu_torch.kernels import _build
+
+    fn = getattr(_build.load(lib, {entry: [ctypes.c_int] * len(dims)
+                                   + [ctypes.POINTER(ctypes.c_double)]}), entry)
+    out = ctypes.c_double()
+    _build.check(fn(*dims, ctypes.byref(out)), entry)
+    return out.value
+
+
 def phase_kernel_a(gen, dev) -> dict:
-    """Kernel A against its plain version at each of SHAPES_A; times at 4K."""
+    """Kernel A against its plain version at each of SHAPES_A, with a second
+    launch's bits; times at 4K and at the training shape."""
     import torch
     import torch.nn.functional as F
 
     from srgan_st_tpu_torch.kernels import coarse_conv as cc
     from srgan_st_tpu_torch.ops.subpixel_conv import conv_nhwc, space_to_depth
 
-    gated = []
+    gated, kept = [], {}
     for shape in SHAPES_A:
         x = torch.rand(shape, generator=gen, device=dev)
         w2 = _coarse_w2(gen, dev)
         ref32, got32 = cc.coarse_conv_s2d_reference(x, w2), cc.coarse_conv_s2d(x, w2)
+        same32 = torch.equal(got32, cc.coarse_conv_s2d(x, w2))
         xb, wb = x.bfloat16(), w2.bfloat16()
         del x
         ref16 = cc.coarse_conv_s2d_reference(xb, wb)
         plain16 = space_to_depth(conv_nhwc(xb, wb), 2)
         got16 = cc.coarse_conv_s2d(xb, wb)
+        same16 = torch.equal(got16, cc.coarse_conv_s2d(xb, wb))
         torch.cuda.synchronize()
-        gated.append(envelope_gate("coarse_conv_s2d", shape, got32, ref32, got16,
-                                   ref16, plain16))
+        gated.append(envelope_gate("coarse_conv_s2d", shape, got32, ref32, got16, ref16,
+                                   plain16, {"f32": same32, "bf16": same16}))
         del ref32, got32, ref16, plain16, got16
-        if shape == SHAPE_A_4K:
-            x4k, w4k = xb, wb
+        if shape in (SHAPE_A_4K, SHAPE_A_TRAIN):
+            kept[shape] = (xb, wb)
     rec = _worst(gated)
-    xb, wb = x4k, w4k
+    xb, wb = kept[SHAPE_A_4K]
     b, h, w, c = SHAPE_A_4K
+    wt = cc._layout(wb, dev, torch.bfloat16)  # laid out once, as KernelWeights does
     w_oihw = wb.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
     nbytes = xb.numel() * 2 + b * (h // 2) * (w // 2) * 48 * 4 + wb.numel() * 2
     flops = 2 * b * (2 * h) * (2 * w) * 81 * (c // 4) * 3  # the 9x9 64 -> 3 conv
+    own = design_flops("coarse_conv", "coarse_conv_s2d_bf16_mma_flops", b, h, w, c)
+    xt, wtt = kept[SHAPE_A_TRAIN]
+    wt_train = cc._layout(wtt, dev, torch.bfloat16)
     rec.update(
         shape=list(SHAPE_A_4K),
-        ms=cuda_ms(lambda: cc.coarse_conv_s2d(xb, wb)),
+        ms=cuda_ms(lambda: cc.coarse_conv_s2d(xb, wb, wt)),
+        wrapper_ms=cuda_ms(lambda: cc.coarse_conv_s2d(xb, wb)),
         plain_ms=cuda_ms(lambda: cc.coarse_conv_s2d_reference(xb, wb)),
         library_ms=cuda_ms(lambda: F.conv2d(xb.permute(0, 3, 1, 2), w_oihw, padding=2)),
         bytes=nbytes, flops=flops,
         flops_doubly_coarse=2 * b * (h // 2) * (w // 2) * 18 * (2 * c) * 48,
+        design_flops=own, floor_ms=own / BF16_FLOPS * 1e3,
+        train_shape=list(SHAPE_A_TRAIN),
+        train_ms=cuda_ms(lambda: cc.coarse_conv_s2d(xt, wtt, wt_train)),
     )
     rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, flops)
+    rec["achieved_gb_per_s"] = nbytes / (rec["ms"] / 1e3) / 1e9
+    rec["achieved_design_tflop_per_s"] = own / (rec["ms"] / 1e3) / 1e12
+    rec["ms_over_library_ms"] = rec["ms"] / rec["library_ms"]
     emit("kernel_time", **rec)
     return rec
 
 
 def phase_kernel_b(gen, dev) -> dict:
-    """Kernel B against its plain version at each of SHAPES_B; times at 4K."""
+    """Kernel B against its plain version at each of SHAPES_B, with a second
+    launch's bits; times at 4K (`ms`: the launch on laid-out weights;
+    `wrapper_ms`: serving_tail with its output permutation and b3)."""
     import torch
     import torch.nn.functional as F
 
@@ -287,15 +367,17 @@ def phase_kernel_b(gen, dev) -> dict:
         y = torch.rand(shape, generator=gen, device=dev)
         ref32, got32 = (st.serving_tail_reference(y, w_up, b_up, alpha, w3, b3),
                         st.serving_tail(y, w_up, b_up, alpha, w3, b3))
+        same32 = torch.equal(got32, st.serving_tail(y, w_up, b_up, alpha, w3, b3))
         y16 = y.bfloat16()
         del y
         ref16 = st.serving_tail_reference(y16.float(), w_up.bfloat16().float(), b_up,
                                           alpha, w3.bfloat16().float(), b3)
         plain16 = st.serving_tail_reference(y16, w_up, b_up, alpha, w3, b3)
         got16 = st.serving_tail(y16, w_up, b_up, alpha, w3, b3)
+        same16 = torch.equal(got16, st.serving_tail(y16, w_up, b_up, alpha, w3, b3))
         torch.cuda.synchronize()
         gated.append(envelope_gate("serving_tail", shape, got32, ref32, got16,
-                                   ref16, plain16))
+                                   ref16, plain16, {"f32": same32, "bf16": same16}))
         del ref32, got32, ref16, plain16, got16
         if shape == SHAPE_B_4K:
             yb = y16
@@ -312,17 +394,23 @@ def phase_kernel_b(gen, dev) -> dict:
         t = F.conv2d(yb.permute(0, 3, 1, 2), wu_oihw, bu16, padding=1)
         return F.conv2d(torch.where(t >= 0, t, a16 * t), w2_oihw, padding=2)
 
+    tail_weights = st.TailWeights()  # laid out once, as the generator keeps them
     nbytes = yb.numel() * 2 + b * (h // 2) * (w // 2) * 48 * 2
     flops = (2 * b * h * w * 9 * c * 4 * c               # 3x3 64 -> 256 up-conv
              + 2 * b * (2 * h) * (2 * w) * 81 * c * 3)   # 9x9 64 -> 3 conv3
+    own = design_flops("serving_tail", "serving_tail_bf16_mma_flops", b, h, w)
     rec.update(
         shape=list(SHAPE_B_4K),
-        ms=cuda_ms(lambda: st._launch(yb, w_up, b_up, alpha, w3)),
+        ms=cuda_ms(lambda: st._launch(yb, w_up, b_up, alpha, w3, tail_weights)),
         wrapper_ms=cuda_ms(lambda: st.serving_tail(yb, w_up, b_up, alpha, w3, b3)),
         plain_ms=cuda_ms(lambda: st.serving_tail_reference(yb, w_up, b_up, alpha, w3, b3)),
         library_ms=cuda_ms(library), bytes=nbytes, flops=flops,
+        design_flops=own, floor_ms=own / BF16_FLOPS * 1e3,
     )
     rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, flops)
+    rec["achieved_tflop_per_s"] = flops / (rec["ms"] / 1e3) / 1e12
+    rec["achieved_design_tflop_per_s"] = own / (rec["ms"] / 1e3) / 1e12
+    rec["ms_over_library_ms"] = rec["ms"] / rec["library_ms"]
     emit("kernel_time", **rec)
     return rec
 

@@ -111,11 +111,13 @@ def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
             if not os.path.exists(path):
                 build([name])
             lib = ctypes.CDLL(path)
-            for fn_name, argtypes in signatures.items():
-                fn = getattr(lib, fn_name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+            lib.typed = set()
             _LIBS[name] = lib
+        for fn_name in signatures.keys() - lib.typed:
+            fn = getattr(lib, fn_name)
+            fn.argtypes = signatures[fn_name]
+            fn.restype = ctypes.c_int
+            lib.typed.add(fn_name)
         return lib
 
 

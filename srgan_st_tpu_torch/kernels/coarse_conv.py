@@ -6,7 +6,8 @@ w2 (5, 5, C, N2) over x (B, H, W, C), followed by space_to_depth(2): a
 (B, H/2, W/2, 4*N2) f32 tensor in `_coarse_kernel` channel order
 (n2, ry, rx). On a CUDA tensor it launches the hand-written kernel
 `csrc/coarse_conv.cu` (one kernel for both Pallas kernels, `_kernel` and
-`_kernel_tiled`), or raises if the kernel does not take the input; on a
+`_kernel_tiled`: wgmma with a cp.async / bulk-copy ring in bf16, the SIMT
+tile code in f32), or raises if the kernel does not take the input; on a
 CPU tensor it runs the plain version, `coarse_conv_s2d_reference`.
 """
 
@@ -23,7 +24,9 @@ launches = 0
 
 N2 = 12  # coarse output channels the kernel is built for: 4 * N2 = 48
 _FN = {torch.bfloat16: "coarse_conv_s2d_bf16", torch.float32: "coarse_conv_s2d_f32"}
-_K_CHUNK = {torch.bfloat16: 32, torch.float32: 16}  # csrc/coarse_conv.cu Chunk<T>::KC
+# the K chunk each kernel walks K = 2C in (csrc/coarse_conv.cu wg::KC, KC)
+_K_CHUNK = {torch.bfloat16: 16, torch.float32: 16}
+TILE = (8, 64)   # quarter rows x columns of a bf16 block (wg::TH, wg::TW)
 _ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _SIGNATURES = {fn: _ARGS for fn in _FN.values()}
 
@@ -49,9 +52,33 @@ def _kernel_weights(w2: torch.Tensor, device, dtype) -> torch.Tensor:
     return wt.reshape(18, wt.shape[-2], wt.shape[-1]).transpose(1, 2).contiguous()
 
 
+def _stream_weights(wt: torch.Tensor) -> torch.Tensor:
+    """(18, 48, K) [tap][n][k] -> the bf16 kernel's weight stream
+    (K/16, 18, 2, 48, 8): per K chunk of 16, the ring stage's image
+    [tap][k group][n][8], copied by one bulk copy per chunk."""
+    taps, n3, k = wt.shape
+    kc = _K_CHUNK[torch.bfloat16]
+    return (wt.reshape(taps, n3, k // kc, kc // 8, 8)
+            .permute(2, 0, 3, 1, 4).contiguous())
+
+
+def _layout_shape(c: int, dtype) -> tuple:
+    """Shape of `_layout` for C input channels."""
+    if dtype == torch.bfloat16:
+        return (2 * c // _K_CHUNK[dtype], 18, _K_CHUNK[dtype] // 8, 4 * N2, 8)
+    return (18, 4 * N2, 2 * c)
+
+
+def _layout(w2: torch.Tensor, device, dtype) -> torch.Tensor:
+    """The weights the kernel of `dtype` reads: the weight stream in bf16,
+    `_kernel_weights` in f32."""
+    wt = _kernel_weights(w2, device, dtype)
+    return _stream_weights(wt) if dtype == torch.bfloat16 else wt
+
+
 class KernelWeights:
-    """`_kernel_weights` of one conv's weight (an OIHW parameter of a 9x9
-    conv to 3 channels) in a compute dtype, made again only when the
+    """`_layout` of one conv's weight (an OIHW parameter of a 9x9 conv to
+    3 channels) in a compute dtype, made again only when the
     weight's storage or version changes: once per parameter version, not
     once per call."""
 
@@ -66,7 +93,7 @@ class KernelWeights:
 
             with torch.no_grad():
                 w2 = _coarse_kernel(weight.detach().permute(2, 3, 1, 0).to(dtype), 2)
-                self._wt = _kernel_weights(w2, weight.device, dtype)
+                self._wt = _layout(w2, weight.device, dtype)
             self._key = key
         return self._wt
 
@@ -92,8 +119,8 @@ def coarse_conv_s2d(x: torch.Tensor, w2: torch.Tensor,
 
 def fits(x_shape, w2_shape, dtype) -> bool:
     """Shape gate of the kernel: NHWC x with even H and W, bf16 or f32,
-    C a multiple of 16 (bf16) or 8 (f32), and a (5, 5, C, 12) coarse
-    kernel (that of a 9x9 conv with 3 outputs)."""
+    C a multiple of 8, and a (5, 5, C, 12) coarse kernel (that of a 9x9
+    conv with 3 outputs)."""
     if len(x_shape) != 4 or dtype not in _FN:
         return False
     _, h, w, c = x_shape
@@ -109,14 +136,20 @@ def _launch(x: torch.Tensor, w2: torch.Tensor, wt: torch.Tensor | None = None
     if not fits(x.shape, w2.shape, x.dtype):
         raise ValueError(
             f"coarse_conv_s2d: the kernel takes NHWC bf16/f32 x with even H, W "
-            f"and C a multiple of {_K_CHUNK[torch.bfloat16] // 2} (bf16) or "
-            f"{_K_CHUNK[torch.float32] // 2} (f32), and w2 (5, 5, C, {N2}); got x "
-            f"{tuple(x.shape)} {x.dtype}, w2 {tuple(w2.shape)}")
+            f"and C a multiple of {_K_CHUNK.get(x.dtype, 16) // 2}, "
+            f"and w2 (5, 5, C, {N2}); got x {tuple(x.shape)} {x.dtype}, "
+            f"w2 {tuple(w2.shape)}")
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("coarse_conv_s2d: x must be contiguous NHWC, 16-byte aligned")
     b, h, w, c = x.shape
     if wt is None:
-        wt = _kernel_weights(w2, x.device, x.dtype)
+        wt = _layout(w2, x.device, x.dtype)
+    elif (tuple(wt.shape) != _layout_shape(c, x.dtype) or wt.dtype != x.dtype
+          or wt.device != x.device or not wt.is_contiguous()):
+        raise ValueError(
+            f"coarse_conv_s2d: wt must be the kernel's layout of w2, "
+            f"{_layout_shape(c, x.dtype)} {x.dtype} on {x.device}; got "
+            f"{tuple(wt.shape)} {wt.dtype} on {wt.device}")
     out = torch.empty((b, h // 2, w // 2, 4 * N2), device=x.device,
                       dtype=torch.float32)
     lib = _build.load("coarse_conv", _SIGNATURES)

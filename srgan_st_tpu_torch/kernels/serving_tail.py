@@ -11,7 +11,9 @@ in one permutation and adds b3. On a CPU tensor it runs the plain version,
 
 The TPU lane packing of the JAX kernel's weights (`pack_conv_blocks`) has
 no counterpart: the wrapper lays the weights out as the CUDA kernel reads
-them.
+them (`_layouts`: one weight stream in bf16, per-stage tensors in f32), and
+`TailWeights` keeps them per parameter version, so a served frame lays out
+nothing.
 """
 
 from __future__ import annotations
@@ -27,8 +29,12 @@ launches = 0
 
 C_IN, N_UP, N_OUT = 64, 256, 3  # the shapes csrc/serving_tail.cu is built for
 _FN = {torch.bfloat16: "serving_tail_bf16", torch.float32: "serving_tail_f32"}
-_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-_SIGNATURES = {fn: _ARGS for fn in _FN.values()}
+_CCW = 32  # up-conv channels per chunk of the bf16 kernel (csrc wg::CCW)
+TILE = (4, 30)  # quarter rows x columns of a bf16 block (wg::TH, wg::TW)
+_SIGNATURES = {
+    "serving_tail_bf16": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    "serving_tail_f32": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+}
 
 
 def fits_budget(h: int, w: int, c_in: int, n_up: int, n_out: int) -> bool:
@@ -53,15 +59,67 @@ def serving_tail_reference(y, w_up, b_up, alpha, w3, b3) -> torch.Tensor:
                                         inner_factor=1)
 
 
+def _stream_weights(w1: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
+    """w1 (9, 64, 256) [tap][c_in][n] and wt (18, 48, 512) -> the bf16
+    kernel's weight stream: per chunk of 32 up-conv channels, 8 units of
+    9,216 values in the ring slot's image: w1 for input channels 0-31 and
+    32-63 ([tap][k group][n][8]), then w2 for taps 3u..3u+2 ([tap][k
+    group][48][8], k = (rx, c) over the chunk's 2 x 32 channels)."""
+    ch = N_UP // _CCW
+    w1 = w1.reshape(9, 2, 4, 8, ch, _CCW).permute(4, 1, 0, 2, 5, 3)  # c, h, tap, g, n, e
+    w2 = wt.reshape(6, 3, 48, 2, ch, _CCW).permute(4, 0, 1, 3, 5, 2)  # c, u, tap, rx, cc, n
+    w2 = w2.reshape(ch, 6, 3, 8, 8, 48).permute(0, 1, 2, 3, 5, 4)    # c, u, tap, g, n, e
+    return torch.cat([w1.reshape(ch, -1), w2.reshape(ch, -1)], 1).contiguous()
+
+
+def _layouts(w_up, b_up, alpha, w3, dev, cdt) -> dict:
+    """The weights the kernel of `cdt` reads: "ba", the 256 up-conv biases
+    and the slope as 257 f32; bf16 "stream" (`_stream_weights`); f32 "w1t"
+    (9, 256, 64) [tap][n][c_in] and "wt" (18, 48, 512), the coarse conv
+    kernel's layout."""
+    from srgan_st_tpu_torch.kernels.coarse_conv import _kernel_weights
+    from srgan_st_tpu_torch.ops.subpixel_conv import _coarse_kernel
+
+    with torch.no_grad():
+        a = torch.as_tensor(alpha, dtype=torch.float32, device=dev).reshape(-1)[:1]
+        out = {"ba": torch.cat([b_up.to(device=dev, dtype=torch.float32).reshape(-1), a])}
+        w1 = w_up.to(device=dev, dtype=cdt).reshape(9, C_IN, N_UP)
+        wt = _kernel_weights(_coarse_kernel(w3.to(device=dev, dtype=cdt), 2), dev, cdt)
+        if cdt == torch.bfloat16:
+            out["stream"] = _stream_weights(w1, wt)
+        else:
+            out["w1t"], out["wt"] = w1.transpose(1, 2).contiguous(), wt
+    return out
+
+
+class TailWeights:
+    """`_layouts` of one generator's tail parameters in a compute dtype,
+    made again only when a parameter's storage or version changes."""
+
+    def __init__(self) -> None:
+        self._key = None
+        self._layouts = None
+
+    def get(self, w_up, b_up, alpha, w3, dev, cdt) -> dict:
+        key = tuple((t.data_ptr(), t._version) if torch.is_tensor(t) else float(t)
+                    for t in (w_up, b_up, alpha, w3)) + (str(dev), cdt)
+        if key != self._key:
+            self._layouts = _layouts(w_up, b_up, alpha, w3, dev, cdt)
+            self._key = key
+        return self._layouts
+
+
 def serving_tail(y: torch.Tensor, w_up: torch.Tensor, b_up: torch.Tensor,
-                 alpha, w3: torch.Tensor, b3: torch.Tensor) -> torch.Tensor:
+                 alpha, w3: torch.Tensor, b3: torch.Tensor,
+                 weights: TailWeights | None = None) -> torch.Tensor:
     """y (B, H, W, 64) input of the LAST upsample block; w_up (3, 3, 64,
     256), b_up (256,), alpha the PReLU slope (scalar); w3 (9, 9, 64, 3),
-    b3 (3,). Returns (B, 2H, 2W, 3) in y's dtype."""
+    b3 (3,). Returns (B, 2H, 2W, 3) in y's dtype. `weights`, where given,
+    keeps the kernel's layouts across calls."""
     if y.device.type == "cpu":
         return serving_tail_reference(y, w_up, b_up, alpha, w3, b3)
     b, h, w, _ = y.shape
-    z = _launch(y, w_up, b_up, alpha, w3)
+    z = _launch(y, w_up, b_up, alpha, w3, weights)
     # lanes are (n, py, px, ry, rx): HR row = 4*i + 2*ry + py,
     # col = 4*j + 2*rx + px — one composite permutation
     n = w3.shape[-1]
@@ -70,11 +128,8 @@ def serving_tail(y: torch.Tensor, w_up: torch.Tensor, b_up: torch.Tensor,
     return zc.reshape(b, 2 * h, 2 * w, n) + b3.to(y.dtype)
 
 
-def _launch(y, w_up, b_up, alpha, w3) -> torch.Tensor:
+def _launch(y, w_up, b_up, alpha, w3, weights: TailWeights | None = None) -> torch.Tensor:
     global launches
-    from srgan_st_tpu_torch.kernels.coarse_conv import _kernel_weights
-    from srgan_st_tpu_torch.ops.subpixel_conv import _coarse_kernel
-
     if y.device.type != "cuda":
         raise ValueError(f"serving_tail: no kernel for device {y.device}")
     if y.dtype not in _FN:
@@ -92,20 +147,18 @@ def _launch(y, w_up, b_up, alpha, w3) -> torch.Tensor:
     if not y.is_contiguous() or y.data_ptr() % 16:
         raise ValueError("serving_tail: y must be contiguous NHWC, 16-byte aligned")
     dev, cdt = y.device, y.dtype
-    # stage 1: (9, 256, 64) [tap][n][c_in]; bias and slope as 257 f32
-    w1t = w_up.to(device=dev, dtype=cdt).permute(0, 1, 3, 2)
-    w1t = w1t.reshape(9, N_UP, C_IN).contiguous()
-    a = torch.as_tensor(alpha, dtype=torch.float32, device=dev).reshape(-1)[:1]
-    ba = torch.cat([b_up.to(device=dev, dtype=torch.float32).reshape(-1), a])
-    # stage 2: (18, 48, 512), the coarse conv kernel's layout
-    wt = _kernel_weights(_coarse_kernel(w3, 2), dev, cdt)
+    lay = (weights or TailWeights()).get(w_up, b_up, alpha, w3, dev, cdt)
     z = torch.empty((b, h // 2, w // 2, 16 * N_OUT), device=dev, dtype=cdt)
     lib = _build.load("serving_tail", _SIGNATURES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, _FN[cdt])(
-            y.data_ptr(), w1t.data_ptr(), ba.data_ptr(), wt.data_ptr(),
-            z.data_ptr(), b, h, w, stream)
+        if cdt == torch.bfloat16:
+            err = lib.serving_tail_bf16(y.data_ptr(), lay["stream"].data_ptr(),
+                                        lay["ba"].data_ptr(), z.data_ptr(), b, h, w, stream)
+        else:
+            err = lib.serving_tail_f32(y.data_ptr(), lay["w1t"].data_ptr(),
+                                       lay["ba"].data_ptr(), lay["wt"].data_ptr(),
+                                       z.data_ptr(), b, h, w, stream)
     _build.check(err, "serving_tail")
     launches += 1
     return z

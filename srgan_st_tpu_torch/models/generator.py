@@ -124,6 +124,11 @@ class Generator(nn.Module):
             raise ValueError(f"unknown trunk_mode {trunk_mode!r}")
         self.trunk_mode = trunk_mode
         self.tail_mode = tail_mode
+        # the fused tail kernel's weight layouts, rebuilt only when a
+        # parameter changes
+        from srgan_st_tpu_torch.kernels.serving_tail import TailWeights
+
+        self._tail_weights = TailWeights()
         factors = self._up_factors()
         # conv3_mode None: the last block's pixel-shuffle and the
         # reconstruction conv's space-to-depth are exact inverses, so both
@@ -190,10 +195,12 @@ class Generator(nn.Module):
         from srgan_st_tpu_torch.kernels.serving_tail import serving_tail
 
         up = self.upsampling[i].upsample_block
-        dt = x.dtype
+        # the parameters as HWIO views, cast in the plain path; the kernel
+        # reads its layouts of them from self._tail_weights
         out = serving_tail(
-            x.permute(0, 2, 3, 1), up[0].weight.permute(2, 3, 1, 0).to(dt),
-            up[0].bias, up[2].weight, self.conv3.hwio(dt), self.conv3.bias)
+            x.permute(0, 2, 3, 1), up[0].weight.permute(2, 3, 1, 0), up[0].bias,
+            up[2].weight, self.conv3.weight.permute(2, 3, 1, 0), self.conv3.bias,
+            self._tail_weights)
         return torch.clamp(out.float(), 0.0, 1.0)
 
     def _packed_ok(self, x: torch.Tensor) -> bool:

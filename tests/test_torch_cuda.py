@@ -34,7 +34,7 @@ def _err(a, b):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 8, 8, 32), (2, 10, 140, 48), (1, 12, 16, 16),
-                                   (16, 48, 48, 256)])
+                                   (16, 48, 48, 256), (1, 26, 140, 32), (2, 6, 10, 8)])
 def test_coarse_conv_matches_plain(dev, shape):
     from srgan_st_tpu_torch.kernels import coarse_conv as cc
     from srgan_st_tpu_torch.ops.subpixel_conv import conv_nhwc, space_to_depth
@@ -52,11 +52,16 @@ def test_coarse_conv_matches_plain(dev, shape):
     xb, wb = x.bfloat16(), w2.bfloat16()
     ref_b = cc.coarse_conv_s2d_reference(xb, wb)
     env = _err(space_to_depth(conv_nhwc(xb, wb), 2), ref_b)
-    assert _err(cc.coarse_conv_s2d(xb, wb), ref_b) <= 2 * env
+    gotb = cc.coarse_conv_s2d(xb, wb)
+    assert _err(gotb, ref_b) <= 2 * env
+    # a second launch gives the same bits (no atomics, a fixed order)
+    assert torch.equal(gotb, cc.coarse_conv_s2d(xb, wb))
+    assert torch.equal(got, cc.coarse_conv_s2d(x, w2))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bhw", [(1, 8, 8), (1, 14, 38), (2, 100, 70), (1, 2, 2)])
+@pytest.mark.parametrize("bhw", [(1, 8, 8), (1, 14, 38), (2, 100, 70), (1, 2, 2),
+                                 (1, 10, 62)])
 def test_serving_tail_matches_plain(dev, bhw):
     from srgan_st_tpu_torch.kernels import serving_tail as st
 
@@ -80,6 +85,9 @@ def test_serving_tail_matches_plain(dev, bhw):
     gotb = st.serving_tail(yb, w_up, b_up, alpha, w3, b3)
     assert gotb.dtype == torch.bfloat16
     assert _err(gotb, ref32) <= 2 * env
+    # a second launch gives the same bits
+    assert torch.equal(gotb, st.serving_tail(yb, w_up, b_up, alpha, w3, b3))
+    assert torch.equal(got, st.serving_tail(y, w_up, b_up, alpha, w3, b3))
 
 
 @pytest.mark.cuda
@@ -93,6 +101,9 @@ def test_wrappers_raise_on_inputs_the_kernels_do_not_take(dev):
         cc.coarse_conv_s2d(torch.zeros(1, 7, 8, 16, device=dev), w2)
     with pytest.raises(ValueError, match="contiguous"):
         cc.coarse_conv_s2d(torch.zeros(1, 8, 16, 8, device=dev).transpose(2, 3), w2)
+    xb = torch.zeros(1, 8, 8, 16, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="layout"):  # the f32 layout given to bf16
+        cc.coarse_conv_s2d(xb, w2, cc._layout(w2, dev, torch.float32))
     with pytest.raises(ValueError, match="even H, W"):
         st.serving_tail(torch.zeros(1, 7, 8, 64, device=dev),
                         torch.zeros(3, 3, 64, 256, device=dev),

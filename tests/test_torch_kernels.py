@@ -177,6 +177,47 @@ class TestCoarseConv:
                                    atol=1e-4)
 
 
+    @pytest.mark.parametrize("shape", [(1, 24, 140, 16), (2, 6, 8, 32), (1, 4, 6, 8)])
+    def test_stream_layout_reproduces_plain(self, rng, shape):
+        """The bf16 kernel's weight stream (2C/16, 18, 2, 48, 8), contracted
+        as csrc/coarse_conv.cu `coarse_conv_wgmma` indexes it: 8 x 64 output
+        tiles (here partial in H and W) over a zero-filled 20 x 66 window,
+        K chunks of 16, 18 taps of two k groups, gives the plain version."""
+        from srgan_st_tpu_torch.kernels import coarse_conv as cc
+
+        b, h, w, c = shape
+        x = _t(rng.random(shape, dtype=np.float32))
+        w2 = _t(rng.random((5, 5, c, 12), dtype=np.float32) - 0.5)
+        ws = cc._stream_weights(cc._kernel_weights(w2, x.device, x.dtype))
+        assert tuple(ws.shape) == (2 * c // 16, 18, 2, 48, 8)
+        th, tw = cc.TILE
+        hc, wc, k = h // 2, w // 2, 2 * c
+        xv = x.reshape(b, h, wc, k)
+        out = torch.zeros(b, hc, wc, 48)
+        for bi in range(b):
+            for i0 in range(0, hc, th):
+                for j0 in range(0, wc, tw):
+                    win = torch.zeros(2 * th + 4, tw + 2, k)
+                    for fr in range(2 * th + 4):
+                        gr = 2 * i0 - 2 + fr
+                        c0, c1 = max(j0 - 1, 0), min(j0 - 1 + tw + 2, wc)
+                        if 0 <= gr < h and c0 < c1:
+                            win[fr, c0 - j0 + 1:c1 - j0 + 1] = xv[bi, gr, c0:c1]
+                    acc = torch.zeros(th, tw, 48)
+                    for kc in range(k // 16):
+                        for tap in range(18):
+                            qy, ry, qx = tap // 6, (tap // 3) % 2, tap % 3
+                            for g in range(2):
+                                kk = kc * 16 + g * 8
+                                a = win[2 * qy + ry:2 * qy + ry + 2 * th:2, qx:qx + tw,
+                                        kk:kk + 8]
+                                acc += a @ ws[kc, tap, g].T
+                    ni, nj = min(th, hc - i0), min(tw, wc - j0)
+                    out[bi, i0:i0 + ni, j0:j0 + nj] = acc[:ni, :nj]
+        np.testing.assert_allclose(out.numpy(), cc.coarse_conv_s2d_reference(x, w2).numpy(),
+                                   atol=1e-4)
+
+
 class TestServingTail:
     @staticmethod
     def _args(rng, b=1, h=8, w=8, c=64, n=3):
@@ -239,6 +280,103 @@ class TestServingTail:
             atol=2e-4)
 
 
+    @pytest.mark.parametrize("bhw", [(1, 10, 64), (2, 6, 8)])
+    def test_serving_tail_stream_layout_reproduces_plain(self, rng, bhw):
+        """The bf16 kernel's weight stream, contracted as csrc/serving_tail.cu
+        `serving_tail_wgmma` indexes it: 4 x 30 output tiles (here partial in
+        H and W) over a zero-filled 14 x 66 input window; per chunk of 32
+        channels, stage 1 over 12 x 64 fine positions from the two w1 units,
+        bias, PReLU and zero outside the image, then the 6 w2 units' taps
+        over 32 coarse columns; with the wrapper's output permutation and b3
+        it gives the plain version."""
+        from srgan_st_tpu_torch.kernels import serving_tail as st
+        from srgan_st_tpu_torch.kernels.coarse_conv import _kernel_weights
+        from srgan_st_tpu_torch.ops.subpixel_conv import _coarse_kernel
+
+        b, h, w = bhw
+        y, w_up, b_up, alpha, w3, b3 = (_t(a) for a in self._args(rng, b, h, w))
+        ws = st._stream_weights(w_up.reshape(9, 64, 256),
+                                _kernel_weights(_coarse_kernel(w3, 2), y.device, y.dtype))
+        units = ws.reshape(8, 8, 9216)
+        th, tw = st.TILE
+        hc, wc = h // 2, w // 2
+        z = torch.zeros(b, hc, wc, 48)
+        for bi in range(b):
+            for i0 in range(0, hc, th):
+                for j0 in range(0, wc, tw):
+                    ywin = torch.zeros(2 * th + 6, 2 * tw + 6, 64)
+                    for yr in range(2 * th + 6):
+                        gr = 2 * i0 - 3 + yr
+                        c0, c1 = max(2 * j0 - 3, 0), min(2 * j0 + 2 * tw + 3, w)
+                        if 0 <= gr < h and c0 < c1:
+                            ywin[yr, c0 - 2 * j0 + 3:c1 - 2 * j0 + 3] = y[bi, gr, c0:c1]
+                    fr_g = torch.arange(2 * th + 4)[:, None] + 2 * i0 - 2
+                    fc_g = torch.arange(2 * tw + 4)[None, :] + 2 * j0 - 2
+                    inside = ((fr_g >= 0) & (fr_g < h) & (fc_g >= 0) & (fc_g < w))[..., None]
+                    acc2 = torch.zeros(th, 32, 48)
+                    for c in range(8):
+                        act = torch.zeros(2 * th + 4, 2 * tw + 4, 32)
+                        for hh in range(2):
+                            w1 = units[c, hh].reshape(9, 4, 32, 8)
+                            for tap in range(9):
+                                dy, dx = tap // 3, tap % 3
+                                for g in range(4):
+                                    k0 = 32 * hh + 8 * g
+                                    act += (ywin[dy:dy + 2 * th + 4, dx:dx + 2 * tw + 4,
+                                                 k0:k0 + 8] @ w1[tap, g].T)
+                        act = act + b_up[32 * c:32 * c + 32]
+                        act = torch.where(inside, torch.where(act >= 0, act, alpha * act), 0.0)
+                        tsm = torch.zeros(2 * th + 4, 34, 64)  # (rx, c) per coarse column
+                        tsm[:, :tw + 2] = act.reshape(2 * th + 4, tw + 2, 64)
+                        for u2 in range(6):
+                            qy, ry = u2 // 2, u2 % 2
+                            w2 = units[c, 2 + u2].reshape(3, 8, 48, 8)
+                            for qx in range(3):
+                                for g in range(8):
+                                    a = tsm[2 * qy + ry:2 * qy + ry + 2 * th:2, qx:qx + 32,
+                                            8 * g:8 * g + 8]
+                                    acc2 += a @ w2[qx, g].T
+                    ni, nj = min(th, hc - i0), min(tw, wc - j0)
+                    z[bi, i0:i0 + ni, j0:j0 + nj] = acc2[:ni, :nj]
+        zc = z.reshape(b, h // 2, w // 2, 3, 2, 2, 2, 2).permute(0, 1, 6, 4, 2, 7, 5, 3)
+        got = zc.reshape(b, 2 * h, 2 * w, 3) + b3
+        np.testing.assert_allclose(
+            got.numpy(), st.serving_tail_reference(y, w_up, b_up, alpha, w3, b3).numpy(),
+            atol=2e-4)
+
+
+class TestLayoutCache:
+    @pytest.mark.parametrize("kernel", ["coarse_conv", "serving_tail"])
+    def test_layout_rebuilt_only_when_a_parameter_changes(self, rng, kernel):
+        """The cached weight layouts (coarse_conv.KernelWeights,
+        serving_tail.TailWeights) are reused while the parameters are
+        unchanged and rebuilt, with the new values, after an in-place update."""
+        from srgan_st_tpu_torch.kernels import coarse_conv as cc
+        from srgan_st_tpu_torch.kernels import serving_tail as st
+
+        bf = torch.bfloat16
+        if kernel == "coarse_conv":
+            param = torch.nn.Parameter(_t(rng.random((3, 64, 9, 9), dtype=np.float32)))
+            cache = cc.KernelWeights()
+            get = lambda: cache.get(param, bf)  # noqa: E731
+        else:
+            _, w_up, b_up, alpha, w3, _ = (torch.nn.Parameter(_t(a))
+                                           for a in TestServingTail._args(rng))
+            param = w3
+            cache = st.TailWeights()
+            get = lambda: cache.get(w_up, b_up, alpha, w3, torch.device("cpu"), bf)  # noqa: E731
+        first = get()
+        assert get() is first
+        with torch.no_grad():
+            param.mul_(2.0)
+        second = get()
+        assert second is not first
+        before = first if kernel == "coarse_conv" else first["stream"]
+        after = second if kernel == "coarse_conv" else second["stream"]
+        assert before.dtype == bf and not torch.equal(before, after)
+        assert get() is second
+
+
 class TestGates:
     def test_coarse_conv_fits(self):
         from srgan_st_tpu_torch.kernels.coarse_conv import fits
@@ -246,7 +384,8 @@ class TestGates:
         bf, f32 = torch.bfloat16, torch.float32
         assert fits((1, 1080, 1920, 256), (5, 5, 256, 12), bf)
         assert fits((2, 8, 8, 8), (5, 5, 8, 12), f32)
-        assert not fits((2, 8, 8, 8), (5, 5, 8, 12), bf)   # C % 16 for bf16
+        assert fits((2, 8, 8, 8), (5, 5, 8, 12), bf)
+        assert not fits((2, 8, 8, 4), (5, 5, 4, 12), bf)   # C % 8
         assert not fits((1, 9, 8, 16), (5, 5, 16, 12), f32)  # odd H
         assert not fits((1, 8, 8, 16), (5, 5, 16, 4), f32)   # 1 output channel
         assert not fits((1, 8, 8, 16), (3, 3, 16, 12), f32)  # not a 9x9 conv
