@@ -2,14 +2,17 @@
 """Smoke run of the PyTorch port (srgan_st_tpu_torch) on one CUDA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --trunk-time [--root DIR] [--rounds N]
 
-From the root of a checkout, with one NVIDIA H100 (sm_90a) and the CUDA
+The second form times only K4 and K5 (see `trunk_time`). The first, from
+the root of a checkout, with one NVIDIA H100 (sm_90a) and the CUDA
 toolkit. In order, each phase printing one JSON line:
 
   env      torch and CUDA versions, the card and its power limit;
   build    nvcc builds csrc/*.cu from a clean build directory; each
            kernel's registers and spills (ptxas) and the bf16 wgmma
-           kernels' shared memory; a spill in those fails the run;
+           kernels' shared memory (A, B, and K4/K5's conv and wgrad tiles);
+           a spill in any instantiation of those fails the run;
   kernel   kernels A and B against their plain PyTorch versions on the
            same inputs, at the serving path's shapes, kernel A at its
            training-scale shape, and an edge shape each whose quarter
@@ -38,12 +41,17 @@ Then the training slice, bf16 with TRUNK_MODE="packed" unless named:
 
   kernel   the trunk kernels K4 (forward) and K5 (backward) against their
            plain versions at the training shape (16, 24, 24, 64), n = 16,
-           and an edge shape (3, 22, 26, 64), n = 2, in f32 and bf16, K5
-           on the residuals K4 saved; a second run of each must give the
-           same bits (the reductions are deterministic). Then their times
-           at the training shape, bounds, plain times and a cuDNN
+           an edge shape (3, 22, 26, 64), n = 2, and two channel tiles
+           (2, 12, 16, 128), n = 2, in f32 and bf16, K5 on the residuals K4
+           saved; a second run of each must give the same bits (the
+           reductions are deterministic). Then their times at the training
+           shape (the launch on laid-out weights, and the wrapper), bounds,
+           the bf16 design's own floor (the wgmma work the library counts),
+           the launches per call the library reports, the host's time to
+           enqueue one call, plain times, a cuDNN
            yardstick (the unfused trunk of F.conv2d + F.batch_norm +
-           F.prelu, forward and autograd backward);
+           F.prelu, forward and autograd backward), and a torch.profiler
+           breakdown of one call each by CUDA kernel;
   train    seeded full-width G (16 RCB, 64 ch) and D (64 ch), batch 16 of
            synthetic uint8 96x96 patches, through warmup() then train()
            (3 batches each, D_UPDATE_INTERVAL=2) in a temporary working
@@ -58,7 +66,9 @@ Then the training slice, bf16 with TRUNK_MODE="packed" unless named:
            relative (3.4e-4 measured on the H100; each bf16 trunk's
            distance to the f32 step is printed for scale);
   time     ms per warmup step, per G step and per GAN step (G + D), packed
-           and unfused, by CUDA events (median of 10), and patches/s;
+           and unfused, by CUDA events (median of 10), and patches/s; then
+           12 packed / unfused GAN step pairs timed in turns, with the
+           median, min and max of the per-pair ratio;
   profile  one GAN step of each trunk under torch.profiler.
 
 Then the structure-tensor loss study (`run`, job 1: Adversarial +
@@ -141,10 +151,12 @@ SHAPES_B = (SHAPE_B_4K, (1, 768, 1084, 64), (1, 10, 62, 64))
 
 
 # The trunk kernels' inputs: the training shape, then an edge shape whose
-# pixel count and width do not divide the kernels' 64-pixel tiles
-TRUNK_SHAPES = (((16, 24, 24, 64), 16), ((3, 22, 26, 64), 2))
+# pixel count and width do not divide the kernels' 64-pixel tiles, then two
+# 64-channel tiles (the bf16 kernels' N tiles and K chunks)
+TRUNK_SHAPES = (((16, 24, 24, 64), 16), ((3, 22, 26, 64), 2), ((2, 12, 16, 128), 2))
 EPS = 1e-5
 TRAIN_STEPS = 3  # batches per epoch of warmup() and train() in the train phase
+TRUNK_PAIRS = 12  # packed / unfused GAN step pairs timed in turns
 
 
 def emit(phase: str, **fields) -> None:
@@ -167,6 +179,21 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def host_ms(fn, iters: int = 10) -> float:
+    """Median milliseconds the host takes to enqueue fn() (no synchronize
+    inside the timed span), each call after the device went idle."""
+    import torch
+
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
     return float(np.median(times))
 
 
@@ -216,16 +243,20 @@ def nvidia_smi() -> str:
 
 
 # the kernels ptxas reports by name, and the bf16 wgmma kernels whose
-# dynamic shared memory the library reports (`<C entry>_smem`)
+# dynamic shared memory the library reports (`<C entry>(*args)`, K4/K5's at
+# the training shape's width and channels)
 KERNEL_FUNCS = ("coarse_conv_wgmma", "coarse_conv_kernel", "serving_tail_wgmma",
-                "serving_tail_kernel")
-WGMMA_SMEM = {"coarse_conv_wgmma": ("coarse_conv", "coarse_conv_s2d_bf16_smem"),
-              "serving_tail_wgmma": ("serving_tail", "serving_tail_bf16_smem")}
+                "serving_tail_kernel", "trunk_conv_wgmma", "trunk_wgrad_wgmma")
+WGMMA_SMEM = {"coarse_conv_wgmma": ("coarse_conv", "coarse_conv_s2d_bf16_smem", ()),
+              "serving_tail_wgmma": ("serving_tail", "serving_tail_bf16_smem", ()),
+              "trunk_conv_wgmma": ("packed_trunk", "packed_trunk_conv_smem", (24, 64)),
+              "trunk_wgrad_wgmma": ("packed_trunk", "packed_trunk_wgrad_smem", (24, 64))}
 
 
 def _ptxas_functions(log: str) -> dict:
     """{function: {"registers", "spill_stores", "spill_loads"}} from nvcc's
-    -Xptxas -v output, functions named by KERNEL_FUNCS where one matches."""
+    -Xptxas -v output, functions named by KERNEL_FUNCS where one matches (the
+    instantiations of a template as name/1, name/2, ...)."""
     import re
 
     out, fn = {}, None
@@ -233,6 +264,8 @@ def _ptxas_functions(log: str) -> dict:
         if "Function properties for" in ln:
             mangled = ln.split("for", 1)[1].strip()
             fn = next((k for k in KERNEL_FUNCS if k in mangled), mangled)
+            if fn in out:
+                fn += f"/{sum(1 for k in out if k.split('/')[0] == fn)}"
             out[fn] = {}
         elif fn and "spill stores" in ln:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
@@ -254,13 +287,18 @@ def phase_build() -> None:
     funcs = {}
     for rec in done.values():
         funcs.update(_ptxas_functions(rec["log"]))
-    for fn, (lib, entry) in WGMMA_SMEM.items():
-        funcs[fn]["dynamic_smem_bytes"] = _build.load(lib, {entry: []})[entry]()
+    import ctypes
+
+    for fn, (lib, entry, args) in WGMMA_SMEM.items():
+        funcs[fn]["dynamic_smem_bytes"] = _build.load(
+            lib, {entry: [ctypes.c_int] * len(args)})[entry](*args)
     ptxas = {name: [ln.strip() for ln in rec["log"].splitlines()
                     if "registers" in ln or "spill" in ln]
              for name, rec in done.items()}
     emit("build", seconds=seconds, kernels=sorted(done), functions=funcs, ptxas=ptxas)
-    spilled = {fn: funcs[fn] for fn in WGMMA_SMEM if funcs[fn].get("spill_stores", 1)}
+    # every instantiation of a bf16 wgmma kernel
+    spilled = {fn: rec for fn, rec in funcs.items()
+               if fn.split("/")[0] in WGMMA_SMEM and rec.get("spill_stores", 1)}
     if spilled:
         raise AssertionError(f"a bf16 wgmma kernel spills: {spilled}")
 
@@ -528,10 +566,11 @@ def phase_time(fns, rng, dev) -> dict:
     return rec
 
 
-def profile_once(fn) -> dict:
-    """Device time by kernel over one fn() (torch.profiler, after one
-    warm-up call), and the device's idle share of the window from the first
-    kernel's start to the last one's end."""
+def profile_once(fn, top: int = 10) -> dict:
+    """Device time and launches by kernel over one fn() (torch.profiler,
+    after one warm-up call): the `top` largest as [name, ms, count], and the
+    device's idle share of the window from the first kernel's start to the
+    last one's end."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -541,21 +580,22 @@ def profile_once(fn) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    by_name, starts, ends = {}, [], []
+    by_name, count, starts, ends = {}, {}, [], []
     for e in prof.events():
         # user-annotation ranges on the device timeline (the optimizer's
         # "Optimizer.step#...") span kernels counted on their own
         if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+            count[e.name] = count.get(e.name, 0) + 1
             starts.append(e.time_range.start)
             ends.append(e.time_range.end)
     busy = sum(by_name.values())
     window = (max(ends) - min(starts)) / 1e3 if ends else 0.0
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return {"device_busy_ms": busy, "device_window_ms": window,
             "idle_share": 1 - busy / window if window else None,
             "kernels": len(starts),
-            "top_ms": [[name[:100], ms] for name, ms in top]}
+            "top_ms": [[name[:100], ms, count[name]] for name, ms in ranked]}
 
 
 def phase_profile(fns, rng, dev) -> dict:
@@ -703,17 +743,34 @@ def _time_trunk(xb, p, dyb, res16, fwd_rec, bwd_rec) -> None:
 
     lib_fwd = cuda_ms(lambda: _cudnn_trunk(xl, lib))
     lib_total = cuda_ms(lib_fwd_bwd)
-    for rec, nbytes, flops, ms, plain in (
-        (fwd_rec, f_bytes, 2 * n * conv_flops,
+    # `ms`: the launch on weights laid out once (as a step that kept them
+    # would); `wrapper_ms`: the wrapper, laying them out per call
+    wf = pt._layout_fwd(p[0], p[1], xb.device, xb.dtype)
+    wb = pt._layout_bwd(p[0], p[1], xb.device, xb.dtype)
+    launch_fwd = lambda: pt._launch_fwd(xb, *p, EPS, weights=wf)  # noqa: E731
+    launch_bwd = lambda: pt._launch_bwd(dyb, *res16, *bp, EPS, weights=wb)  # noqa: E731
+    for rec, nbytes, flops, ms, wrapper, plain, enqueue, backward in (
+        (fwd_rec, f_bytes, 2 * n * conv_flops, cuda_ms(launch_fwd),
          cuda_ms(lambda: pt._launch_fwd(xb, *p, EPS)),
-         cuda_ms(lambda: pt._reference_forward(xb, *p, EPS), iters=5)),
-        (bwd_rec, b_bytes, 4 * n * conv_flops,
+         cuda_ms(lambda: pt._reference_forward(xb, *p, EPS), iters=5), host_ms(launch_fwd),
+         False),
+        (bwd_rec, b_bytes, 4 * n * conv_flops, cuda_ms(launch_bwd),
          cuda_ms(lambda: pt._launch_bwd(dyb, *res16, *bp, EPS)),
-         cuda_ms(lambda: pt._reference_backward(dyb, *res16, *bp, EPS), iters=5)),
+         cuda_ms(lambda: pt._reference_backward(dyb, *res16, *bp, EPS), iters=5),
+         host_ms(launch_bwd), True),
     ):
-        rec.update(shape=[b, h, w, c], n=n, ms=ms, plain_ms=plain, bytes=nbytes,
-                   flops=flops, launches_per_call=(6 if rec is fwd_rec else 12) * n)
+        own = design_flops("packed_trunk", "packed_trunk_bf16_mma_flops", n, b, h, w, c,
+                           int(backward))
+        rec.update(shape=[b, h, w, c], n=n, ms=ms, wrapper_ms=wrapper, plain_ms=plain,
+                   host_enqueue_ms=enqueue,
+                   bytes=nbytes, flops=flops,
+                   launches_per_call=pt.launches_per_call(n, xb.dtype, backward),
+                   design_flops=own, floor_ms=own / BF16_FLOPS * 1e3)
         rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, flops)
+    # the wgmma kernels' spans overlap under programmatic dependent launch:
+    # their sum exceeds the window
+    fwd_rec["profile"] = profile_once(launch_fwd, 20)
+    bwd_rec["profile"] = profile_once(launch_bwd, 20)
     fwd_rec["library_ms"] = lib_fwd
     bwd_rec["library_ms"] = lib_total - lib_fwd
     bwd_rec["library_fwd_bwd_ms"] = lib_total
@@ -866,7 +923,13 @@ def phase_time_train(dev, batch) -> dict:
         create_generator_state, make_gan_steps, make_warmup_step,
     )
 
-    rec, profiles = {}, {}
+    def make_gan(state, g_step, d_step):
+        def gan():
+            _, sr, _ = g_step(state, batch)
+            d_step(state, batch, sr)
+        return gan
+
+    rec, profiles, gans = {}, {}, {}
     for trunk in ("packed", "unfused"):
         cfg = _train_config(trunk, "time")
         w_state = create_generator_state(cfg, Generator.from_config(cfg), TRAIN_STEPS,
@@ -874,10 +937,7 @@ def phase_time_train(dev, batch) -> dict:
         w_step = make_warmup_step(cfg, build_warmup_criterions(cfg))
         state = _gan_state(cfg, dev)
         g_step, d_step = make_gan_steps(cfg, build_criterions(cfg))
-
-        def gan():
-            _, sr, _ = g_step(state, batch)
-            d_step(state, batch, sr)
+        gan = gans[trunk] = make_gan(state, g_step, d_step)
 
         torch.cuda.reset_peak_memory_stats()
         warm_ms = cuda_ms(lambda: w_step(w_state, batch))
@@ -891,6 +951,17 @@ def phase_time_train(dev, batch) -> dict:
                       "patches_per_s_d_every_100": b / ((g_ms + (gan_ms - g_ms) / 100) / 1e3),
                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
         profiles[trunk] = profile_once(gan)
+    # packed and unfused GAN steps in turns (ABAB) in this process: the
+    # per-pair ratio is free of the drift between machines and over time
+    times = {"packed": [], "unfused": []}
+    for _ in range(TRUNK_PAIRS):
+        for trunk in times:
+            times[trunk].append(cuda_ms(gans[trunk], iters=1, warmup=0))
+    ratios = [a / b for a, b in zip(times["packed"], times["unfused"])]
+    rec["paired_gan_step"] = {
+        "pairs": TRUNK_PAIRS, "packed_ms": times["packed"], "unfused_ms": times["unfused"],
+        "ratio_packed_over_unfused": {"median": float(np.median(ratios)),
+                                      "min": min(ratios), "max": max(ratios)}}
     emit("time", train="batch 16, 96x96 GT, x4, bf16", **rec)
     emit("profile", train="one GAN step (G + D)", **profiles)
     return rec
@@ -1234,6 +1305,35 @@ def phase_time_run(dev, batch) -> dict:
 
 
 
+def trunk_time(rounds: int) -> int:
+    """`--trunk-time`: K4 and K5 of the package at `--root` (default: beside
+    this script) at the training shape (16, 24, 24, 64), n = 16, bf16: the
+    wrappers' times by CUDA events (median of 10) and a torch.profiler
+    breakdown of one call each, as one JSON line. Run it from two checkouts
+    in one chip call to compare them on one card."""
+    import torch
+
+    from srgan_st_tpu_torch.kernels import packed_trunk as pt
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    (shape, n) = TRUNK_SHAPES[0]
+    x, p, dy = _trunk_inputs(gen, dev, shape, n)
+    xb, dyb = x.bfloat16(), dy.bfloat16()
+    res = pt._launch_fwd(xb, *p, EPS)[1:]
+    bp = _bwd_params(p)
+    rec = {"package": os.path.dirname(os.path.abspath(pt.__file__)), "shape": list(shape),
+           "n": n, "nvidia_smi": nvidia_smi(), "fwd_ms": [], "bwd_ms": []}
+    for _ in range(rounds):
+        rec["fwd_ms"].append(cuda_ms(lambda: pt._launch_fwd(xb, *p, EPS)))
+        rec["bwd_ms"].append(cuda_ms(lambda: pt._launch_bwd(dyb, *res, *bp, EPS)))
+    rec["fwd_profile"] = profile_once(lambda: pt._launch_fwd(xb, *p, EPS), 20)
+    rec["bwd_profile"] = profile_once(lambda: pt._launch_bwd(dyb, *res, *bp, EPS), 20)
+    emit("trunk_time", **rec)
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -1243,6 +1343,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU; the smoke run needs one", file=sys.stderr)
         return 1
+    if "--trunk-time" in sys.argv:
+        args = sys.argv[sys.argv.index("--trunk-time") + 1:]
+        root = args[args.index("--root") + 1] if "--root" in args else HERE
+        sys.path.insert(0, os.path.abspath(root))
+        return trunk_time(int(args[args.index("--rounds") + 1]) if "--rounds" in args else 1)
     try:
         import srgan_st_tpu_torch
     except ImportError as e:
@@ -1339,6 +1444,8 @@ def run(dev) -> int:
             "f32_max_rel_err": max(e for r in rec["errors"] for e in r["f32_rel"].values()),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            "wrapper_ms": rec["wrapper_ms"], "floor_ms": rec["floor_ms"],
+            "launches_per_call": rec["launches_per_call"],
             "shape": rec["shape"], "n": rec["n"],
         })
     kernels.append({

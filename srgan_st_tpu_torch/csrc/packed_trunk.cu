@@ -24,20 +24,44 @@
 //             g held in T between blocks (g <- T(g + dgrad1)).
 //
 // What bounds it on an H100: at the training shape (16, 24, 24, 64), n = 16,
-// each direction moves ~60 MB (the saved residuals) and does 22-44 GFLOP of
-// bf16 conv work, ~20 us and ~22-44 us at the card's peaks: neither is the
-// limit of this first version, which is launch- and sync-bound. Batch-stat
-// BN needs a reduction over the whole batch between a conv and its
-// normalize, so each block is a fixed sequence of launches on the stream,
-// 6 forward and 12 backward (96 and 192 at n = 16), the 1.2 MB activation
-// staying in the 50 MB L2 between them. Convs are warp tile products
-// (tensor-core mma.sync for bf16, fmaf for f32; csrc/tile_mma.cuh) over
-// 64-pixel x 64-channel tiles. Every reduction is deterministic: BN sums and
-// the split-K wgrad over the pixels (at most 128 blocks of at least 256
-// pixels) go through per-block partials in the workspace, reduced in a
-// fixed order; there are no float atomics. Measured on one H100 (700 W,
-// chip_smoke.py): 1.9 ms forward and 5.7 ms backward at the training shape.
-#include "trunk_conv.cuh"
+// the forward moves 61 MB (x, weights, y, the saved residuals) for 21.7
+// GFLOP and the backward 66 MB for 43.5 GFLOP: 0.022 / 0.044 ms at the bf16
+// peak, bound by operations. Batch-stat BN needs every pixel of a conv
+// before its normalize, so the trunk is a fixed sequence of launches, the
+// 1.2 MB activation staying in the 50 MB L2 between them; at this size the
+// launches, their tails and the reductions are what cost.
+//
+// bf16 design (csrc/trunk_wgmma.cuh): the conv tile is wgmma m64n64k16 over
+// the zero-padded flattened grid, 64 positions x 64 channels a warpgroup,
+// the taps as row offsets into one window, the weights one bulk copy of
+// 73.7 KB per 64-channel chunk (2 CTAs an SM at C = 64; the 169 tiles of the
+// training shape run in one wave). The BatchNorm passes ride on the convs:
+//   forward, 2 launches a block + 1: conv1 (forms the block input x + BN2(a2)
+//   of the block before on load and writes its own positions of it; its
+//   epilogue reduces m1, v1 by the last-ticket tile), conv2 (BN1 + PReLU
+//   applied to its window on load; m2, v2); once, the last BN2 + residual;
+//   backward, 4 launches a block + 1: dgrad2 (forms da2 from g and a2 on
+//   load; its epilogue recomputes the PReLU input, writes h and dpre and
+//   reduces dgamma1, dbeta1, dalpha), dgrad1 (forms da1 from dpre and a1 on
+//   load; its epilogue adds into g and reduces block j-1's BN2 sums), both
+//   wgrads in one launch (wgmma with transposed operands over split-K
+//   chunks of the padded grid), their fixed-order sums; once, the last
+//   block's BN2 sums of dy.
+// The wgmma kernels are launched with programmatic stream serialization:
+// each one's prologue (barriers, its weights' bulk copies) runs while the
+// kernel before it finishes, and it waits for that kernel before it reads
+// anything the kernel wrote.
+// Every reduction is deterministic: per-tile partials reduced in tile
+// order, by an integer ticket or by one launch; no float atomics. The f32
+// path keeps the warp tile code (fmaf through csrc/tile_mma.cuh), 6 launches
+// forward and 12 backward a block, as the algorithm check.
+// Measured on one H100 80GB HBM3 at 700 W (chip_smoke.py) at the training
+// shape: 0.70 ms forward and 1.41 ms backward, against 1.93 and 5.10 ms for
+// the design before it (mma.sync tiles with synchronous loads, a
+// scalar-load wgrad, separate BN passes; 6 and 12 launches a block).
+#include <algorithm>
+
+#include "trunk_wgmma.cuh"
 
 using namespace srgan;
 
@@ -319,6 +343,550 @@ __global__ void wgrad_reduce_kernel(const float* __restrict__ part, int nblocks,
   dw[i] = (float)s;
 }
 
+// ------------------------------------------------------------------ bf16
+// The conv tile on wgmma (csrc/trunk_wgmma.cuh): one warpgroup, 64 padded
+// positions x 64 output channels, K = 9 taps x C in chunks of 64 channels
+// through a 2-stage ring (window by cp.async or a transforming load, the
+// chunk's 73.7 KB of weights by one bulk copy). What the loader forms and
+// what the epilogue does with the accumulators is the kernel's mode.
+using bf16 = __nv_bfloat16;
+enum { LD_COPY = 0, LD_BN_PRELU = 1, LD_DA_T = 2, LD_DA_F = 3, LD_BN_RESID = 4 };
+enum { EP_STATS = 0, EP_PRELU_BWD = 1, EP_GRAD = 2 };
+
+struct ConvParams {
+  tw::Geom g;
+  const bf16* wimg;       // (C/64 N tiles, C/64 K chunks) weight blocks in the ring's image
+  // loader: LD_COPY, LD_BN_PRELU read src; LD_DA_* read src (the BN input
+  // a) and dsrc (the BN output's cotangent, bf16 or f32); LD_BN_RESID reads
+  // src (a2 of the block before) and dsrc (that block's input, bf16)
+  const bf16* src;
+  const void* dsrc;
+  const float *lmv, *lgam, *lbet, *lal, *ldg, *ldb;
+  bf16* dout;             // LD_DA_*, LD_BN_RESID: the tile's own positions of
+                          // what the loader formed (da for wgrad; the block input)
+  // epilogue: EP_STATS out = a (bf16); EP_PRELU_BWD out = dpre (f32), hout
+  // = h; EP_GRAD out = g (bf16) = resid + acc (resid may alias out)
+  void* out;
+  const bf16* resid;
+  const bf16* ea;         // EP_PRELU_BWD: a1; EP_GRAD: a2 of the block before (or null)
+  const float *emv, *egam, *ebet, *eal;
+  bf16* hout;
+  float* part;            // per-tile partials [tile][k][C]
+  unsigned* ticket;
+  float *r0, *r1, *r2;    // the reduced statistics
+  float eps, nelem;
+};
+
+// the weight and window stages, then the epilogue's constants (6 x 64
+// floats) and partial sums (3 x 4 x 64), then the stages' mbarriers
+__host__ __device__ inline size_t conv_smem(const tw::Geom& g) {
+  const int stages = g.C > tw::CK ? 2 : 1;
+  return (size_t)stages * (tw::W_BYTES + g.rows * tw::KG * 16) + (6 + 12) * 64 * 4 + 16;
+}
+
+// 8 consecutive bf16 of a 16-byte word as floats, and back
+__device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
+  const bf16* h = reinterpret_cast<const bf16*>(&u);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) f[j] = __bfloat162float(h[j]);
+}
+__device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
+  uint4 u;
+  bf16* h = reinterpret_cast<bf16*>(&u);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) h[j] = __float2bfloat16_rn(f[j]);
+  return u;
+}
+
+// The window of K chunk channels [ci0, ci0 + 64) of the tile at q0 into
+// `win` ([k group][row][16 B]). Thread tid always owns k group tid % 8.
+template <int LOAD>
+__device__ __forceinline__ void load_window(const ConvParams& p, unsigned char* win,
+                                            long long q0, int ci0) {
+  const tw::Geom& g = p.g;
+  const int C = g.C, kg = threadIdx.x & 7, c0 = ci0 + kg * 8;
+  // the BN constants of this thread's 8 channels, as the f32 kernels form them
+  float k0[8], k1[8], k2[8], k3[8], k4[8], alT = 0.f;
+  if constexpr (LOAD == LD_BN_PRELU || LOAD == LD_BN_RESID) {
+    if constexpr (LOAD == LD_BN_PRELU) alT = rnd<bf16>(*p.lal);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      k0[j] = rnd<bf16>(p.lmv[c0 + j]);
+      k1[j] = rnd<bf16>(inv_std(p.lmv[C + c0 + j], p.eps));
+      k2[j] = rnd<bf16>(p.lgam[c0 + j]);
+      k3[j] = rnd<bf16>(p.lbet[c0 + j]);
+    }
+  } else if constexpr (LOAD != LD_COPY) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float inv = inv_std(p.lmv[C + c0 + j], p.eps);
+      k0[j] = p.lmv[c0 + j];
+      k1[j] = inv;
+      k2[j] = __fmul_rn(p.lgam[c0 + j], inv);
+      k3[j] = __fdiv_rn(p.ldb[c0 + j], p.nelem);
+      k4[j] = __fdiv_rn(p.ldg[c0 + j], p.nelem);
+    }
+  }
+  constexpr int RS = tw::CONV_THREADS / 8;  // rows between a thread's rows
+  if constexpr (LOAD == LD_COPY) {
+    for (int r = threadIdx.x >> 3; r < g.rows; r += RS) {
+      const long long pix = tw::pixel_of(g, tw::win_pos(g, q0, r));
+      hop::cp_async16(win + ((size_t)kg * g.rows + r) * 16,
+                      p.src + (size_t)(pix < 0 ? 0 : pix) * C + c0, pix >= 0);
+    }
+    return;
+  }
+  // The transforming loads: U rows at a time, their global loads all
+  // started before the first is used
+  constexpr int U = 4;
+  for (int r0 = threadIdx.x >> 3; r0 < g.rows; r0 += U * RS) {
+    long long q[U], pix[U];
+    uint4 ra[U], rd[U][2];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int r = r0 + u * RS;
+      q[u] = tw::win_pos(g, q0, r);
+      pix[u] = r < g.rows ? tw::pixel_of(g, q[u]) : -1;
+      if (pix[u] < 0) continue;
+      const size_t o = (size_t)pix[u] * C + c0;
+      ra[u] = *reinterpret_cast<const uint4*>(p.src + o);
+      if constexpr (LOAD == LD_DA_F) {
+        const uint4* df = reinterpret_cast<const uint4*>(static_cast<const float*>(p.dsrc) + o);
+        rd[u][0] = df[0];
+        rd[u][1] = df[1];
+      } else if constexpr (LOAD != LD_BN_PRELU) {
+        rd[u][0] = *reinterpret_cast<const uint4*>(static_cast<const bf16*>(p.dsrc) + o);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int r = r0 + u * RS;
+      if (r >= g.rows) break;
+      uint4 w = make_uint4(0u, 0u, 0u, 0u);  // padding stays zero: BN(0) is not 0
+      if (pix[u] >= 0) {
+        float a[8], v[8];
+        unpack8(ra[u], a);
+        if constexpr (LOAD == LD_BN_PRELU) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            float y = bn_affine<bf16>(a[j], k0[j], k1[j], k2[j], k3[j]);
+            if (!(y >= 0.f)) y = rnd<bf16>(__fmul_rn(alT, y));
+            v[j] = y;
+          }
+        } else if constexpr (LOAD == LD_BN_RESID) {
+          // x <- x + BN2(a2) of the block before, as bn_out<T, false, true>
+          float x[8];
+          unpack8(rd[u][0], x);
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            v[j] = __fadd_rn(x[j], bn_affine<bf16>(a[j], k0[j], k1[j], k2[j], k3[j]));
+        } else {
+          float d[8];
+          if constexpr (LOAD == LD_DA_T) {
+            unpack8(rd[u][0], d);
+          } else {
+            const float* lo = reinterpret_cast<const float*>(&rd[u][0]);
+            const float* hi = reinterpret_cast<const float*>(&rd[u][1]);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              d[j] = lo[j];
+              d[4 + j] = hi[j];
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float xh = __fmul_rn(__fsub_rn(a[j], k0[j]), k1[j]);
+            const float t = __fsub_rn(__fsub_rn(d[j], k3[j]), __fmul_rn(xh, k4[j]));
+            v[j] = __fmul_rn(k2[j], t);
+          }
+        }
+        w = pack8(v);
+        if constexpr (LOAD != LD_BN_PRELU) {
+          if (blockIdx.y == 0 && q[u] >= q0 && q[u] < q0 + tw::MT)
+            *reinterpret_cast<uint4*>(p.dout + (size_t)pix[u] * C + c0) = w;
+        }
+      }
+      *reinterpret_cast<uint4*>(win + ((size_t)kg * g.rows + r) * 16) = w;
+    }
+  }
+}
+
+// The accumulator fragment of wgmma m64n64 (f32): acc[4 t + 2 hh + e] is
+// row 16 warp + g + 8 hh, column 8 t + 2 q + e (g = lane / 4, q = lane % 4).
+template <int LOAD, int EPI>
+__global__ void __launch_bounds__(tw::CONV_THREADS)
+    trunk_conv_wgmma(const __grid_constant__ ConvParams p) {
+  using namespace tw;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Geom& g = p.g;
+  const int C = g.C, nk = C / CK, stages = nk > 1 ? 2 : 1;
+  const int win_bytes = g.rows * KG * 16;
+  unsigned char* wring = smem;                                         // [stages][W_BYTES]
+  unsigned char* wins = smem + stages * W_BYTES;                       // [stages][KG][rows][16]
+  float* econ = reinterpret_cast<float*>(wins + stages * win_bytes);  // [6][64]
+  float* red = econ + 6 * 64;                                          // [3][4 warps][64]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(red + 12 * 64);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gq = lane >> 2, q4 = lane & 3;
+  const long long q0 = (long long)blockIdx.x * MT;
+  const int nt = blockIdx.y, n0 = nt * CK;
+  // the weights do not depend on the kernel before: their copies start
+  // before waiting for it
+  auto load_w = [&](int kc) {
+    hop::bulk_load(wring + (kc & 1) * W_BYTES, p.wimg + ((size_t)nt * nk + kc) * (W_BYTES / 2),
+                   W_BYTES, &bar[kc & 1]);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) hop::mbar_init(&bar[s], 1);
+    hop::mbar_fence_init();
+    for (int kc = 0; kc < stages; ++kc) load_w(kc);
+  }
+  grid_dep_wait();
+  grid_dep_launch();
+  // the epilogue's per-channel constants of the tile's 64 channels
+  if (tid < CK) {
+    const int c = n0 + tid;
+    if constexpr (EPI == EP_PRELU_BWD) {
+      const float m = p.emv[c], inv = inv_std(p.emv[C + c], p.eps);
+      econ[tid] = rnd<bf16>(m);
+      econ[64 + tid] = rnd<bf16>(inv);
+      econ[128 + tid] = rnd<bf16>(p.egam[c]);
+      econ[192 + tid] = rnd<bf16>(p.ebet[c]);
+      econ[256 + tid] = m;
+      econ[320 + tid] = inv;
+    } else if constexpr (EPI == EP_GRAD) {
+      if (p.ea != nullptr) {
+        econ[256 + tid] = p.emv[c];
+        econ[320 + tid] = inv_std(p.emv[C + c], p.eps);
+      }
+    }
+  }
+  __syncthreads();  // barriers initialised
+
+  float acc[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+  load_window<LOAD>(p, wins, q0, 0);
+  hop::cp_async_commit();
+  if (nk > 1) load_window<LOAD>(p, wins + win_bytes, q0, CK);
+  hop::cp_async_commit();
+  for (int kc = 0; kc < nk; ++kc) {
+    const int st = kc & 1;
+    hop::cp_async_wait<1>();  // chunk kc's copies have landed (this thread's)
+    hop::fence_async_smem();  // ... and its stores, for the async proxy
+    hop::mbar_wait(&bar[st], (kc >> 1) & 1);
+    __syncthreads();
+    hop::wg_fence();
+    const uint32_t wa = hop::smem_addr(wins + st * win_bytes);
+    const uint32_t wb = hop::smem_addr(wring + st * W_BYTES);
+    for (int tap = 0; tap < 9; ++tap) {
+      const int row = (tap / 3) * g.tapstride + tap % 3;  // the tap's shift, in rows
+#pragma unroll
+      for (int s = 0; s < KG / 2; ++s)
+        hop::wgmma_bf16<64>(
+            acc, hop::desc(wa + (uint32_t)((2 * s * g.rows + row) * 16), g.rows * 16, 128),
+            hop::desc(wb + (uint32_t)((tap * KG + 2 * s) * CK * 16), CK * 16, 128));
+    }
+    hop::wg_commit();
+    hop::wg_wait<0>();
+    __syncthreads();  // stage st is free
+    if (kc + 2 < nk) {
+      if (tid == 0) load_w(kc + 2);
+      load_window<LOAD>(p, wins + st * win_bytes, q0, (kc + 2) * CK);
+    }
+    hop::cp_async_commit();
+  }
+
+  // epilogue: padding positions and positions past the grid are dropped
+  constexpr int K = EPI == EP_PRELU_BWD ? 3 : 2;
+  float ps[K][16];
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) ps[k][i] = 0.f;
+  const float al = EPI == EP_PRELU_BWD ? *p.eal : 0.f, alT = rnd<bf16>(al);
+  // the global values the epilogue reads, loaded before any store (which
+  // the compiler may not move them past)
+  long long pixs[2];
+  __nv_bfloat162 ev[2][8], rv[2][8];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    pixs[hh] = pixel_of(g, q0 + 16 * warp + gq + 8 * hh);
+    if (EPI == EP_STATS || pixs[hh] < 0) continue;
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const size_t o = (size_t)pixs[hh] * C + n0 + 8 * t + 2 * q4;
+      if (p.ea != nullptr) ev[hh][t] = *reinterpret_cast<const __nv_bfloat162*>(p.ea + o);
+      if constexpr (EPI == EP_GRAD)
+        rv[hh][t] = *reinterpret_cast<const __nv_bfloat162*>(p.resid + o);
+    }
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const long long pix = pixs[hh];
+    if (pix < 0) continue;
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const int col = 8 * t + 2 * q4;
+      const size_t o = (size_t)pix * C + n0 + col;
+      float v[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) v[e] = acc[4 * t + 2 * hh + e];
+      if constexpr (EPI == EP_STATS) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          v[e] = rnd<bf16>(v[e]);
+          ps[0][2 * t + e] = __fadd_rn(ps[0][2 * t + e], v[e]);
+          ps[1][2 * t + e] = __fadd_rn(ps[1][2 * t + e], __fmul_rn(v[e], v[e]));
+        }
+        store2(static_cast<bf16*>(p.out) + o, v[0], v[1]);
+      } else if constexpr (EPI == EP_PRELU_BWD) {
+        // dgrad2's dh -> the PReLU backward at the recomputed input; h for wgrad2
+        const float2 a = __bfloat1622float2(ev[hh][t]);
+        const float av[2] = {a.x, a.y};
+        float h[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = col + e;
+          const float pre = bn_affine<bf16>(av[e], econ[c], econ[64 + c], econ[128 + c],
+                                            econ[192 + c]);
+          const bool neg = pre < 0.f;
+          h[e] = neg ? __fmul_rn(alT, pre) : pre;
+          if (neg) ps[2][2 * t + e] = __fadd_rn(ps[2][2 * t + e], __fmul_rn(v[e], pre));
+          const float d = neg ? __fmul_rn(v[e], al) : v[e];
+          const float xh = __fmul_rn(__fsub_rn(av[e], econ[256 + c]), econ[320 + c]);
+          ps[0][2 * t + e] = __fadd_rn(ps[0][2 * t + e], d);
+          ps[1][2 * t + e] = __fadd_rn(ps[1][2 * t + e], __fmul_rn(d, xh));
+          v[e] = d;
+        }
+        store2(p.hout + o, h[0], h[1]);
+        store2(static_cast<float*>(p.out) + o, v[0], v[1]);
+      } else {
+        // dgrad1: g <- bf16(g + acc); block j-1's BN2 sums of the new g
+        const float2 r = __bfloat1622float2(rv[hh][t]);
+        v[0] = rnd<bf16>(__fadd_rn(r.x, v[0]));
+        v[1] = rnd<bf16>(__fadd_rn(r.y, v[1]));
+        store2(static_cast<bf16*>(p.out) + o, v[0], v[1]);
+        if (p.ea != nullptr) {
+          const float2 a = __bfloat1622float2(ev[hh][t]);
+          const float av[2] = {a.x, a.y};
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = col + e;
+            const float xh = __fmul_rn(__fsub_rn(av[e], econ[256 + c]), econ[320 + c]);
+            ps[0][2 * t + e] = __fadd_rn(ps[0][2 * t + e], v[e]);
+            ps[1][2 * t + e] = __fadd_rn(ps[1][2 * t + e], __fmul_rn(v[e], xh));
+          }
+        }
+      }
+    }
+  }
+  if constexpr (EPI == EP_GRAD) {
+    if (p.ea == nullptr) return;  // block 0: no BN2 before it
+  }
+
+  // the tile's partials: 2 rows, then the 8 lanes of a column, then the warps
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      float v = ps[k][i];
+      v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 4));
+      v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 8));
+      v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 16));
+      if (gq == 0) red[(k * 4 + warp) * 64 + 8 * (i >> 1) + 2 * q4 + (i & 1)] = v;
+    }
+  __syncthreads();
+  for (int idx = tid; idx < K * 64; idx += tw::CONV_THREADS) {
+    const float* r = red + (idx / 64) * 256 + idx % 64;
+    p.part[((size_t)blockIdx.x * K + idx / 64) * C + n0 + idx % 64] =
+        __fadd_rn(__fadd_rn(__fadd_rn(r[0], r[64]), r[128]), r[192]);
+  }
+  if (!last_ticket(p.ticket, gridDim.x * gridDim.y)) return;
+
+  // the last tile: every tile's partials, in tile order
+  float* scratch = reinterpret_cast<float*>(wring);  // free after the mainloop
+  if constexpr (EPI == EP_STATS) {
+    reduce_partials<2>(p.part, gridDim.x, C, scratch, [&](int c, const float* r) {
+      bn_moments(r[0], r[1], p.nelem, p.r0 + c, p.r1 + c);
+    });
+  } else if constexpr (EPI == EP_GRAD) {
+    reduce_partials<2>(p.part, gridDim.x, C, scratch, [&](int c, const float* r) {
+      p.r0[c] = r[1];  // dgamma
+      p.r1[c] = r[0];  // dbeta
+    });
+  } else {
+    float* chan = econ;  // C <= 1024 floats: econ and red
+    reduce_partials<3>(p.part, gridDim.x, C, scratch, [&](int c, const float* r) {
+      p.r0[c] = r[1];
+      p.r1[c] = r[0];
+      chan[c] = r[2];
+    });
+    __syncthreads();
+    if (tid == 0) {
+      float s = 0.f;
+      for (int c = 0; c < C; ++c) s = __fadd_rn(s, chan[c]);
+      *p.r2 = s;  // dalpha: the channels' sums in order
+    }
+  }
+}
+
+// The weight-gradient tile on wgmma: both wgrads of a residual block in one
+// launch (blockIdx.y: 0 = dW1 from the block input and da1, 1 = dW2 from h
+// and da2). A block owns `nsub` sub-chunks of 64 padded positions (split-K)
+// and one (ci, co) tile of 64 x 64 (blockIdx.z); warpgroup ky computes the
+// taps (ky, 0..2), 3 x 32 f32 accumulators a thread. Sub-chunks stream
+// through a 2-stage ring of cp.async copies: the src window of the
+// sub-chunk (the conv window's geometry) and its 64 rows of dy.
+struct WgradParams {
+  tw::Geom g;
+  const bf16* src[2];
+  const bf16* dy[2];
+  float* part;  // [2][nchunks][9][C][C]
+  int nsub;
+};
+
+__host__ __device__ inline size_t wgrad_smem(const tw::Geom& g) {
+  return 2 * (size_t)(g.rows + tw::MT) * tw::KG * 16;
+}
+
+__global__ void __launch_bounds__(tw::WGRAD_THREADS, 1)
+    trunk_wgrad_wgmma(const __grid_constant__ WgradParams p) {
+  using namespace tw;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Geom& g = p.g;
+  const int C = g.C, ntc = C / CK;
+  const int stage_bytes = (g.rows + MT) * KG * 16;  // [KG][rows][16] src, [KG][64][16] dy
+  const int which = blockIdx.y, chunk = blockIdx.x;
+  const int ci0 = (blockIdx.z / ntc) * CK, co0 = (blockIdx.z % ntc) * CK;
+  const bf16* src = p.src[which];
+  const bf16* dy = p.dy[which];
+  const int tid = threadIdx.x, ky = tid / 128;
+  const long long total = (g.Q + MT - 1) / MT;
+  const long long s0 = (long long)chunk * p.nsub;
+  const int nsub = (int)min((long long)p.nsub, total - s0);
+  grid_dep_wait();
+  grid_dep_launch();
+
+  auto load = [&](int s) {
+    unsigned char* st = smem + (s & 1) * stage_bytes;
+    const long long q0 = (s0 + s) * MT;
+    const int kg = tid & 7;  // 384 threads: a thread keeps its k group
+    for (int r = tid >> 3; r < g.rows; r += WGRAD_THREADS / 8) {
+      const long long pix = pixel_of(g, win_pos(g, q0, r));
+      hop::cp_async16(st + ((size_t)kg * g.rows + r) * 16,
+                      src + (size_t)(pix < 0 ? 0 : pix) * C + ci0 + kg * 8, pix >= 0);
+    }
+    unsigned char* dw = st + (size_t)g.rows * KG * 16;
+    for (int r = tid >> 3; r < MT; r += WGRAD_THREADS / 8) {
+      const long long pix = pixel_of(g, q0 + r);
+      hop::cp_async16(dw + ((size_t)kg * MT + r) * 16,
+                      dy + (size_t)(pix < 0 ? 0 : pix) * C + co0 + kg * 8, pix >= 0);
+    }
+  };
+  float acc[3][32];
+#pragma unroll
+  for (int x = 0; x < 3; ++x)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[x][e] = 0.f;
+  load(0);
+  hop::cp_async_commit();
+  if (nsub > 1) load(1);
+  hop::cp_async_commit();
+  for (int s = 0; s < nsub; ++s) {
+    hop::cp_async_wait<1>();
+    hop::fence_async_smem();
+    __syncthreads();
+    hop::wg_fence();
+    const uint32_t wa = hop::smem_addr(smem + (s & 1) * stage_bytes);
+    const uint32_t wd = wa + (uint32_t)g.rows * KG * 16;
+#pragma unroll
+    for (int kx = 0; kx < 3; ++kx) {
+      const int row = ky * g.tapstride + kx;
+#pragma unroll
+      for (int k = 0; k < MT / 16; ++k)
+        tw::wgmma_bf16_tt(acc[kx], hop::desc(wa + (uint32_t)((row + 16 * k) * 16), 128, g.rows * 16),
+                          hop::desc(wd + (uint32_t)(16 * k * 16), 128, MT * 16));
+    }
+    hop::wg_commit();
+    hop::wg_wait<0>();
+    __syncthreads();  // stage s & 1 is free
+    if (s + 2 < nsub) load(s + 2);
+    hop::cp_async_commit();
+  }
+  // acc[kx][4 t + 2 hh + e]: ci = ci0 + 16 warp + g + 8 hh, co = co0 + 8 t + 2 q + e
+  const int warp = (tid >> 5) & 3, lane = tid & 31, gq = lane >> 2, q4 = lane & 3;
+  float* out = p.part + ((size_t)which * gridDim.x + chunk) * 9 * C * C;
+#pragma unroll
+  for (int kx = 0; kx < 3; ++kx)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int ci = ci0 + 16 * warp + gq + 8 * hh;
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+        store2(out + ((size_t)(3 * ky + kx) * C + ci) * C + co0 + 8 * t + 2 * q4,
+               acc[kx][4 * t + 2 * hh], acc[kx][4 * t + 2 * hh + 1]);
+    }
+}
+
+// dW1 and dW2 of a block: the wgrad partials summed over the chunks in
+// order, in double.
+__global__ void __launch_bounds__(APPLY_THREADS)
+    wgrad_reduce2_kernel(const float* __restrict__ part, int nchunks, long long per,
+                         float* __restrict__ dw1, float* __restrict__ dw2) {
+  const long long i = (long long)blockIdx.x * APPLY_THREADS + threadIdx.x;
+  if (i >= 2 * per) return;
+  const int which = (int)(i / per);
+  const long long e = i - which * per;
+  const float* src = part + (size_t)which * nchunks * per + e;
+  constexpr int U = 8;
+  double s = 0.0;
+  for (int b0 = 0; b0 < nchunks; b0 += U) {
+    float v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) v[u] = b0 + u < nchunks ? src[(size_t)(b0 + u) * per] : 0.f;
+#pragma unroll
+    for (int u = 0; u < U; ++u) s += (double)v[u];
+  }
+  (which ? dw2 : dw1)[e] = (float)s;
+}
+
+// The last block's BN2 backward sums of the cotangent g over a2:
+// partials of sum g and sum g * xhat per PIX_CHUNK pixels, then the ticket
+// reduction into dgamma, dbeta.
+__global__ void __launch_bounds__(EW_THREADS)
+    bn2_sums_kernel(const bf16* __restrict__ g, const bf16* __restrict__ a,
+                    const float* __restrict__ mv, float eps, float* part, unsigned* ticket,
+                    float* dgam, float* dbet, int C, long long P) {
+  __shared__ float red[2][4][64];
+  __shared__ float scratch[2 * 1024];
+  const int cl = threadIdx.x & 63, lane = threadIdx.x >> 6;
+  const int c = blockIdx.y * 64 + cl;
+  const float m = mv[c], inv = inv_std(mv[C + c], eps);
+  const long long pbeg = (long long)blockIdx.x * PIX_CHUNK;
+  const long long pend = min(P, pbeg + PIX_CHUNK);
+  float s = 0.f, sx = 0.f;
+  for (long long p = pbeg + lane; p < pend; p += 4) {
+    const size_t o = (size_t)p * C + c;
+    const float d = to_f(g[o]);
+    const float xh = __fmul_rn(__fsub_rn(to_f(a[o]), m), inv);
+    s = __fadd_rn(s, d);
+    sx = __fadd_rn(sx, __fmul_rn(d, xh));
+  }
+  red[0][lane][cl] = s;
+  red[1][lane][cl] = sx;
+  __syncthreads();
+  if (lane < 2) {
+    const float* r = red[lane][0] + cl;
+    part[((size_t)blockIdx.x * 2 + lane) * C + c] = ((r[0] + r[64]) + r[128]) + r[192];
+  }
+  if (!tw::last_ticket(ticket, gridDim.x * gridDim.y)) return;
+  tw::reduce_partials<2>(part, gridDim.x, C, scratch, [&](int ch, const float* r) {
+    dgam[ch] = r[1];
+    dbet[ch] = r[0];
+  });
+}
+
 struct Dims {
   int H, W, C;
   long long P, act;
@@ -486,6 +1054,275 @@ int trunk_backward(const T* dy, const T* xs, const T* a1s, const T* a2s, const f
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------ bf16 host
+struct Bf16Dims {
+  tw::Geom g;
+  int mtiles;   // conv M tiles = wgrad sub-chunks of 64 padded positions
+  int ntc;      // 64-channel tiles
+  int nsub;     // sub-chunks per wgrad block
+  int nchunks;  // wgrad blocks along the positions (split-K)
+};
+
+Bf16Dims bf16_dims(const Dims& d, int B) {
+  Bf16Dims b;
+  b.g = tw::make_geom(B, d.H, d.W, d.C);
+  b.mtiles = (int)((b.g.Q + tw::MT - 1) / tw::MT);
+  b.ntc = d.C / tw::CK;
+  // about 128 wgrad blocks (of 384 threads, one per SM) over both wgrads
+  const long long work = 2LL * b.ntc * b.ntc * b.mtiles;
+  b.nsub = (int)std::max(1LL, (work + 127) / 128);
+  b.nchunks = (b.mtiles + b.nsub - 1) / b.nsub;
+  return b;
+}
+
+// bf16 workspace. Forward: BN partials, tickets. Backward: da1, da2, h
+// (bf16), dpre (f32), BN partials, wgrad partials, tickets. The weights'
+// ring images are the wrapper's tensors.
+struct WsBf16 {
+  size_t da1, da2, h, dpre, part, wpart, ticket, total;
+  int ntickets;
+};
+
+WsBf16 layout_bf16(const Dims& d, const Bf16Dims& b, int n, bool backward) {
+  WsBf16 w{};
+  size_t off = 0;
+  const size_t act = (size_t)d.act;
+  if (backward) {
+    w.da1 = off;
+    off += align256(act * 2);
+    w.da2 = off;
+    off += align256(act * 2);
+    w.h = off;
+    off += align256(act * 2);
+    w.dpre = off;
+    off += align256(act * 4);
+  }
+  w.part = off;
+  off += align256((size_t)std::max(3 * b.mtiles, 2 * d.pchunks) * d.C * 4);
+  if (backward) {
+    w.wpart = off;
+    off += align256((size_t)2 * b.nchunks * 9 * d.C * d.C * 4);
+  }
+  w.ntickets = 2 * n + 1;
+  w.ticket = off;
+  off += align256((size_t)w.ntickets * 4);
+  w.total = off;
+  return w;
+}
+
+// Raise a kernel's dynamic shared memory limit to `bytes`, once per device.
+template <auto Kernel>
+cudaError_t allow_smem(size_t bytes) {
+  static size_t done[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && done[dev] >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess && dev < 64) done[dev] = bytes;
+  return err;
+}
+
+// A wgmma kernel launched with programmatic stream serialization: its
+// prologue (barriers, the weights' copies) overlaps the kernel before it,
+// which it waits for in grid_dep_wait.
+template <auto Kernel, typename Params>
+cudaError_t launch_pdl(dim3 grid, int threads, size_t smem, cudaStream_t s, const Params& p) {
+  cudaError_t err = allow_smem<Kernel>(smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, Kernel, p);
+}
+
+template <int LOAD, int EPI>
+cudaError_t launch_conv(const ConvParams& p, const Bf16Dims& b, cudaStream_t s) {
+  return launch_pdl<trunk_conv_wgmma<LOAD, EPI>>(dim3(b.mtiles, b.ntc), tw::CONV_THREADS,
+                                                 conv_smem(b.g), s, p);
+}
+
+int forward_bf16(const bf16* x, const bf16* w1i, const bf16* w2i, const float* g1,
+                 const float* b1, const float* g2, const float* b2, const float* al, bf16* y,
+                 bf16* xs, bf16* a1s, bf16* a2s, float* stats, void* ws, long long ws_bytes,
+                 int n, int B, int H, int W, int C, float eps, cudaStream_t s) {
+  Dims d;
+  if (!make_dims(n, B, H, W, C, &d)) return (int)cudaErrorInvalidValue;
+  const Bf16Dims bd = bf16_dims(d, B);
+  const WsBf16 wl = layout_bf16(d, bd, n, false);
+  if ((size_t)ws_bytes < wl.total) return (int)cudaErrorInvalidValue;
+  unsigned char* base = static_cast<unsigned char*>(ws);
+  unsigned* tickets = reinterpret_cast<unsigned*>(base + wl.ticket);
+  const size_t wsz = (size_t)9 * C * C;
+
+  cudaError_t err = cudaMemcpyAsync(xs, x, (size_t)d.act * 2, cudaMemcpyDeviceToDevice, s);
+  if (err == cudaSuccess) err = cudaMemsetAsync(tickets, 0, (size_t)wl.ntickets * 4, s);
+  ConvParams p{};
+  p.g = bd.g;
+  p.part = reinterpret_cast<float*>(base + wl.part);
+  p.eps = eps;
+  p.nelem = (float)d.P;
+  for (int i = 0; i < n && err == cudaSuccess; ++i) {
+    bf16* a1 = a1s + i * d.act;
+    bf16* a2 = a2s + i * d.act;
+    float* st = stats + (size_t)i * 4 * C;
+
+    ConvParams c1 = p;  // a1 = conv1(x); m1, v1
+    c1.wimg = w1i + i * wsz;
+    c1.out = a1;
+    c1.ticket = tickets + 2 * i;
+    c1.r0 = st;
+    c1.r1 = st + C;
+    if (i == 0) {
+      c1.src = xs;
+      err = launch_conv<LD_COPY, EP_STATS>(c1, bd, s);
+    } else {
+      // x_i = x_{i-1} + BN2(a2_{i-1}), formed on load; its own positions
+      // written to xs[i]
+      c1.src = a2s + (i - 1) * d.act;
+      c1.dsrc = xs + (i - 1) * d.act;
+      c1.lmv = st - 2 * C;
+      c1.lgam = g2 + (i - 1) * C;
+      c1.lbet = b2 + (i - 1) * C;
+      c1.dout = xs + i * d.act;
+      err = launch_conv<LD_BN_RESID, EP_STATS>(c1, bd, s);
+    }
+    if (err != cudaSuccess) break;
+    ConvParams c2 = p;  // a2 = conv2(PReLU(BN1(a1))), normalized on load; m2, v2
+    c2.wimg = w2i + i * wsz;
+    c2.src = a1;
+    c2.lmv = st;
+    c2.lgam = g1 + i * C;
+    c2.lbet = b1 + i * C;
+    c2.lal = al + i;
+    c2.out = a2;
+    c2.ticket = tickets + 2 * i + 1;
+    c2.r0 = st + 2 * C;
+    c2.r1 = st + 3 * C;
+    err = launch_conv<LD_BN_PRELU, EP_STATS>(c2, bd, s);
+  }
+  if (err != cudaSuccess) return (int)err;
+  // y = x_{n-1} + BN2(a2_{n-1})
+  const float* st = stats + (size_t)(n - 1) * 4 * C;
+  bn_apply_kernel<bf16, false, true><<<d.apply_grid, APPLY_THREADS, 0, s>>>(
+      a2s + (n - 1) * d.act, st + 2 * C, g2 + (n - 1) * C, b2 + (n - 1) * C, nullptr,
+      xs + (n - 1) * d.act, y, eps, C, d.act);
+  return (int)cudaGetLastError();
+}
+
+int backward_bf16(const bf16* dy, const bf16* xs, const bf16* a1s, const bf16* a2s,
+                  const float* stats, const bf16* w1i, const bf16* w2i, const float* g1,
+                  const float* b1, const float* g2, const float* al, bf16* dx, float* dw1,
+                  float* dw2, float* dg1, float* db1, float* dg2, float* db2, float* dal,
+                  void* ws, long long ws_bytes, int n, int B, int H, int W, int C, float eps,
+                  cudaStream_t s) {
+  Dims d;
+  if (!make_dims(n, B, H, W, C, &d)) return (int)cudaErrorInvalidValue;
+  const Bf16Dims bd = bf16_dims(d, B);
+  const WsBf16 wl = layout_bf16(d, bd, n, true);
+  if ((size_t)ws_bytes < wl.total) return (int)cudaErrorInvalidValue;
+  unsigned char* base = static_cast<unsigned char*>(ws);
+  bf16* da1 = reinterpret_cast<bf16*>(base + wl.da1);
+  bf16* da2 = reinterpret_cast<bf16*>(base + wl.da2);
+  bf16* h = reinterpret_cast<bf16*>(base + wl.h);
+  float* dpre = reinterpret_cast<float*>(base + wl.dpre);
+  float* part = reinterpret_cast<float*>(base + wl.part);
+  float* wpart = reinterpret_cast<float*>(base + wl.wpart);
+  unsigned* tickets = reinterpret_cast<unsigned*>(base + wl.ticket);
+  const size_t wsz = (size_t)9 * C * C;
+  const size_t wg_smem = wgrad_smem(bd.g);
+
+  cudaError_t err = cudaMemsetAsync(tickets, 0, (size_t)wl.ntickets * 4, s);
+  if (err != cudaSuccess) return (int)err;
+  // the last block's BN2 sums of g = dy
+  bn2_sums_kernel<<<d.part_grid, EW_THREADS, 0, s>>>(
+      dy, a2s + (n - 1) * d.act, stats + (size_t)(n - 1) * 4 * C + 2 * C, eps, part,
+      tickets + 2 * n, dg2 + (n - 1) * C, db2 + (n - 1) * C, C, d.P);
+  err = cudaGetLastError();
+  ConvParams p{};
+  p.g = bd.g;
+  p.part = part;
+  p.eps = eps;
+  p.nelem = (float)d.P;
+  for (int j = n - 1; j >= 0 && err == cudaSuccess; --j) {
+    const float* st = stats + (size_t)j * 4 * C;
+    const bf16* a1 = a1s + j * d.act;
+    const bf16* a2 = a2s + j * d.act;
+    const bf16* gin = j == n - 1 ? dy : dx;  // the running cotangent g (dx holds it)
+
+    // dgrad2 of da2 = BN2 backward of g (formed on load); its epilogue: the
+    // PReLU backward, h, dpre and BN1's sums -> dg1, db1, dal
+    ConvParams c2 = p;
+    c2.wimg = w2i + j * wsz;
+    c2.src = a2;
+    c2.dsrc = gin;
+    c2.lmv = st + 2 * C;
+    c2.lgam = g2 + j * C;
+    c2.ldg = dg2 + j * C;
+    c2.ldb = db2 + j * C;
+    c2.dout = da2;
+    c2.out = dpre;
+    c2.ea = a1;
+    c2.emv = st;
+    c2.egam = g1 + j * C;
+    c2.ebet = b1 + j * C;
+    c2.eal = al + j;
+    c2.hout = h;
+    c2.ticket = tickets + 2 * j;
+    c2.r0 = dg1 + j * C;
+    c2.r1 = db1 + j * C;
+    c2.r2 = dal + j;
+    err = launch_conv<LD_DA_T, EP_PRELU_BWD>(c2, bd, s);
+    if (err != cudaSuccess) break;
+    // dgrad1 of da1 = BN1 backward of dpre (formed on load); its epilogue:
+    // g <- bf16(g + dgrad1) and block j-1's BN2 sums -> dg2, db2
+    ConvParams c1 = p;
+    c1.wimg = w1i + j * wsz;
+    c1.src = a1;
+    c1.dsrc = dpre;
+    c1.lmv = st;
+    c1.lgam = g1 + j * C;
+    c1.ldg = dg1 + j * C;
+    c1.ldb = db1 + j * C;
+    c1.dout = da1;
+    c1.out = dx;
+    c1.resid = gin;
+    if (j > 0) {
+      c1.ea = a2s + (j - 1) * d.act;
+      c1.emv = stats + (size_t)(j - 1) * 4 * C + 2 * C;
+      c1.r0 = dg2 + (j - 1) * C;
+      c1.r1 = db2 + (j - 1) * C;
+    }
+    c1.ticket = tickets + 2 * j + 1;
+    err = launch_conv<LD_DA_F, EP_GRAD>(c1, bd, s);
+    if (err != cudaSuccess) break;
+    // both wgrads, then their split-K sums
+    WgradParams wp{};
+    wp.g = bd.g;
+    wp.src[0] = xs + j * d.act;
+    wp.src[1] = h;
+    wp.dy[0] = da1;
+    wp.dy[1] = da2;
+    wp.part = wpart;
+    wp.nsub = bd.nsub;
+    err = launch_pdl<trunk_wgrad_wgmma>(dim3(bd.nchunks, 2, bd.ntc * bd.ntc),
+                                        tw::WGRAD_THREADS, wg_smem, s, wp);
+    if (err != cudaSuccess) break;
+    wgrad_reduce2_kernel<<<(unsigned)((2 * wsz + APPLY_THREADS - 1) / APPLY_THREADS),
+                           APPLY_THREADS, 0, s>>>(wpart, bd.nchunks, (long long)wsz,
+                                                  dw1 + j * wsz, dw2 + j * wsz);
+    err = cudaGetLastError();
+  }
+  return (int)err;
+}
+
 }  // namespace
 
 // Workspace bytes of one call: forward (backward = 0) or backward (1).
@@ -494,11 +1331,47 @@ extern "C" int packed_trunk_ws_bytes(int n, int B, int H, int W, int C, int esiz
   Dims d;
   if (!make_dims(n, B, H, W, C, &d) || (esize != 2 && esize != 4))
     return (int)cudaErrorInvalidValue;
-  *out = (long long)layout(d, esize, backward != 0).total;
+  *out = (long long)(esize == 2 ? layout_bf16(d, bf16_dims(d, B), n, backward != 0).total
+                                  : layout(d, esize, backward != 0).total);
   return 0;
 }
 
-// x (B, H, W, C) NHWC; w1t, w2t (n, 9, C, C) [block][tap][out][in]; g1, b1,
+// Kernel launches of one call (besides one copy or memset on the stream and
+// one memset): f32 6n forward, 12n backward; bf16 2n + 1 forward (per block
+// conv1, conv2; once, the last BN2 + residual apply), 4n + 1 backward (per
+// block dgrad2, dgrad1, the two wgrads, their split-K sums; once, the last
+// block's BN2 sums).
+extern "C" int packed_trunk_launches(int n, int esize, int backward, long long* out) {
+  if (n <= 0 || (esize != 2 && esize != 4)) return (int)cudaErrorInvalidValue;
+  *out = esize == 4 ? (backward ? 12LL : 6LL) * n : (backward ? 4LL : 2LL) * n + 1;
+  return 0;
+}
+
+// The wgmma work of one bf16 call in FLOP, counted from the kernels' own
+// tiles (the design's floor): per conv, M tiles x N tiles x K chunks x 9
+// taps x 4 m64n64k16; per wgrad pair, 2 x (C/64)^2 tiles x every 64-position
+// sub-chunk x 9 taps x 4.
+extern "C" int packed_trunk_bf16_mma_flops(int n, int B, int H, int W, int C, int backward,
+                                           double* flops) {
+  Dims d;
+  if (!make_dims(n, B, H, W, C, &d)) return (int)cudaErrorInvalidValue;
+  const Bf16Dims b = bf16_dims(d, B);
+  const double conv = (double)b.mtiles * b.ntc * b.ntc * 36 * tw::MMA_FLOP;
+  const double wgrad = 2.0 * b.ntc * b.ntc * b.mtiles * 36 * tw::MMA_FLOP;
+  *flops = 2.0 * n * conv + (backward ? n * wgrad : 0.0);
+  return 0;
+}
+
+// dynamic shared memory of one block of the bf16 conv and wgrad kernels
+extern "C" int packed_trunk_conv_smem(int W, int C) {
+  return (int)conv_smem(tw::make_geom(1, 1, W, C));
+}
+extern "C" int packed_trunk_wgrad_smem(int W, int C) {
+  return (int)wgrad_smem(tw::make_geom(1, 1, W, C));
+}
+
+// x (B, H, W, C) NHWC; w1t, w2t f32: (n, 9, C, C) [block][tap][out][in],
+// bf16: the ring images of kernels/packed_trunk.py `weight_image`; g1, b1,
 // g2, b2 (n, C) f32; al (n,) f32. Writes y (B, H, W, C), the residuals xs,
 // a1s, a2s (n, B, H, W, C) and stats (n, 4, C) f32 [m1, v1, m2, v2].
 #define FWD_ARGS(T)                                                                  \
@@ -506,8 +1379,8 @@ extern "C" int packed_trunk_ws_bytes(int n, int B, int H, int W, int C, int esiz
       const void *g2, const void *b2, const void *al, void *y, void *xs, void *a1s,  \
       void *a2s, void *stats, void *ws, long long ws_bytes, int n, int B, int H,     \
       int W, int C, float eps, void *stream
-#define FWD_CALL(T)                                                                  \
-  trunk_forward<T>(static_cast<const T*>(x), static_cast<const T*>(w1t),                   \
+#define FWD_CALL(T, FN)                                                              \
+  FN(static_cast<const T*>(x), static_cast<const T*>(w1t),                   \
                    static_cast<const T*>(w2t), static_cast<const float*>(g1),              \
              static_cast<const float*>(b1), static_cast<const float*>(g2),           \
              static_cast<const float*>(b2), static_cast<const float*>(al),           \
@@ -516,13 +1389,16 @@ extern "C" int packed_trunk_ws_bytes(int n, int B, int H, int W, int C, int esiz
              H, W, C, eps, static_cast<cudaStream_t>(stream))
 
 extern "C" int packed_trunk_fwd_bf16(FWD_ARGS(__nv_bfloat16)) {
-  return FWD_CALL(__nv_bfloat16);
+  return FWD_CALL(__nv_bfloat16, forward_bf16);
 }
-extern "C" int packed_trunk_fwd_f32(FWD_ARGS(float)) { return FWD_CALL(float); }
+extern "C" int packed_trunk_fwd_f32(FWD_ARGS(float)) {
+  return FWD_CALL(float, trunk_forward<float>);
+}
 
-// dy (B, H, W, C); the residuals and stats of the forward; w1d, w2d (n, 9,
-// C, C) the flipped, transposed (dgrad) kernels in the forward's
-// [block][tap][out][in] layout: w1d[i][3 * ky + kx][ci][co] = w1[i][2-ky][2-kx][ci][co].
+// dy (B, H, W, C); the residuals and stats of the forward; w1d, w2d the
+// flipped, transposed (dgrad) kernels in the forward's layout (f32
+// [block][tap][out][in], w1d[i][3 * ky + kx][ci][co] = w1[i][2-ky][2-kx][ci][co];
+// bf16 their ring images).
 // Writes dx (B, H, W, C), dw1, dw2 (n, 3, 3, C, C) HWIO f32, dg1, db1, dg2,
 // db2 (n, C) f32 and dal (n,) f32.
 #define BWD_ARGS(T)                                                                  \
@@ -531,8 +1407,8 @@ extern "C" int packed_trunk_fwd_f32(FWD_ARGS(float)) { return FWD_CALL(float); }
       const void *b1, const void *g2, const void *al, void *dx, void *dw1,           \
       void *dw2, void *dg1, void *db1, void *dg2, void *db2, void *dal, void *ws,    \
       long long ws_bytes, int n, int B, int H, int W, int C, float eps, void *stream
-#define BWD_CALL(T)                                                                  \
-  trunk_backward<T>(static_cast<const T*>(dy), static_cast<const T*>(xs),                  \
+#define BWD_CALL(T, FN)                                                              \
+  FN(static_cast<const T*>(dy), static_cast<const T*>(xs),                  \
               static_cast<const T*>(a1s), static_cast<const T*>(a2s),                \
               static_cast<const float*>(stats), static_cast<const T*>(w1d),          \
               static_cast<const T*>(w2d), static_cast<const float*>(g1),             \
@@ -545,6 +1421,8 @@ extern "C" int packed_trunk_fwd_f32(FWD_ARGS(float)) { return FWD_CALL(float); }
               static_cast<cudaStream_t>(stream))
 
 extern "C" int packed_trunk_bwd_bf16(BWD_ARGS(__nv_bfloat16)) {
-  return BWD_CALL(__nv_bfloat16);
+  return BWD_CALL(__nv_bfloat16, backward_bf16);
 }
-extern "C" int packed_trunk_bwd_f32(BWD_ARGS(float)) { return BWD_CALL(float); }
+extern "C" int packed_trunk_bwd_f32(BWD_ARGS(float)) {
+  return BWD_CALL(float, trunk_backward<float>);
+}

@@ -1,7 +1,8 @@
 // Device code shared by the residual-trunk kernels (csrc/packed_trunk.cu,
 // K4/K5; csrc/fused_trunk.cu, K6): the compute-dtype conversions and
 // roundings of the Pallas kernels, the BatchNorm moments and forward
-// normalize, and the 3x3 SAME conv tile.
+// normalize, and the 3x3 SAME conv tile of K6 and of K4/K5's f32 path
+// (their bf16 path has its own, csrc/trunk_wgmma.cuh).
 //
 // A conv tile is 64 pixels x 64 output channels of an implicit GEMM over
 // the (B*H*W) pixels of an NHWC activation, 9 taps x C input channels

@@ -18,7 +18,10 @@ own whose forward and backward are written out step by step with the
 kernels' roundings (csrc/packed_trunk.cu lists them). It follows the Pallas
 kernel, not `fused_trunk.trunk_reference`, which rounds v before the rsqrt.
 The W-parity lane packing of the TPU kernels has no counterpart: the CUDA
-kernels take the fine NHWC layout.
+kernels take the fine NHWC layout. The bf16 kernels (wgmma tiles over the
+zero-padded flattened grid, csrc/trunk_wgmma.cuh) take their conv weights
+as ring images (`weight_image`); tests/test_torch_trunk_tiles.py emulates
+their tiles on the CPU.
 """
 
 from __future__ import annotations
@@ -44,7 +47,10 @@ _SIGNATURES = {
     **{fn: _FWD_ARGS for fn in _FWD.values()},
     **{fn: _BWD_ARGS for fn in _BWD.values()},
     "packed_trunk_ws_bytes": [_I] * 7 + [ctypes.POINTER(ctypes.c_longlong)],
+    "packed_trunk_launches": [_I] * 3 + [ctypes.POINTER(ctypes.c_longlong)],
 }
+# channels of the bf16 kernels' N tiles and K chunks (csrc/trunk_wgmma.cuh)
+CK = 64
 
 
 # ---------------------------------------------------------------------------
@@ -202,15 +208,55 @@ def _f32(t: torch.Tensor, dev) -> torch.Tensor:
     return t.to(device=dev, dtype=torch.float32).contiguous()
 
 
-def _launch_fwd(x, w1s, w2s, g1s, b1s, g2s, b2s, als, eps):
+def weight_image(ws: torch.Tensor) -> torch.Tensor:
+    """HWIO conv kernels (n, 3, 3, C, C) -> the bf16 kernels' weight blocks
+    (n, C/64 N tiles, C/64 K chunks, 9 taps, 8 k groups, 64 outputs, 8): one
+    73.7 KB block per (N tile, K chunk), the image of the ring's stage that
+    a bulk copy fills."""
+    n, c = ws.shape[0], ws.shape[-1]
+    t = c // CK
+    # [n, tap, kc, kg, j, nt, co] with ci = 64 kc + 8 kg + j, co = 64 nt + co
+    return (ws.reshape(n, 9, t, CK // 8, 8, t, CK).permute(0, 5, 2, 1, 3, 6, 4)
+            .contiguous())
+
+
+def _layout_fwd(w1s, w2s, dev, cdt):
+    """The forward's conv weights as the kernels take them: bf16, the ring
+    images; f32, [block][tap][out][in]."""
+    ws = (w.to(device=dev, dtype=cdt) for w in (w1s, w2s))
+    if cdt == torch.bfloat16:
+        return tuple(weight_image(w) for w in ws)
+    n, c = w1s.shape[0], w1s.shape[-1]
+    return tuple(w.permute(0, 1, 2, 4, 3).reshape(n, 9, c, c).contiguous() for w in ws)
+
+
+def _layout_bwd(w1s, w2s, dev, cdt):
+    """The dgrad kernels (flipped, transposed) in the forward's layout."""
+    ws = (_dgrad_weights(w.to(dev), cdt) for w in (w1s, w2s))
+    if cdt == torch.bfloat16:
+        return tuple(weight_image(w) for w in ws)
+    n, c = w1s.shape[0], w1s.shape[-1]
+    return tuple(w.transpose(-2, -1).reshape(n, 9, c, c).contiguous() for w in ws)
+
+
+def launches_per_call(n: int, dtype, backward: bool) -> int:
+    """Kernel launches of one K4 (or K5) call, as the library counts them."""
+    out = ctypes.c_longlong(0)
+    lib = _build.load("packed_trunk", _SIGNATURES)
+    _build.check(lib.packed_trunk_launches(n, torch.finfo(dtype).bits // 8, int(backward),
+                                           ctypes.byref(out)), "packed_trunk launches")
+    return out.value
+
+
+def _launch_fwd(x, w1s, w2s, g1s, b1s, g2s, b2s, als, eps, weights=None):
+    """K4 on CUDA tensors; `weights`: the conv weights already laid out by
+    `_layout_fwd` (else laid out here)."""
     global fwd_launches
     _check(x)
     n = w1s.shape[0]
     b, h, w, c = x.shape
     dev, cdt = x.device, x.dtype
-    # [block][tap][out][in]
-    w1t, w2t = (ws.to(device=dev, dtype=cdt).permute(0, 1, 2, 4, 3)
-                .reshape(n, 9, c, c).contiguous() for ws in (w1s, w2s))
+    w1t, w2t = weights if weights is not None else _layout_fwd(w1s, w2s, dev, cdt)
     vecs = [_f32(t, dev) for t in (g1s, b1s, g2s, b2s, als.reshape(n))]
     y = torch.empty_like(x)
     xs, a1s, a2s = (torch.empty((n, b, h, w, c), device=dev, dtype=cdt) for _ in range(3))
@@ -229,15 +275,15 @@ def _launch_fwd(x, w1s, w2s, g1s, b1s, g2s, b2s, als, eps):
     return y, xs, a1s, a2s, stats
 
 
-def _launch_bwd(dy, xs, a1s, a2s, stats, w1s, w2s, g1s, b1s, g2s, als, eps):
+def _launch_bwd(dy, xs, a1s, a2s, stats, w1s, w2s, g1s, b1s, g2s, als, eps, weights=None):
+    """K5 on CUDA tensors; `weights`: the dgrad weights already laid out by
+    `_layout_bwd` (else laid out here)."""
     global bwd_launches
     n, b, h, w, c = xs.shape
     dev, cdt = xs.device, xs.dtype
     dy = dy.to(cdt).contiguous()
     _check(dy)
-    # the dgrad kernels in the forward's [block][tap][out][in] layout
-    w1d, w2d = (_dgrad_weights(ws.to(dev), cdt).transpose(-2, -1)
-                .reshape(n, 9, c, c).contiguous() for ws in (w1s, w2s))
+    w1d, w2d = weights if weights is not None else _layout_bwd(w1s, w2s, dev, cdt)
     vecs = [_f32(t, dev) for t in (g1s, b1s, g2s, als.reshape(n))]
     dx = torch.empty_like(dy)
     dw1, dw2 = (torch.empty((n, 3, 3, c, c), device=dev, dtype=torch.float32)

@@ -253,6 +253,53 @@ def test_packed_trunk_raises_outside_its_gate(dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape,n", [((2, 12, 16, 128), 2), ((3, 22, 26, 64), 2),
+                                     ((2, 6, 80, 64), 2)])
+def test_packed_trunk_gates_on_saved_residuals(dev, shape, n):
+    """chip_smoke's K4/K5 gates at two channel tiles (C = 128), at the edge
+    shape (1,716 pixels, 31.6 padded-grid tiles) and at a width that takes
+    the bf16 kernels' banded window: f32 within 1e-4 (forward) and 1e-3
+    (gradients) of max|ref|, K5 fed K4's residuals; bf16 within 2x the
+    plain version's bf16-vs-f32 envelope; a second run of each gives the
+    same bits."""
+    from srgan_st_tpu_torch.kernels import packed_trunk as pt
+
+    x, params = _trunk_inputs(dev, shape, n)
+    dy = torch.randn(x.shape, device=dev, generator=torch.Generator(device=dev).manual_seed(4))
+    bp = (params[0], params[1], params[2], params[3], params[4], params[6])
+    got = pt._launch_fwd(x, *params, 1e-5)
+    ref = pt._reference_forward(x, *params, 1e-5)
+    gb = pt._launch_bwd(dy, *got[1:], *bp, 1e-5)
+    rb = pt._reference_backward(dy, *got[1:], *bp, 1e-5)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert _err(g, r) <= 1e-4 * float(r.abs().max())
+    for i, (g, r) in enumerate(zip(gb, rb)):
+        assert _err(g, r) <= 1e-3 * float(r.abs().max()), i
+    xb, dyb = x.bfloat16(), dy.bfloat16()
+    p16 = [params[0].bfloat16().float(), params[1].bfloat16().float(), *params[2:]]
+    bp16 = (p16[0], p16[1], p16[2], p16[3], p16[4], p16[6])
+    got16 = pt._launch_fwd(xb, *params, 1e-5)
+    fwd = [(got16[i], pt._reference_forward(xb, *params, 1e-5)[i],
+            pt._reference_forward(xb.float(), *p16, 1e-5)[i]) for i in (0, 4)]
+    res16 = got16[1:]
+    res32 = [t.float() for t in res16[:3]] + [res16[3]]
+    gb16 = pt._launch_bwd(dyb, *res16, *bp, 1e-5)
+    bwd = zip(gb16, pt._reference_backward(dyb, *res16, *bp, 1e-5),
+              pt._reference_backward(dyb.float(), *res32, *bp16, 1e-5))
+    torch.cuda.synchronize()
+    for i, (g, p, r) in enumerate([*fwd, *bwd]):
+        env = _err(p, r)
+        assert 0 < env and _err(g, r) <= 2 * env, (i, _err(g, r), env)
+    for a, b in zip(got16, pt._launch_fwd(xb, *params, 1e-5)):
+        assert torch.equal(a, b)
+    for a, b in zip(gb16, pt._launch_bwd(dyb, *res16, *bp, 1e-5)):
+        assert torch.equal(a, b)
+    for a, b in zip(gb, pt._launch_bwd(dy, *got[1:], *bp, 1e-5)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 def test_conv3_kernel_path_has_the_plain_gradients(dev):
     """The coarse conv kernel's autograd Function: a kernel-A forward whose
     gradients are not zero and equal the plain path's (f32, TF32 off;
