@@ -2,10 +2,8 @@
 """Smoke run of the PyTorch port (srgan_st_tpu_torch) on one CUDA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --trunk-time [--root DIR] [--rounds N]
 
-The second form times only K4 and K5 (see `trunk_time`). The first, from
-the root of a checkout, with one NVIDIA H100 (sm_90a) and the CUDA
+from the root of a checkout, with one NVIDIA H100 (sm_90a) and the CUDA
 toolkit. In order, each phase printing one JSON line:
 
   env      torch and CUDA versions, the card and its power limit;
@@ -45,13 +43,15 @@ Then the training slice, bf16 with TRUNK_MODE="packed" unless named:
            (2, 12, 16, 128), n = 2, in f32 and bf16, K5 on the residuals K4
            saved; a second run of each must give the same bits (the
            reductions are deterministic). Then their times at the training
-           shape (the launch on laid-out weights, and the wrapper), bounds,
+           shape (the wrapper, which lays the weights out as a train step
+           does, and the launch on weights laid out in advance), bounds,
            the bf16 design's own floor (the wgmma work the library counts),
-           the launches per call the library reports, the host's time to
-           enqueue one call, plain times, a cuDNN
+           the host's time to enqueue one call, plain times, a cuDNN
            yardstick (the unfused trunk of F.conv2d + F.batch_norm +
            F.prelu, forward and autograd backward), and a torch.profiler
-           breakdown of one call each by CUDA kernel;
+           breakdown of one launch and one wrapper call each by CUDA
+           kernel; the kernels the profiler sees in one launch must number
+           the launches per call that the library reports;
   train    seeded full-width G (16 RCB, 64 ch) and D (64 ch), batch 16 of
            synthetic uint8 96x96 patches, through warmup() then train()
            (3 batches each, D_UPDATE_INTERVAL=2) in a temporary working
@@ -567,10 +567,15 @@ def phase_time(fns, rng, dev) -> dict:
 
 
 def profile_once(fn, top: int = 10) -> dict:
-    """Device time and launches by kernel over one fn() (torch.profiler,
-    after one warm-up call): the `top` largest as [name, ms, count], and the
-    device's idle share of the window from the first kernel's start to the
-    last one's end."""
+    """Device activity over one fn() (torch.profiler, after one warm-up
+    call). The device is busy over the union of the operations' spans:
+    under programmatic dependent launch a kernel starts before the one it
+    waits for ends, so spans overlap and their sum overstates the work.
+    By name, the `top` largest as [name, span ms, start-to-start ms, count]:
+    start-to-start runs from an operation's start to the next one's (to its
+    own end for the last), so those times share out the window without
+    overlap. `kernels` counts the kernels, `copies` the copies and memsets;
+    the idle share is of the window from the first start to the last end."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -580,22 +585,28 @@ def profile_once(fn, top: int = 10) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    by_name, count, starts, ends = {}, {}, [], []
-    for e in prof.events():
-        # user-annotation ranges on the device timeline (the optimizer's
-        # "Optimizer.step#...") span kernels counted on their own
-        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-            count[e.name] = count.get(e.name, 0) + 1
-            starts.append(e.time_range.start)
-            ends.append(e.time_range.end)
-    busy = sum(by_name.values())
-    window = (max(ends) - min(starts)) / 1e3 if ends else 0.0
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    # user-annotation ranges on the device timeline (the optimizer's
+    # "Optimizer.step#...") span kernels counted on their own
+    ops = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False))
+    span, s2s, count = {}, {}, {}
+    busy, run_end = 0.0, None
+    for i, (start, end, name) in enumerate(ops):
+        nxt = ops[i + 1][0] if i + 1 < len(ops) else end
+        span[name] = span.get(name, 0.0) + (end - start) / 1e3
+        s2s[name] = s2s.get(name, 0.0) + (nxt - start) / 1e3
+        count[name] = count.get(name, 0) + 1
+        lo = start if run_end is None else max(start, run_end)
+        busy += max(end - lo, 0) / 1e3
+        run_end = end if run_end is None else max(run_end, end)
+    window = (run_end - ops[0][0]) / 1e3 if ops else 0.0
+    copies = sum(n for name, n in count.items() if name.startswith(("Memcpy", "Memset")))
+    ranked = sorted(span, key=lambda name: -span[name])[:top]
     return {"device_busy_ms": busy, "device_window_ms": window,
             "idle_share": 1 - busy / window if window else None,
-            "kernels": len(starts),
-            "top_ms": [[name[:100], ms, count[name]] for name, ms in ranked]}
+            "kernels": len(ops) - copies, "copies": copies,
+            "top_ms": [[name[:100], span[name], s2s[name], count[name]] for name in ranked]}
 
 
 def phase_profile(fns, rng, dev) -> dict:
@@ -743,34 +754,39 @@ def _time_trunk(xb, p, dyb, res16, fwd_rec, bwd_rec) -> None:
 
     lib_fwd = cuda_ms(lambda: _cudnn_trunk(xl, lib))
     lib_total = cuda_ms(lib_fwd_bwd)
-    # `ms`: the launch on weights laid out once (as a step that kept them
-    # would); `wrapper_ms`: the wrapper, laying them out per call
+    # `ms`: the wrapper, which lays the weights out on every call, as a
+    # train step does (the optimizer changes them between steps);
+    # `launch_ms`: the launch on weights laid out in advance
     wf = pt._layout_fwd(p[0], p[1], xb.device, xb.dtype)
     wb = pt._layout_bwd(p[0], p[1], xb.device, xb.dtype)
     launch_fwd = lambda: pt._launch_fwd(xb, *p, EPS, weights=wf)  # noqa: E731
     launch_bwd = lambda: pt._launch_bwd(dyb, *res16, *bp, EPS, weights=wb)  # noqa: E731
-    for rec, nbytes, flops, ms, wrapper, plain, enqueue, backward in (
-        (fwd_rec, f_bytes, 2 * n * conv_flops, cuda_ms(launch_fwd),
-         cuda_ms(lambda: pt._launch_fwd(xb, *p, EPS)),
-         cuda_ms(lambda: pt._reference_forward(xb, *p, EPS), iters=5), host_ms(launch_fwd),
-         False),
-        (bwd_rec, b_bytes, 4 * n * conv_flops, cuda_ms(launch_bwd),
-         cuda_ms(lambda: pt._launch_bwd(dyb, *res16, *bp, EPS)),
-         cuda_ms(lambda: pt._reference_backward(dyb, *res16, *bp, EPS), iters=5),
-         host_ms(launch_bwd), True),
+    wrap_fwd = lambda: pt._launch_fwd(xb, *p, EPS)  # noqa: E731
+    wrap_bwd = lambda: pt._launch_bwd(dyb, *res16, *bp, EPS)  # noqa: E731
+    for rec, nbytes, flops, wrap, launch, plain, backward in (
+        (fwd_rec, f_bytes, 2 * n * conv_flops, wrap_fwd, launch_fwd,
+         lambda: pt._reference_forward(xb, *p, EPS), False),
+        (bwd_rec, b_bytes, 4 * n * conv_flops, wrap_bwd, launch_bwd,
+         lambda: pt._reference_backward(dyb, *res16, *bp, EPS), True),
     ):
         own = design_flops("packed_trunk", "packed_trunk_bf16_mma_flops", n, b, h, w, c,
                            int(backward))
-        rec.update(shape=[b, h, w, c], n=n, ms=ms, wrapper_ms=wrapper, plain_ms=plain,
-                   host_enqueue_ms=enqueue,
+        rec.update(shape=[b, h, w, c], n=n, ms=cuda_ms(wrap), launch_ms=cuda_ms(launch),
+                   plain_ms=cuda_ms(plain, iters=5), host_enqueue_ms=host_ms(wrap),
                    bytes=nbytes, flops=flops,
                    launches_per_call=pt.launches_per_call(n, xb.dtype, backward),
                    design_flops=own, floor_ms=own / BF16_FLOPS * 1e3)
         rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, flops)
-    # the wgmma kernels' spans overlap under programmatic dependent launch:
-    # their sum exceeds the window
-    fwd_rec["profile"] = profile_once(launch_fwd, 20)
-    bwd_rec["profile"] = profile_once(launch_bwd, 20)
+        # one call of each: the kernels alone (on laid-out weights), then
+        # the wrapper; the kernels the profiler sees must be those the
+        # library says it launches
+        rec["profile"] = profile_once(launch, 20)
+        rec["wrapper_profile"] = profile_once(wrap, 20)
+        if rec["profile"]["kernels"] != rec["launches_per_call"]:
+            raise AssertionError(
+                f"packed_trunk {'bwd' if backward else 'fwd'}: the profiler saw "
+                f"{rec['profile']['kernels']} kernels in one call, the library "
+                f"reports {rec['launches_per_call']}")
     fwd_rec["library_ms"] = lib_fwd
     bwd_rec["library_ms"] = lib_total - lib_fwd
     bwd_rec["library_fwd_bwd_ms"] = lib_total
@@ -1305,34 +1321,6 @@ def phase_time_run(dev, batch) -> dict:
 
 
 
-def trunk_time(rounds: int) -> int:
-    """`--trunk-time`: K4 and K5 of the package at `--root` (default: beside
-    this script) at the training shape (16, 24, 24, 64), n = 16, bf16: the
-    wrappers' times by CUDA events (median of 10) and a torch.profiler
-    breakdown of one call each, as one JSON line. Run it from two checkouts
-    in one chip call to compare them on one card."""
-    import torch
-
-    from srgan_st_tpu_torch.kernels import packed_trunk as pt
-
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    (shape, n) = TRUNK_SHAPES[0]
-    x, p, dy = _trunk_inputs(gen, dev, shape, n)
-    xb, dyb = x.bfloat16(), dy.bfloat16()
-    res = pt._launch_fwd(xb, *p, EPS)[1:]
-    bp = _bwd_params(p)
-    rec = {"package": os.path.dirname(os.path.abspath(pt.__file__)), "shape": list(shape),
-           "n": n, "nvidia_smi": nvidia_smi(), "fwd_ms": [], "bwd_ms": []}
-    for _ in range(rounds):
-        rec["fwd_ms"].append(cuda_ms(lambda: pt._launch_fwd(xb, *p, EPS)))
-        rec["bwd_ms"].append(cuda_ms(lambda: pt._launch_bwd(dyb, *res, *bp, EPS)))
-    rec["fwd_profile"] = profile_once(lambda: pt._launch_fwd(xb, *p, EPS), 20)
-    rec["bwd_profile"] = profile_once(lambda: pt._launch_bwd(dyb, *res, *bp, EPS), 20)
-    emit("trunk_time", **rec)
-    return 0
-
 
 def main() -> int:
     try:
@@ -1343,11 +1331,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU; the smoke run needs one", file=sys.stderr)
         return 1
-    if "--trunk-time" in sys.argv:
-        args = sys.argv[sys.argv.index("--trunk-time") + 1:]
-        root = args[args.index("--root") + 1] if "--root" in args else HERE
-        sys.path.insert(0, os.path.abspath(root))
-        return trunk_time(int(args[args.index("--rounds") + 1]) if "--rounds" in args else 1)
     try:
         import srgan_st_tpu_torch
     except ImportError as e:
@@ -1444,8 +1427,7 @@ def run(dev) -> int:
             "f32_max_rel_err": max(e for r in rec["errors"] for e in r["f32_rel"].values()),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-            "wrapper_ms": rec["wrapper_ms"], "floor_ms": rec["floor_ms"],
-            "launches_per_call": rec["launches_per_call"],
+            "launch_ms": rec["launch_ms"], "kernels_per_call": rec["profile"]["kernels"],
             "shape": rec["shape"], "n": rec["n"],
         })
     kernels.append({

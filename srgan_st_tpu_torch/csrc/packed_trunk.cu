@@ -56,9 +56,11 @@
 // path keeps the warp tile code (fmaf through csrc/tile_mma.cuh), 6 launches
 // forward and 12 backward a block, as the algorithm check.
 // Measured on one H100 80GB HBM3 at 700 W (chip_smoke.py) at the training
-// shape: 0.70 ms forward and 1.41 ms backward, against 1.93 and 5.10 ms for
-// the design before it (mma.sync tiles with synchronous loads, a
-// scalar-load wgrad, separate BN passes; 6 and 12 launches a block).
+// shape, through the wrapper that lays the weights out on every call as a
+// train step does: 0.70 ms forward and 1.44 ms backward (the launches alone
+// 0.65 and 1.29 ms), against 1.89 and 5.04 ms for the design before it on
+// the same card (mma.sync tiles with synchronous loads, a scalar-load
+// wgrad, separate BN passes; 6 and 12 launches a block).
 #include <algorithm>
 
 #include "trunk_wgmma.cuh"

@@ -20,8 +20,10 @@ kernel, not `fused_trunk.trunk_reference`, which rounds v before the rsqrt.
 The W-parity lane packing of the TPU kernels has no counterpart: the CUDA
 kernels take the fine NHWC layout. The bf16 kernels (wgmma tiles over the
 zero-padded flattened grid, csrc/trunk_wgmma.cuh) take their conv weights
-as ring images (`weight_image`); tests/test_torch_trunk_tiles.py emulates
-their tiles on the CPU.
+as ring images (`weight_image`), laid out on every call: a train step's
+optimizer changes them between calls, so a cache per parameter version
+would be rebuilt every step all the same. tests/test_torch_trunk_tiles.py
+emulates their tiles on the CPU.
 """
 
 from __future__ import annotations
@@ -208,35 +210,37 @@ def _f32(t: torch.Tensor, dev) -> torch.Tensor:
     return t.to(device=dev, dtype=torch.float32).contiguous()
 
 
-def weight_image(ws: torch.Tensor) -> torch.Tensor:
+def weight_image(ws: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
     """HWIO conv kernels (n, 3, 3, C, C) -> the bf16 kernels' weight blocks
     (n, C/64 N tiles, C/64 K chunks, 9 taps, 8 k groups, 64 outputs, 8): one
     73.7 KB block per (N tile, K chunk), the image of the ring's stage that
-    a bulk copy fills."""
+    a bulk copy fills. In `dtype` (ws's own by default), cast and laid out
+    by one copy."""
     n, c = ws.shape[0], ws.shape[-1]
     t = c // CK
     # [n, tap, kc, kg, j, nt, co] with ci = 64 kc + 8 kg + j, co = 64 nt + co
-    return (ws.reshape(n, 9, t, CK // 8, 8, t, CK).permute(0, 5, 2, 1, 3, 6, 4)
-            .contiguous())
+    src = ws.reshape(n, 9, t, CK // 8, 8, t, CK).permute(0, 5, 2, 1, 3, 6, 4)
+    return torch.empty(src.shape, dtype=dtype or ws.dtype, device=ws.device).copy_(src)
 
 
 def _layout_fwd(w1s, w2s, dev, cdt):
     """The forward's conv weights as the kernels take them: bf16, the ring
     images; f32, [block][tap][out][in]."""
-    ws = (w.to(device=dev, dtype=cdt) for w in (w1s, w2s))
     if cdt == torch.bfloat16:
-        return tuple(weight_image(w) for w in ws)
+        return tuple(weight_image(w.to(dev), cdt) for w in (w1s, w2s))
     n, c = w1s.shape[0], w1s.shape[-1]
-    return tuple(w.permute(0, 1, 2, 4, 3).reshape(n, 9, c, c).contiguous() for w in ws)
+    return tuple(w.to(device=dev, dtype=cdt).permute(0, 1, 2, 4, 3).reshape(n, 9, c, c)
+                 .contiguous() for w in (w1s, w2s))
 
 
 def _layout_bwd(w1s, w2s, dev, cdt):
     """The dgrad kernels (flipped, transposed) in the forward's layout."""
-    ws = (_dgrad_weights(w.to(dev), cdt) for w in (w1s, w2s))
+    # flipped in the weights' own dtype, cast by the layout's copy
+    ws = (_dgrad_weights(w.to(dev), w.dtype) for w in (w1s, w2s))
     if cdt == torch.bfloat16:
-        return tuple(weight_image(w) for w in ws)
+        return tuple(weight_image(w, cdt) for w in ws)
     n, c = w1s.shape[0], w1s.shape[-1]
-    return tuple(w.transpose(-2, -1).reshape(n, 9, c, c).contiguous() for w in ws)
+    return tuple(w.to(cdt).transpose(-2, -1).reshape(n, 9, c, c).contiguous() for w in ws)
 
 
 def launches_per_call(n: int, dtype, backward: bool) -> int:

@@ -194,6 +194,26 @@ def test_weight_image_blocks(c):
                                                   64 * kc + 8 * kg + j, 64 * nt + o]
 
 
+@pytest.mark.parametrize("c", [64, 128])
+def test_bf16_layouts_are_the_plain_weights(c):
+    """The wrapper's bf16 layouts, cast by the layout's one copy, from the
+    strided stack the Generator passes (OIHW parameters stacked, permuted
+    to HWIO), hold the bits of the plain version's bf16 weights: the
+    forward's as they are, the backward's flipped and transposed."""
+    rng = np.random.default_rng(2)
+    oihw = [torch.from_numpy(rng.standard_normal((2, c, c, 3, 3)).astype(np.float32))
+            for _ in range(2)]
+    w1s, w2s = (w.permute(0, 3, 4, 2, 1) for w in oihw)
+    assert not w1s.is_contiguous()
+    fwd = pt._layout_fwd(w1s, w2s, torch.device("cpu"), torch.bfloat16)
+    bwd = pt._layout_bwd(w1s, w2s, torch.device("cpu"), torch.bfloat16)
+    for w, f, b in zip((w1s, w2s), fwd, bwd):
+        assert f.dtype == b.dtype == torch.bfloat16
+        assert torch.equal(f, pt.weight_image(w.contiguous().bfloat16()))
+        assert torch.equal(b, pt.weight_image(
+            pt._dgrad_weights(w, torch.bfloat16).contiguous()))
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 def test_conv_tile_matches_plain(shape):
     """The padded-grid window, the taps as row offsets, the ring image and
