@@ -51,7 +51,11 @@ Then the training slice, bf16 with TRUNK_MODE="packed" unless named:
            F.prelu, forward and autograd backward), and a torch.profiler
            breakdown of one launch and one wrapper call each by CUDA
            kernel; the kernels the profiler sees in one launch must number
-           the launches per call that the library reports;
+           the launches per call that the library reports; then "hybrid"
+           (the plain forward, then K5 on its residuals, through
+           `hybrid_trunk`) against the plain backward on the same
+           residuals at the same shapes, with K5's gates and a second
+           run's bits;
   train    seeded full-width G (16 RCB, 64 ch) and D (64 ch), batch 16 of
            synthetic uint8 96x96 patches, through warmup() then train()
            (3 batches each, D_UPDATE_INTERVAL=2) in a temporary working
@@ -82,13 +86,23 @@ PatchwiseST + ContentDiscriminator), bf16:
            the plain version's, or its f64 score within 1e-6 relative of the
            f64 minimum; (b) on the duplicate-heavy bank, no index into the
            copied half and the f64 argmin on every row that is not a near
-           tie; (c) the gathered rows are bank rows bit for bit. Then its
-           time, the plain version's and the library composition's (two
-           torch.baddbmm + torch.argmin, which is also the plain version);
-  kernel   the whole-trunk forward K6 against its plain version at the
-           training shape and the edge shape, f32 and bf16 (the K4 gates),
-           y, the residuals and the stats, and a second run's bits; its time
-           beside K4's and the cuDNN trunk's on the same inputs;
+           tie; (c) the gathered rows are bank rows bit for bit. Each case
+           names the variant that ran (bf16 l2: "mma", the tensor-core
+           kernel; f32 and l1: "simt"). Then its time, the SIMT kernel's on
+           the same bf16 inputs (its C entry: the design before), the plain
+           version's and the library composition's (two torch.baddbmm +
+           torch.argmin, which is also the plain version), by CUDA events
+           around one call, and their device times (`device_ms`: calls
+           queued behind device work; one K7 call is shorter on the device
+           than on the host);
+  kernel   the whole-trunk forward K6 against its plain version at
+           TRUNK_SHAPES, f32 and bf16 (the K4 gates), y, the residuals and
+           the stats, a second run's bits, and in bf16 the bits of K4's
+           outputs on the same inputs; its grid and grid barriers a call;
+           its wrapper and launch times in turns with K4's, beside the cuDNN
+           trunk's, the device times of both launches, a profile of one
+           launch, and where its convs spend their time (its probe: tiles,
+           barrier, moment sums, per conv);
   run      main.py's job 1 (`python -m srgan_st_tpu_torch run --job_index
            1`) at full width in a temporary directory, 3 batches, with
            TRUNK_MODE "fused" and then "unfused", then jobs 3 and 4 with
@@ -246,11 +260,13 @@ def nvidia_smi() -> str:
 # dynamic shared memory the library reports (`<C entry>(*args)`, K4/K5's at
 # the training shape's width and channels)
 KERNEL_FUNCS = ("coarse_conv_wgmma", "coarse_conv_kernel", "serving_tail_wgmma",
-                "serving_tail_kernel", "trunk_conv_wgmma", "trunk_wgrad_wgmma")
+                "serving_tail_kernel", "trunk_conv_wgmma", "trunk_wgrad_wgmma",
+                "fused_trunk_wgmma", "buddy_mma_kernel")
 WGMMA_SMEM = {"coarse_conv_wgmma": ("coarse_conv", "coarse_conv_s2d_bf16_smem", ()),
               "serving_tail_wgmma": ("serving_tail", "serving_tail_bf16_smem", ()),
               "trunk_conv_wgmma": ("packed_trunk", "packed_trunk_conv_smem", (24, 64)),
-              "trunk_wgrad_wgmma": ("packed_trunk", "packed_trunk_wgrad_smem", (24, 64))}
+              "trunk_wgrad_wgmma": ("packed_trunk", "packed_trunk_wgrad_smem", (24, 64)),
+              "fused_trunk_wgmma": ("fused_trunk", "fused_trunk_bf16_smem", (24, 64))}
 
 
 def _ptxas_functions(log: str) -> dict:
@@ -609,6 +625,31 @@ def profile_once(fn, top: int = 10) -> dict:
             "top_ms": [[name[:100], span[name], s2s[name], count[name]] for name in ranked]}
 
 
+def device_ms(fn, calls: int = 20, reps: int = 3) -> float:
+    """The device's milliseconds per fn(): median over `reps` of CUDA
+    events around `calls` calls queued behind ~10 ms of device sleep, so
+    that the host has enqueued every call before the device reaches the
+    first and the device runs them back to back. A call that is shorter on
+    the device than on the host (one small kernel behind a Python wrapper)
+    is timed by its device work, where `cuda_ms` times the host."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times))
+
+
 def phase_profile(fns, rng, dev) -> dict:
     """Device time by kernel over one 4K frame in each tail mode."""
     import torch
@@ -649,13 +690,27 @@ def _bwd_params(p):
 GRAD_NAMES = ("dx", "dw1", "dw2", "dg1", "db1", "dg2", "db2", "dal")
 
 
+def _hybrid_grads(x, p, dy):
+    """The 8 gradients of TRUNK_MODE "hybrid" (the plain forward, then K5 on
+    its residuals) through `hybrid_trunk`, the entry the Generator calls."""
+    from srgan_st_tpu_torch.kernels import packed_trunk as pt
+
+    xg = x.detach().clone().requires_grad_()
+    pg = [t.detach().clone().requires_grad_() for t in p]
+    y, _ = pt.hybrid_trunk(xg, *pg, EPS)
+    y.backward(dy)
+    return [xg.grad] + [t.grad for t in pg]
+
+
 def phase_kernel_trunk(gen, dev) -> tuple[dict, dict]:
     """K4 and K5 against their plain versions at TRUNK_SHAPES. f32 (TF32
     off): y and stats within 1e-4 max|ref|, every gradient within 1e-3
     max|ref| (K5 fed the residuals K4 saved, so that both versions take the
     same PReLU branches; the sums run in another order over up to 9,216
     pixels). bf16: within 2x the plain version's bf16-vs-f32 envelope on
-    the same inputs. Each kernel run twice must give the same bits."""
+    the same inputs. Each kernel run twice must give the same bits. Then
+    "hybrid" (the plain forward, then K5 on its residuals) against the
+    plain backward on the same residuals, with K5's gates and bits."""
     import torch
 
     from srgan_st_tpu_torch.kernels import packed_trunk as pt
@@ -702,6 +757,27 @@ def phase_kernel_trunk(gen, dev) -> tuple[dict, dict]:
                + [k for k, ok in deterministic.items() if not ok])
         if bad:
             raise AssertionError(f"packed_trunk at {shape}, n={n}: {bad} out of bounds")
+        # hybrid: K5 on the plain forward's residuals (ref, plain16)
+        hy = _hybrid_grads(x, p, dy)
+        hy16 = _hybrid_grads(xb, p, dyb)
+        hrb = pt._reference_backward(dy, *ref[1:], *bp, EPS)
+        hres32 = [t.float() for t in plain16[1:4]] + [plain16[4]]
+        hpb16 = pt._reference_backward(dyb, *plain16[1:], *bp, EPS)
+        hrb32 = pt._reference_backward(dyb.float(), *hres32, *_bwd_params(p16), EPS)
+        hsame = {"f32": all(torch.equal(a, b) for a, b in zip(hy, _hybrid_grads(x, p, dy))),
+                 "bf16": all(torch.equal(a, b) for a, b in zip(hy16, _hybrid_grads(xb, p, dyb)))}
+        torch.cuda.synchronize()
+        h32 = {k: _rel(a, b) for k, a, b in zip(GRAD_NAMES, hy, hrb)}
+        h16 = {k: (max_abs(a, r), max_abs(b, r))
+               for k, a, b, r in zip(GRAD_NAMES, hy16, hpb16, hrb32)}
+        emit("kernel", kernel="hybrid_trunk", shape=list(shape), n=n, f32_rel_err_bwd=h32,
+             bf16_err_and_envelope_bwd=h16, bitwise_repeatable=hsame)
+        bad = ([k for k, e in h32.items() if not e <= 1e-3]
+               + [k for k, (e, env) in h16.items() if not (env > 0 and e <= 2 * env)]
+               + [k for k, ok in hsame.items() if not ok])
+        if bad:
+            raise AssertionError(f"hybrid_trunk at {shape}, n={n}: {bad} out of bounds")
+        del hy, hy16, hrb, hpb16, hrb32
         fwd_rec["errors"].append({"shape": list(shape), "f32_rel": f32_fwd, "bf16": bf16_fwd})
         bwd_rec["errors"].append({"shape": list(shape), "f32_rel": f32_bwd, "bf16": bf16_bwd})
         if shape == TRUNK_SHAPES[0][0]:
@@ -1026,6 +1102,7 @@ def _buddy_case(name, p1, p2, bank, dist_norm="l2", dup_half=None, exact=False) 
     sel = bs.gather_rows(bank, idx)
     rec = {"case": name, "dtype": str(p1.dtype).split(".")[-1], "p": list(p1.shape),
            "bank": list(bank.shape), "dist_norm": dist_norm,
+           "variant": bs.last_variant,
            "index_agreement": float((idx == ref).float().mean()),
            "max_abs_err": float((pick(idx) - pick(ref)).abs().max()),
            "gate_a": bool(_checks.near_tie_agrees(idx, ref, scores).all()),
@@ -1077,6 +1154,21 @@ def phase_kernel_buddy(dev, batch) -> dict:
     cases.append(_buddy_case("l1", p1[:2, :100].contiguous(), p2[:2, :100].contiguous(),
                              bank[:2, :150].contiguous(), dist_norm="l1"))
 
+    # the SIMT kernel on the same bf16 l2 inputs (the tensor-core kernel's
+    # predecessor, which the port sends only f32 and l1): its C entry
+    import ctypes
+
+    from srgan_st_tpu_torch.kernels import _build
+
+    simt_fn = _build.load("buddy_select", bs._SIGNATURES).buddy_select_bf16
+    simt_idx = torch.empty(p1.shape[:2], device=dev, dtype=torch.int32)
+
+    def simt():
+        err = simt_fn(p1.data_ptr(), p2.data_ptr(), bank.data_ptr(), simt_idx.data_ptr(),
+                      *p1.shape[:2], bank.shape[1], p1.shape[2], ctypes.c_float(1.0),
+                      ctypes.c_float(1.0), 0, torch.cuda.current_stream().cuda_stream)
+        _build.check(err, "buddy_select simt")
+
     def library():  # two baddbmm + argmin: also the plain version
         q1, q2, bf = p1.float(), p2.float(), bank.float()
         bt, bn = bf.transpose(1, 2), (bf * bf).sum(2)[:, None, :]
@@ -1089,6 +1181,11 @@ def phase_kernel_buddy(dev, batch) -> dict:
     rec = {"kernel": "buddy_select", "shape": [list(p1.shape), list(bank.shape)],
            "dtype": "bfloat16",
            "ms": cuda_ms(lambda: bs._launch(p1, p2, bank, 1.0, 1.0, "l2")),
+           "variant": bs.last_variant, "simt_ms": cuda_ms(simt),
+           # device time: one call of the wrapper is shorter on the device
+           # than on the host, which `ms` (events around one call) measures
+           "device_ms": device_ms(lambda: bs._launch(p1, p2, bank, 1.0, 1.0, "l2")),
+           "simt_device_ms": device_ms(simt), "library_device_ms": device_ms(library),
            "plain_ms": cuda_ms(lambda: bs.buddy_select_reference(p1, p2, bank)),
            "library_ms": cuda_ms(library), "bytes": nbytes, "flops": flops,
            "max_abs_err": max(c["max_abs_err"] for c in cases),
@@ -1117,11 +1214,50 @@ def _cudnn_inputs(xb, p):
     return lib
 
 
+def _probed_syncs(x, p, weights=None):
+    """One K6 launch with its probe: (the grid barriers each block passed,
+    the probe)."""
+    import torch
+
+    from srgan_st_tpu_torch.kernels import fused_trunk as ft
+
+    probe = torch.zeros(ft.probe_words(x.shape, p[0].shape[0]), dtype=torch.int64,
+                        device=x.device)
+    ft._launch_fwd(x, *p, EPS, weights=weights, probe=probe)
+    torch.cuda.synchronize()
+    return ft.probe_syncs(probe), probe
+
+
+def _fused_phases(xb, p, wf) -> dict:
+    """Where one bf16 K6 launch spends a conv, from its probe (each block's
+    %globaltimer stamps): per conv after the first, the mean over blocks of
+    the tiles (first tile's start to last epilogue's end), the barrier (to
+    its release, the wait for the slowest block included) and the moments
+    (sums, and the next BatchNorm's gamma and beta into shared memory), the
+    slowest block's tiles, and the period between the convs' ends; the call
+    from the first stamp to the last; the barriers the launch counted."""
+    from srgan_st_tpu_torch.kernels import fused_trunk as ft
+
+    n = p[0].shape[0]
+    syncs, probe = _probed_syncs(xb, p, wf)
+    st = probe[1:1 + ft.last_grid * 2 * n * 4].view(ft.last_grid, 2 * n, 4).double() / 1e3
+    tile, barrier, moments = (st[:, 1:, i + 1] - st[:, 1:, i] for i in range(3))
+    ends = st[:, :, 3].max(0).values
+    return {"tiles": float(tile.mean()), "tiles_slowest_block": float(tile.max(0).values.mean()),
+            "barrier": float(barrier.mean()), "moments": float(moments.mean()),
+            "conv_period": float((ends[-1] - ends[0]) / (2 * n - 1)),
+            "call": float(st[:, :, 3].max() - st[:, :, 0].min()), "grid_syncs": syncs}
+
+
 def phase_kernel_fused(gen, dev) -> dict:
     """K6 against its plain version at TRUNK_SHAPES, the K4 forward gates:
     f32 (TF32 off) y, residuals and stats within 1e-4 max|ref|, bf16 within
-    2x the plain version's envelope, the same bits on a second run. Times
-    at the training shape beside K4's and the cuDNN trunk's."""
+    2x the plain version's envelope, the same bits on a second run; and in
+    bf16, the five outputs equal to K4's on the same inputs bit for bit
+    (K6 runs K4's tile and sums K4's partials in K4's order). Times at the
+    training shape: K6's wrapper and its launch on laid-out weights beside
+    K4's wrapper and launch, the cuDNN trunk's, a profile of one K6 launch
+    and where its convs spend their time (its probe)."""
     import torch
 
     from srgan_st_tpu_torch.kernels import fused_trunk as ft
@@ -1141,19 +1277,29 @@ def phase_kernel_fused(gen, dev) -> dict:
         ref32 = ft.fused_trunk_reference(xb.float(), *p16, EPS)
         bf16 = {k: (max_abs(a, r), max_abs(b, r))
                 for k, a, b, r in zip(FWD_NAMES, got16, plain16, ref32)}
+        grid16 = ft.last_grid
         same = {"f32": all(torch.equal(a, b) for a, b in zip(got, ft._launch_fwd(x, *p, EPS))),
                 "bf16": all(torch.equal(a, b)
                             for a, b in zip(got16, ft._launch_fwd(xb, *p, EPS)))}
-        torch.cuda.synchronize()
-        r = {"shape": list(shape), "n": n, "grid_blocks": grid, "f32_rel_err": f32,
-             "bf16_err_and_envelope": bf16, "bitwise_repeatable": same}
+        k4_bits = {k: torch.equal(a, b)
+                   for k, a, b in zip(FWD_NAMES, got16, pt._launch_fwd(xb, *p, EPS))}
+        # the barriers each block passed, counted by a probed launch
+        syncs = {"f32": _probed_syncs(x, p)[0], "bf16": _probed_syncs(xb, p)[0]}
+        r = {"shape": list(shape), "n": n, "grid_blocks": {"f32": grid, "bf16": grid16},
+             "grid_syncs_per_call": syncs,
+             "f32_rel_err": f32, "bf16_err_and_envelope": bf16, "bitwise_repeatable": same,
+             "bf16_equals_k4": k4_bits}
         emit("kernel", kernel="fused_trunk", **r)
         bad = ([k for k, e in f32.items() if not e <= 1e-4]
                + [k for k, (e, env) in bf16.items() if not (env > 0 and e <= 2 * env)]
-               + [k for k, ok in same.items() if not ok])
+               + [k for k, ok in same.items() if not ok]
+               + [f"{k} != K4" for k, ok in k4_bits.items() if not ok])
+        if not 0 < syncs["bf16"] <= 2 * n:
+            bad.append(f"bf16 grid syncs {syncs['bf16']}, not in 1..2n")
         if bad:
             raise AssertionError(f"fused_trunk at {shape}, n={n}: {bad} out of bounds")
-        rec["errors"].append({"shape": list(shape), "f32_rel": f32, "bf16": bf16})
+        rec["errors"].append({"shape": list(shape), "f32_rel": f32, "bf16": bf16,
+                              "bf16_equals_k4": k4_bits})
         if shape == TRUNK_SHAPES[0][0]:
             timed = (xb, p)
         del got, ref, got16, plain16, ref32
@@ -1161,11 +1307,29 @@ def phase_kernel_fused(gen, dev) -> dict:
     n, (b, h, w, c) = p[0].shape[0], xb.shape
     lib = _cudnn_inputs(xb, p)
     nbytes, flops = _trunk_fwd_bytes(n, b, h, w, c), 2 * n * 2 * b * h * w * 9 * c * c
-    rec.update(shape=[b, h, w, c], n=n, ms=cuda_ms(lambda: ft._launch_fwd(xb, *p, EPS)),
-               packed_fwd_ms=cuda_ms(lambda: pt._launch_fwd(xb, *p, EPS)),
+    # `ms`: the wrapper, which lays the weights out on every call as a train
+    # step does; `launch_ms`: the launch on weights laid out in advance;
+    # K4's two the same way, in turns with K6's
+    wf = pt._layout_fwd(p[0], p[1], xb.device, xb.dtype)
+    k6_wrap = lambda: ft._launch_fwd(xb, *p, EPS)  # noqa: E731
+    k6_launch = lambda: ft._launch_fwd(xb, *p, EPS, weights=wf)  # noqa: E731
+    k4_wrap = lambda: pt._launch_fwd(xb, *p, EPS)  # noqa: E731
+    k4_launch = lambda: pt._launch_fwd(xb, *p, EPS, weights=wf)  # noqa: E731
+    turns = {"k6_launch": [], "k4_launch": [], "k6_wrapper": [], "k4_wrapper": []}
+    for _ in range(2):
+        for key, fn in (("k4_launch", k4_launch), ("k6_launch", k6_launch),
+                        ("k6_wrapper", k6_wrap), ("k4_wrapper", k4_wrap)):
+            turns[key].append(cuda_ms(fn))
+    rec.update(shape=[b, h, w, c], n=n, ms=float(np.median(turns["k6_wrapper"])),
+               launch_ms=float(np.median(turns["k6_launch"])),
+               packed_fwd_ms=float(np.median(turns["k4_wrapper"])),
+               packed_fwd_launch_ms=float(np.median(turns["k4_launch"])), turns_ms=turns,
                plain_ms=cuda_ms(lambda: ft.fused_trunk_reference(xb, *p, EPS), iters=5),
                library_ms=cuda_ms(lambda: _cudnn_trunk(xb, lib)), bytes=nbytes, flops=flops,
-               launches_per_call=1, grid_syncs_per_call=6 * n - 1)
+               grid_blocks=ft.last_grid,
+               profile=profile_once(k6_launch, 5), phases_us=_fused_phases(xb, p, wf),
+               device_ms=device_ms(k6_launch), packed_fwd_device_ms=device_ms(k4_launch))
+    rec["grid_syncs_per_call"] = rec["phases_us"].pop("grid_syncs")
     rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, flops)
     emit("kernel_time", kernel="fused_trunk", **{k: v for k, v in rec.items() if k != "errors"})
     return rec
@@ -1439,14 +1603,23 @@ def run(dev) -> int:
         "f32_max_rel_err": max(e for r in rec_k6["errors"] for e in r["f32_rel"].values()),
         "ms": rec_k6["ms"], "plain_ms": rec_k6["plain_ms"], "bound_ms": rec_k6["bound_ms"],
         "bound_by": rec_k6["bound_by"], "library_ms": rec_k6["library_ms"],
-        "packed_fwd_ms": rec_k6["packed_fwd_ms"], "shape": rec_k6["shape"], "n": rec_k6["n"],
+        "launch_ms": rec_k6["launch_ms"], "device_ms": rec_k6["device_ms"],
+        "packed_fwd_ms": rec_k6["packed_fwd_ms"],
+        "packed_fwd_device_ms": rec_k6["packed_fwd_device_ms"],
+        "packed_fwd_launch_ms": rec_k6["packed_fwd_launch_ms"],
+        "grid_syncs_per_call": rec_k6["grid_syncs_per_call"], "grid_blocks": rec_k6["grid_blocks"],
+        "bf16_equals_k4": all(all(r["bf16_equals_k4"].values()) for r in rec_k6["errors"]),
+        "shape": rec_k6["shape"], "n": rec_k6["n"],
     })
     kernels.append({
         "name": "buddy_select", "tpu_kernel": "K7", "route": "cuda",
         "source": "srgan_st_tpu_torch/csrc/buddy_select.cu",
         "replaces": "srgan_st_tpu/kernels/buddy_select.py:78 (_buddy_kernel)",
         "launches": run_counts["1/fused"]["launches"]["buddy_select"],
-        "max_abs_err": rec_k7["max_abs_err"], "ms": rec_k7["ms"],
+        "max_abs_err": rec_k7["max_abs_err"], "ms": rec_k7["ms"], "variant": rec_k7["variant"],
+        "simt_ms": rec_k7["simt_ms"], "device_ms": rec_k7["device_ms"],
+        "simt_device_ms": rec_k7["simt_device_ms"],
+        "library_device_ms": rec_k7["library_device_ms"],
         "plain_ms": rec_k7["plain_ms"], "bound_ms": rec_k7["bound_ms"],
         "bound_by": rec_k7["bound_by"], "library_ms": rec_k7["library_ms"],
         "shape": rec_k7["shape"],

@@ -28,14 +28,18 @@
 // GFLOP and the backward 66 MB for 43.5 GFLOP: 0.022 / 0.044 ms at the bf16
 // peak, bound by operations. Batch-stat BN needs every pixel of a conv
 // before its normalize, so the trunk is a fixed sequence of launches, the
-// 1.2 MB activation staying in the 50 MB L2 between them; at this size the
-// launches, their tails and the reductions are what cost.
+// 1.2 MB activation staying in the 50 MB L2 between them; at this size a
+// conv's tile (above all its window loader) and the batch-stat reduction
+// are what cost, not the launches: K6 runs the same tiles in one launch in
+// the same time (PERF.md, Findings).
 //
-// bf16 design (csrc/trunk_wgmma.cuh): the conv tile is wgmma m64n64k16 over
-// the zero-padded flattened grid, 64 positions x 64 channels a warpgroup,
-// the taps as row offsets into one window, the weights one bulk copy of
-// 73.7 KB per 64-channel chunk (2 CTAs an SM at C = 64; the 169 tiles of the
-// training shape run in one wave). The BatchNorm passes ride on the convs:
+// bf16 design (csrc/trunk_wgmma.cuh; the conv tile in
+// csrc/trunk_conv_tile.cuh, which K6 shares): the conv tile is wgmma
+// m64n64k16 over the zero-padded flattened grid, 64 positions x 64
+// channels a warpgroup, the taps as row offsets into one window, the
+// weights one bulk copy of 73.7 KB per 64-channel chunk (2 CTAs an SM at
+// C = 64; the 169 tiles of the training shape run in one wave). The
+// BatchNorm passes ride on the convs:
 //   forward, 2 launches a block + 1: conv1 (forms the block input x + BN2(a2)
 //   of the block before on load and writes its own positions of it; its
 //   epilogue reduces m1, v1 by the last-ticket tile), conv2 (BN1 + PReLU
@@ -63,7 +67,7 @@
 // wgrad, separate BN passes; 6 and 12 launches a block).
 #include <algorithm>
 
-#include "trunk_wgmma.cuh"
+#include "trunk_conv_tile.cuh"
 
 using namespace srgan;
 
@@ -346,368 +350,47 @@ __global__ void wgrad_reduce_kernel(const float* __restrict__ part, int nblocks,
 }
 
 // ------------------------------------------------------------------ bf16
-// The conv tile on wgmma (csrc/trunk_wgmma.cuh): one warpgroup, 64 padded
-// positions x 64 output channels, K = 9 taps x C in chunks of 64 channels
-// through a 2-stage ring (window by cp.async or a transforming load, the
-// chunk's 73.7 KB of weights by one bulk copy). What the loader forms and
-// what the epilogue does with the accumulators is the kernel's mode.
-using bf16 = __nv_bfloat16;
-enum { LD_COPY = 0, LD_BN_PRELU = 1, LD_DA_T = 2, LD_DA_F = 3, LD_BN_RESID = 4 };
-enum { EP_STATS = 0, EP_PRELU_BWD = 1, EP_GRAD = 2 };
+// The conv tile on wgmma (csrc/trunk_conv_tile.cuh), one tile a CTA: M tile
+// blockIdx.x, N tile blockIdx.y.
+using tw::bf16;
+using tw::ConvParams;
+using tw::conv_smem;
+using tw::LD_COPY;
+using tw::LD_BN_PRELU;
+using tw::LD_DA_T;
+using tw::LD_DA_F;
+using tw::LD_BN_RESID;
+using tw::EP_STATS;
+using tw::EP_PRELU_BWD;
+using tw::EP_GRAD;
 
-struct ConvParams {
-  tw::Geom g;
-  const bf16* wimg;       // (C/64 N tiles, C/64 K chunks) weight blocks in the ring's image
-  // loader: LD_COPY, LD_BN_PRELU read src; LD_DA_* read src (the BN input
-  // a) and dsrc (the BN output's cotangent, bf16 or f32); LD_BN_RESID reads
-  // src (a2 of the block before) and dsrc (that block's input, bf16)
-  const bf16* src;
-  const void* dsrc;
-  const float *lmv, *lgam, *lbet, *lal, *ldg, *ldb;
-  bf16* dout;             // LD_DA_*, LD_BN_RESID: the tile's own positions of
-                          // what the loader formed (da for wgrad; the block input)
-  // epilogue: EP_STATS out = a (bf16); EP_PRELU_BWD out = dpre (f32), hout
-  // = h; EP_GRAD out = g (bf16) = resid + acc (resid may alias out)
-  void* out;
-  const bf16* resid;
-  const bf16* ea;         // EP_PRELU_BWD: a1; EP_GRAD: a2 of the block before (or null)
-  const float *emv, *egam, *ebet, *eal;
-  bf16* hout;
-  float* part;            // per-tile partials [tile][k][C]
-  unsigned* ticket;
-  float *r0, *r1, *r2;    // the reduced statistics
-  float eps, nelem;
-};
-
-// the weight and window stages, then the epilogue's constants (6 x 64
-// floats) and partial sums (3 x 4 x 64), then the stages' mbarriers
-__host__ __device__ inline size_t conv_smem(const tw::Geom& g) {
-  const int stages = g.C > tw::CK ? 2 : 1;
-  return (size_t)stages * (tw::W_BYTES + g.rows * tw::KG * 16) + (6 + 12) * 64 * 4 + 16;
-}
-
-// 8 consecutive bf16 of a 16-byte word as floats, and back
-__device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
-  const bf16* h = reinterpret_cast<const bf16*>(&u);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) f[j] = __bfloat162float(h[j]);
-}
-__device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
-  uint4 u;
-  bf16* h = reinterpret_cast<bf16*>(&u);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) h[j] = __float2bfloat16_rn(f[j]);
-  return u;
-}
-
-// The window of K chunk channels [ci0, ci0 + 64) of the tile at q0 into
-// `win` ([k group][row][16 B]). Thread tid always owns k group tid % 8.
-template <int LOAD>
-__device__ __forceinline__ void load_window(const ConvParams& p, unsigned char* win,
-                                            long long q0, int ci0) {
-  const tw::Geom& g = p.g;
-  const int C = g.C, kg = threadIdx.x & 7, c0 = ci0 + kg * 8;
-  // the BN constants of this thread's 8 channels, as the f32 kernels form them
-  float k0[8], k1[8], k2[8], k3[8], k4[8], alT = 0.f;
-  if constexpr (LOAD == LD_BN_PRELU || LOAD == LD_BN_RESID) {
-    if constexpr (LOAD == LD_BN_PRELU) alT = rnd<bf16>(*p.lal);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      k0[j] = rnd<bf16>(p.lmv[c0 + j]);
-      k1[j] = rnd<bf16>(inv_std(p.lmv[C + c0 + j], p.eps));
-      k2[j] = rnd<bf16>(p.lgam[c0 + j]);
-      k3[j] = rnd<bf16>(p.lbet[c0 + j]);
-    }
-  } else if constexpr (LOAD != LD_COPY) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float inv = inv_std(p.lmv[C + c0 + j], p.eps);
-      k0[j] = p.lmv[c0 + j];
-      k1[j] = inv;
-      k2[j] = __fmul_rn(p.lgam[c0 + j], inv);
-      k3[j] = __fdiv_rn(p.ldb[c0 + j], p.nelem);
-      k4[j] = __fdiv_rn(p.ldg[c0 + j], p.nelem);
-    }
-  }
-  constexpr int RS = tw::CONV_THREADS / 8;  // rows between a thread's rows
-  if constexpr (LOAD == LD_COPY) {
-    for (int r = threadIdx.x >> 3; r < g.rows; r += RS) {
-      const long long pix = tw::pixel_of(g, tw::win_pos(g, q0, r));
-      hop::cp_async16(win + ((size_t)kg * g.rows + r) * 16,
-                      p.src + (size_t)(pix < 0 ? 0 : pix) * C + c0, pix >= 0);
-    }
-    return;
-  }
-  // The transforming loads: U rows at a time, their global loads all
-  // started before the first is used
-  constexpr int U = 4;
-  for (int r0 = threadIdx.x >> 3; r0 < g.rows; r0 += U * RS) {
-    long long q[U], pix[U];
-    uint4 ra[U], rd[U][2];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int r = r0 + u * RS;
-      q[u] = tw::win_pos(g, q0, r);
-      pix[u] = r < g.rows ? tw::pixel_of(g, q[u]) : -1;
-      if (pix[u] < 0) continue;
-      const size_t o = (size_t)pix[u] * C + c0;
-      ra[u] = *reinterpret_cast<const uint4*>(p.src + o);
-      if constexpr (LOAD == LD_DA_F) {
-        const uint4* df = reinterpret_cast<const uint4*>(static_cast<const float*>(p.dsrc) + o);
-        rd[u][0] = df[0];
-        rd[u][1] = df[1];
-      } else if constexpr (LOAD != LD_BN_PRELU) {
-        rd[u][0] = *reinterpret_cast<const uint4*>(static_cast<const bf16*>(p.dsrc) + o);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int r = r0 + u * RS;
-      if (r >= g.rows) break;
-      uint4 w = make_uint4(0u, 0u, 0u, 0u);  // padding stays zero: BN(0) is not 0
-      if (pix[u] >= 0) {
-        float a[8], v[8];
-        unpack8(ra[u], a);
-        if constexpr (LOAD == LD_BN_PRELU) {
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            float y = bn_affine<bf16>(a[j], k0[j], k1[j], k2[j], k3[j]);
-            if (!(y >= 0.f)) y = rnd<bf16>(__fmul_rn(alT, y));
-            v[j] = y;
-          }
-        } else if constexpr (LOAD == LD_BN_RESID) {
-          // x <- x + BN2(a2) of the block before, as bn_out<T, false, true>
-          float x[8];
-          unpack8(rd[u][0], x);
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            v[j] = __fadd_rn(x[j], bn_affine<bf16>(a[j], k0[j], k1[j], k2[j], k3[j]));
-        } else {
-          float d[8];
-          if constexpr (LOAD == LD_DA_T) {
-            unpack8(rd[u][0], d);
-          } else {
-            const float* lo = reinterpret_cast<const float*>(&rd[u][0]);
-            const float* hi = reinterpret_cast<const float*>(&rd[u][1]);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              d[j] = lo[j];
-              d[4 + j] = hi[j];
-            }
-          }
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const float xh = __fmul_rn(__fsub_rn(a[j], k0[j]), k1[j]);
-            const float t = __fsub_rn(__fsub_rn(d[j], k3[j]), __fmul_rn(xh, k4[j]));
-            v[j] = __fmul_rn(k2[j], t);
-          }
-        }
-        w = pack8(v);
-        if constexpr (LOAD != LD_BN_PRELU) {
-          if (blockIdx.y == 0 && q[u] >= q0 && q[u] < q0 + tw::MT)
-            *reinterpret_cast<uint4*>(p.dout + (size_t)pix[u] * C + c0) = w;
-        }
-      }
-      *reinterpret_cast<uint4*>(win + ((size_t)kg * g.rows + r) * 16) = w;
-    }
-  }
-}
-
-// The accumulator fragment of wgmma m64n64 (f32): acc[4 t + 2 hh + e] is
-// row 16 warp + g + 8 hh, column 8 t + 2 q + e (g = lane / 4, q = lane % 4).
 template <int LOAD, int EPI>
 __global__ void __launch_bounds__(tw::CONV_THREADS)
     trunk_conv_wgmma(const __grid_constant__ ConvParams p) {
   using namespace tw;
   extern __shared__ __align__(128) unsigned char smem[];
-  const Geom& g = p.g;
-  const int C = g.C, nk = C / CK, stages = nk > 1 ? 2 : 1;
-  const int win_bytes = g.rows * KG * 16;
-  unsigned char* wring = smem;                                         // [stages][W_BYTES]
-  unsigned char* wins = smem + stages * W_BYTES;                       // [stages][KG][rows][16]
-  float* econ = reinterpret_cast<float*>(wins + stages * win_bytes);  // [6][64]
-  float* red = econ + 6 * 64;                                          // [3][4 warps][64]
-  uint64_t* bar = reinterpret_cast<uint64_t*>(red + 12 * 64);
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gq = lane >> 2, q4 = lane & 3;
-  const long long q0 = (long long)blockIdx.x * MT;
-  const int nt = blockIdx.y, n0 = nt * CK;
+  const TileSmem s = tile_smem(smem, p.g);
+  const int C = p.g.C, tid = threadIdx.x, mt = blockIdx.x, nt = blockIdx.y;
   // the weights do not depend on the kernel before: their copies start
   // before waiting for it
-  auto load_w = [&](int kc) {
-    hop::bulk_load(wring + (kc & 1) * W_BYTES, p.wimg + ((size_t)nt * nk + kc) * (W_BYTES / 2),
-                   W_BYTES, &bar[kc & 1]);
-  };
   if (tid == 0) {
-    for (int s = 0; s < stages; ++s) hop::mbar_init(&bar[s], 1);
+    for (int st = 0; st < s.stages; ++st) hop::mbar_init(&s.bar[st], 1);
     hop::mbar_fence_init();
-    for (int kc = 0; kc < stages; ++kc) load_w(kc);
+    for (int kc = 0; kc < s.stages; ++kc) issue_weights(p, s, nt, kc);
   }
   grid_dep_wait();
   grid_dep_launch();
-  // the epilogue's per-channel constants of the tile's 64 channels
-  if (tid < CK) {
-    const int c = n0 + tid;
-    if constexpr (EPI == EP_PRELU_BWD) {
-      const float m = p.emv[c], inv = inv_std(p.emv[C + c], p.eps);
-      econ[tid] = rnd<bf16>(m);
-      econ[64 + tid] = rnd<bf16>(inv);
-      econ[128 + tid] = rnd<bf16>(p.egam[c]);
-      econ[192 + tid] = rnd<bf16>(p.ebet[c]);
-      econ[256 + tid] = m;
-      econ[320 + tid] = inv;
-    } else if constexpr (EPI == EP_GRAD) {
-      if (p.ea != nullptr) {
-        econ[256 + tid] = p.emv[c];
-        econ[320 + tid] = inv_std(p.emv[C + c], p.eps);
-      }
-    }
-  }
+  epilogue_constants<EPI>(p, s, nt * CK);
   __syncthreads();  // barriers initialised
 
   float acc[32];
-#pragma unroll
-  for (int e = 0; e < 32; ++e) acc[e] = 0.f;
-  load_window<LOAD>(p, wins, q0, 0);
-  hop::cp_async_commit();
-  if (nk > 1) load_window<LOAD>(p, wins + win_bytes, q0, CK);
-  hop::cp_async_commit();
-  for (int kc = 0; kc < nk; ++kc) {
-    const int st = kc & 1;
-    hop::cp_async_wait<1>();  // chunk kc's copies have landed (this thread's)
-    hop::fence_async_smem();  // ... and its stores, for the async proxy
-    hop::mbar_wait(&bar[st], (kc >> 1) & 1);
-    __syncthreads();
-    hop::wg_fence();
-    const uint32_t wa = hop::smem_addr(wins + st * win_bytes);
-    const uint32_t wb = hop::smem_addr(wring + st * W_BYTES);
-    for (int tap = 0; tap < 9; ++tap) {
-      const int row = (tap / 3) * g.tapstride + tap % 3;  // the tap's shift, in rows
-#pragma unroll
-      for (int s = 0; s < KG / 2; ++s)
-        hop::wgmma_bf16<64>(
-            acc, hop::desc(wa + (uint32_t)((2 * s * g.rows + row) * 16), g.rows * 16, 128),
-            hop::desc(wb + (uint32_t)((tap * KG + 2 * s) * CK * 16), CK * 16, 128));
-    }
-    hop::wg_commit();
-    hop::wg_wait<0>();
-    __syncthreads();  // stage st is free
-    if (kc + 2 < nk) {
-      if (tid == 0) load_w(kc + 2);
-      load_window<LOAD>(p, wins + st * win_bytes, q0, (kc + 2) * CK);
-    }
-    hop::cp_async_commit();
-  }
-
-  // epilogue: padding positions and positions past the grid are dropped
-  constexpr int K = EPI == EP_PRELU_BWD ? 3 : 2;
-  float ps[K][16];
-#pragma unroll
-  for (int k = 0; k < K; ++k)
-#pragma unroll
-    for (int i = 0; i < 16; ++i) ps[k][i] = 0.f;
-  const float al = EPI == EP_PRELU_BWD ? *p.eal : 0.f, alT = rnd<bf16>(al);
-  // the global values the epilogue reads, loaded before any store (which
-  // the compiler may not move them past)
-  long long pixs[2];
-  __nv_bfloat162 ev[2][8], rv[2][8];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    pixs[hh] = pixel_of(g, q0 + 16 * warp + gq + 8 * hh);
-    if (EPI == EP_STATS || pixs[hh] < 0) continue;
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      const size_t o = (size_t)pixs[hh] * C + n0 + 8 * t + 2 * q4;
-      if (p.ea != nullptr) ev[hh][t] = *reinterpret_cast<const __nv_bfloat162*>(p.ea + o);
-      if constexpr (EPI == EP_GRAD)
-        rv[hh][t] = *reinterpret_cast<const __nv_bfloat162*>(p.resid + o);
-    }
-  }
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const long long pix = pixs[hh];
-    if (pix < 0) continue;
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      const int col = 8 * t + 2 * q4;
-      const size_t o = (size_t)pix * C + n0 + col;
-      float v[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) v[e] = acc[4 * t + 2 * hh + e];
-      if constexpr (EPI == EP_STATS) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          v[e] = rnd<bf16>(v[e]);
-          ps[0][2 * t + e] = __fadd_rn(ps[0][2 * t + e], v[e]);
-          ps[1][2 * t + e] = __fadd_rn(ps[1][2 * t + e], __fmul_rn(v[e], v[e]));
-        }
-        store2(static_cast<bf16*>(p.out) + o, v[0], v[1]);
-      } else if constexpr (EPI == EP_PRELU_BWD) {
-        // dgrad2's dh -> the PReLU backward at the recomputed input; h for wgrad2
-        const float2 a = __bfloat1622float2(ev[hh][t]);
-        const float av[2] = {a.x, a.y};
-        float h[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int c = col + e;
-          const float pre = bn_affine<bf16>(av[e], econ[c], econ[64 + c], econ[128 + c],
-                                            econ[192 + c]);
-          const bool neg = pre < 0.f;
-          h[e] = neg ? __fmul_rn(alT, pre) : pre;
-          if (neg) ps[2][2 * t + e] = __fadd_rn(ps[2][2 * t + e], __fmul_rn(v[e], pre));
-          const float d = neg ? __fmul_rn(v[e], al) : v[e];
-          const float xh = __fmul_rn(__fsub_rn(av[e], econ[256 + c]), econ[320 + c]);
-          ps[0][2 * t + e] = __fadd_rn(ps[0][2 * t + e], d);
-          ps[1][2 * t + e] = __fadd_rn(ps[1][2 * t + e], __fmul_rn(d, xh));
-          v[e] = d;
-        }
-        store2(p.hout + o, h[0], h[1]);
-        store2(static_cast<float*>(p.out) + o, v[0], v[1]);
-      } else {
-        // dgrad1: g <- bf16(g + acc); block j-1's BN2 sums of the new g
-        const float2 r = __bfloat1622float2(rv[hh][t]);
-        v[0] = rnd<bf16>(__fadd_rn(r.x, v[0]));
-        v[1] = rnd<bf16>(__fadd_rn(r.y, v[1]));
-        store2(static_cast<bf16*>(p.out) + o, v[0], v[1]);
-        if (p.ea != nullptr) {
-          const float2 a = __bfloat1622float2(ev[hh][t]);
-          const float av[2] = {a.x, a.y};
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int c = col + e;
-            const float xh = __fmul_rn(__fsub_rn(av[e], econ[256 + c]), econ[320 + c]);
-            ps[0][2 * t + e] = __fadd_rn(ps[0][2 * t + e], v[e]);
-            ps[1][2 * t + e] = __fadd_rn(ps[1][2 * t + e], __fmul_rn(v[e], xh));
-          }
-        }
-      }
-    }
-  }
-  if constexpr (EPI == EP_GRAD) {
-    if (p.ea == nullptr) return;  // block 0: no BN2 before it
-  }
-
-  // the tile's partials: 2 rows, then the 8 lanes of a column, then the warps
-#pragma unroll
-  for (int k = 0; k < K; ++k)
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      float v = ps[k][i];
-      v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 4));
-      v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 8));
-      v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 16));
-      if (gq == 0) red[(k * 4 + warp) * 64 + 8 * (i >> 1) + 2 * q4 + (i & 1)] = v;
-    }
-  __syncthreads();
-  for (int idx = tid; idx < K * 64; idx += tw::CONV_THREADS) {
-    const float* r = red + (idx / 64) * 256 + idx % 64;
-    p.part[((size_t)blockIdx.x * K + idx / 64) * C + n0 + idx % 64] =
-        __fadd_rn(__fadd_rn(__fadd_rn(r[0], r[64]), r[128]), r[192]);
-  }
+  unsigned ph = 0;
+  conv_mainloop<LOAD>(p, s, (long long)mt * MT, nt, acc, ph);
+  if (!conv_epilogue<EPI>(p, s, mt, nt, acc)) return;
   if (!last_ticket(p.ticket, gridDim.x * gridDim.y)) return;
 
   // the last tile: every tile's partials, in tile order
-  float* scratch = reinterpret_cast<float*>(wring);  // free after the mainloop
+  float* scratch = reinterpret_cast<float*>(s.wring);  // free after the mainloop
   if constexpr (EPI == EP_STATS) {
     reduce_partials<2>(p.part, gridDim.x, C, scratch, [&](int c, const float* r) {
       bn_moments(r[0], r[1], p.nelem, p.r0 + c, p.r1 + c);
@@ -718,7 +401,7 @@ __global__ void __launch_bounds__(tw::CONV_THREADS)
       p.r1[c] = r[0];  // dbeta
     });
   } else {
-    float* chan = econ;  // C <= 1024 floats: econ and red
+    float* chan = s.econ;  // C <= 1024 floats: econ and red
     reduce_partials<3>(p.part, gridDim.x, C, scratch, [&](int c, const float* r) {
       p.r0[c] = r[1];
       p.r1[c] = r[0];
@@ -726,9 +409,9 @@ __global__ void __launch_bounds__(tw::CONV_THREADS)
     });
     __syncthreads();
     if (tid == 0) {
-      float s = 0.f;
-      for (int c = 0; c < C; ++c) s = __fadd_rn(s, chan[c]);
-      *p.r2 = s;  // dalpha: the channels' sums in order
+      float sum = 0.f;
+      for (int c = 0; c < C; ++c) sum = __fadd_rn(sum, chan[c]);
+      *p.r2 = sum;  // dalpha: the channels' sums in order
     }
   }
 }
@@ -897,7 +580,8 @@ struct Dims {
 };
 
 bool make_dims(int n, int B, int H, int W, int C, Dims* d) {
-  if (n <= 0 || B <= 0 || H <= 0 || W <= 0 || C <= 0 || C % TILE || C > 1024)
+  if (n <= 0 || B <= 0 || H <= 0 || W <= 0 || C <= 0 || C % TILE || C > 1024 ||
+      !tw::grid_fits(B, H, W))
     return false;
   d->H = H;
   d->W = W;

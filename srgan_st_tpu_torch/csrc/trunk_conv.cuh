@@ -1,8 +1,8 @@
 // Device code shared by the residual-trunk kernels (csrc/packed_trunk.cu,
 // K4/K5; csrc/fused_trunk.cu, K6): the compute-dtype conversions and
 // roundings of the Pallas kernels, the BatchNorm moments and forward
-// normalize, and the 3x3 SAME conv tile of K6 and of K4/K5's f32 path
-// (their bf16 path has its own, csrc/trunk_wgmma.cuh).
+// normalize, and the 3x3 SAME conv tile of the f32 paths of K4/K5 and K6
+// (their bf16 paths share a wgmma tile, csrc/trunk_conv_tile.cuh).
 //
 // A conv tile is 64 pixels x 64 output channels of an implicit GEMM over
 // the (B*H*W) pixels of an NHWC activation, 9 taps x C input channels
@@ -19,12 +19,9 @@ namespace srgan {
 constexpr int TILE = 64;          // conv: pixels and channels per block tile
 constexpr int CONV_THREADS = 128; // 4 warps, 2 x 2 over the 64 x 64 tile
 
+// the K chunk of the f32 conv tile (the bf16 paths run the wgmma tile)
 template <typename T>
 struct Chunk;
-template <>
-struct Chunk<__nv_bfloat16> {
-  static constexpr int KC = 32;
-};
 template <>
 struct Chunk<float> {
   static constexpr int KC = 16;

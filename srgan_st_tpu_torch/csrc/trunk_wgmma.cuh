@@ -1,7 +1,8 @@
-// Hopper tiles of the bf16 residual trunk (csrc/packed_trunk.cu, K4/K5):
-// the 3x3 conv tile and the weight-gradient tile, both on wgmma with
-// operands in shared memory (csrc/coarse_wgmma.cuh), and the BatchNorm
-// reductions that ride in their epilogues.
+// Hopper tiles of the bf16 residual trunk (csrc/packed_trunk.cu, K4/K5;
+// csrc/fused_trunk.cu, K6): the padded-grid geometry of the 3x3 conv tile
+// (whose body is csrc/trunk_conv_tile.cuh) and of the weight-gradient tile,
+// both on wgmma with operands in shared memory (csrc/coarse_wgmma.cuh),
+// and the BatchNorm reductions that ride in their epilogues.
 //
 // Padded grid. The B x H x W pixels are placed on the zero-padded grid
 // B x (H+2) x (W+2), flattened: position q. A conv output at q reads its
@@ -84,13 +85,21 @@ __device__ __forceinline__ long long win_pos(const Geom& g, long long q0, int r)
   return q0 - g.Wp - 1 + (long long)(r / g.band) * g.Wp + r % g.band;
 }
 
-// the NHWC pixel of padded position q, or -1 for padding and outside the grid
+// the NHWC pixel of padded position q, or -1 for padding and outside the
+// grid; 32-bit division (the hosts take grids of fewer than 2^31 padded
+// positions: `grid_fits`)
 __device__ __forceinline__ long long pixel_of(const Geom& g, long long q) {
   if (q < 0 || q >= g.Q) return -1;
-  const long long b = q / g.HWp;
-  const int r = (int)(q - b * g.HWp), y = r / g.Wp, x = r - y * g.Wp;
+  const int qi = (int)q, b = qi / g.HWp;
+  const int r = qi - b * g.HWp, y = r / g.Wp, x = r - y * g.Wp;
   if (y < 1 || y > g.H || x < 1 || x > g.W) return -1;
-  return (b * g.H + y - 1) * g.W + x - 1;
+  return ((long long)b * g.H + y - 1) * g.W + x - 1;
+}
+
+// whether a B x H x W grid's padded positions (and one M tile past them)
+// fit pixel_of's 32-bit arithmetic
+__host__ __device__ inline bool grid_fits(int B, int H, int W) {
+  return (long long)B * (H + 2) * (W + 2) + MT < 0x7fffffffLL;
 }
 
 // D (64 x 64, f32) += A (64 x 16) * B (64 x 16)^T with both operands
@@ -122,14 +131,13 @@ __device__ __forceinline__ void grid_dep_launch() {
 
 // The sums of K quantities per channel over `ntiles` partials
 // part[tile][k][C], each in tile order and in double, a thread per (k, c)
-// with 16 loads in flight (the partials were written by other blocks: read
+// with U loads in flight (the partials were written by other blocks: read
 // past L1), staged in `scratch` (K * C floats of shared memory); then
 // fn(c, sums) for channels c = tid, tid + blockDim.x, ... The whole block
-// calls it.
-template <int K, typename Fn>
+// calls it. U changes no bit of the sums.
+template <int K, int U = 16, typename Fn>
 __device__ __forceinline__ void reduce_partials(const float* part, int ntiles, int C,
                                                 float* scratch, Fn fn) {
-  constexpr int U = 16;
   for (int idx = threadIdx.x; idx < K * C; idx += blockDim.x) {
     const float* src = part + idx;  // [k][c] of tile 0; tiles K * C apart
     double s = 0.0;

@@ -8,8 +8,12 @@ For each batch element and each row n of the candidate patches,
 with s the squared l2 distance (clamped at 0) or the l1 distance, scores in
 f32 from inputs upcast to f32, ties to the first occurrence (as torch.min
 and jnp.argmin). `buddy_select_index` returns the (B, N) int32 indices: on
-a CUDA tensor it launches the hand-written kernel (csrc/buddy_select.cu),
-on a CPU tensor it runs the plain version `buddy_select_reference`.
+a CUDA tensor it launches a hand-written kernel of csrc/buddy_select.cu,
+chosen by the function: bf16 inputs with l2 scores take the tensor-core
+kernel ("mma": the cross terms by mma.sync, exact bf16 products into f32),
+f32 inputs and l1 scores the SIMT kernel ("simt": l1 has no product form,
+and f32 on the tensor cores would be TF32). On a CPU tensor it runs the
+plain version `buddy_select_reference`.
 `buddy_select` gathers the selected bank rows outside the kernel, exactly,
 and without gradient: the bank derives from ground truth and an argmin has
 none (the reference's gather backward is dead code).
@@ -24,12 +28,20 @@ import torch
 from srgan_st_tpu_torch.kernels import _build
 from srgan_st_tpu_torch.ops.pairwise import batch_pairwise_distance
 
-# launches of the CUDA kernel since import (or the last reset)
+# launches of the CUDA kernels since import (or the last reset), and the
+# variant the last one ran
 launches = 0
+last_variant = ""
 
-_FN = {torch.bfloat16: "buddy_select_bf16", torch.float32: "buddy_select_f32"}
+# (dtype, dist_norm) -> (variant, C function): every input either kernel takes
+_KERNELS = {(torch.bfloat16, "l2"): ("mma", "buddy_select_bf16_mma"),
+            (torch.bfloat16, "l1"): ("simt", "buddy_select_bf16"),
+            (torch.float32, "l2"): ("simt", "buddy_select_f32"),
+            (torch.float32, "l1"): ("simt", "buddy_select_f32")}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {fn: [_P] * 4 + [_I] * 4 + [_F, _F, _I, _P] for fn in _FN.values()}
+_SIGNATURES = {"buddy_select_bf16": [_P] * 4 + [_I] * 4 + [_F, _F, _I, _P],
+               "buddy_select_f32": [_P] * 4 + [_I] * 4 + [_F, _F, _I, _P],
+               "buddy_select_bf16_mma": [_P] * 4 + [_I] * 4 + [_F, _F, _P]}
 MAX_D = 160  # feature width the kernel takes (ksize 7 gives 3 * 49 = 147)
 
 
@@ -47,11 +59,11 @@ def buddy_select_reference(p1, p2, bank, alpha: float = 1.0, beta: float = 1.0,
 
 
 def _launch(p1, p2, bank, alpha, beta, dist_norm) -> torch.Tensor:
-    global launches
+    global launches, last_variant
     if dist_norm not in ("l1", "l2"):
         raise NotImplementedError(f"{dist_norm} norm has not been supported.")
     dt = bank.dtype
-    if dt not in _FN or p1.dtype != dt or p2.dtype != dt:
+    if (dt, dist_norm) not in _KERNELS or p1.dtype != dt or p2.dtype != dt:
         raise ValueError(f"buddy_select: the kernel takes bf16 or f32 inputs of one "
                          f"dtype; got {p1.dtype}, {p2.dtype}, {bank.dtype}")
     b, n, d = p1.shape
@@ -64,14 +76,19 @@ def _launch(p1, p2, bank, alpha, beta, dist_norm) -> torch.Tensor:
         raise ValueError("buddy_select: empty input")
     p1, p2, bank = (t.contiguous() for t in (p1, p2, bank))
     idx = torch.empty((b, n), device=bank.device, dtype=torch.int32)
+    variant, fn = _KERNELS[dt, dist_norm]
     lib = _build.load("buddy_select", _SIGNATURES)
+    ptrs = (p1.data_ptr(), p2.data_ptr(), bank.data_ptr(), idx.data_ptr())
     with torch.cuda.device(bank.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, _FN[dt])(p1.data_ptr(), p2.data_ptr(), bank.data_ptr(),
-                                    idx.data_ptr(), b, n, m, d, float(alpha),
-                                    float(beta), int(dist_norm == "l1"), stream)
-    _build.check(err, "buddy_select")
+        if variant == "mma":
+            err = getattr(lib, fn)(*ptrs, b, n, m, d, float(alpha), float(beta), stream)
+        else:
+            err = getattr(lib, fn)(*ptrs, b, n, m, d, float(alpha), float(beta),
+                                   int(dist_norm == "l1"), stream)
+    _build.check(err, f"buddy_select ({variant})")
     launches += 1
+    last_variant = variant
     return idx
 
 

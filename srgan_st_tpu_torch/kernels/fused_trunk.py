@@ -8,9 +8,11 @@ over NHWC `x` and the stacked block parameters (as `packed_trunk` takes
 them) and returns (y, stats): stats (n, 4, C) f32 [m1, v1, m2, v2] feed the
 running-stat EMA and carry no gradient. It is an autograd Function: on a
 CUDA tensor its forward is the persistent cooperative kernel K6
-(csrc/fused_trunk.cu), on a CPU tensor the plain forward; both save the
-residuals (block inputs, both preactivations, stats). Its backward, on both,
-is the JAX package's `_bwd_xla` in torch ops, with that function's own
+(csrc/fused_trunk.cu: in bf16 K4's wgmma conv tile, csrc/trunk_conv_tile.cuh,
+with 2n grid barriers; in f32 a SIMT tile with 6n - 1), on a CPU tensor
+the plain forward; both save the residuals (block inputs, both
+preactivations, stats). Its backward, on both, is the JAX package's
+`_bwd_xla` in torch ops, with that function's own
 roundings, which are not K5's: the PReLU input is recomputed with a
 compute-dtype rsqrt of the compute-dtype variance (`_recompute_h`), the
 BN backward uses the unrounded f32 inv, and each dgrad is rounded to the
@@ -18,7 +20,9 @@ compute dtype before it is used or added.
 
 The forward's function and roundings are K4's, so the plain version is
 `packed_trunk._reference_forward` (the CPU tests hold it to JAX's K6 in
-interpret mode).
+interpret mode); in bf16 K6 runs K4's tile and sums K4's partials in K4's
+order, so its five outputs have the bits of K4's. Its weights are laid out
+as K4's (`packed_trunk._layout_fwd`: the bf16 ring images).
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from srgan_st_tpu_torch.kernels.packed_trunk import (
     _conv,
     _dgrad_weights,
     _f32,
+    _layout_fwd,
     _reference_forward,
     _wgrad,
 )
@@ -43,12 +48,13 @@ launches = 0
 last_grid = 0
 
 _FWD = {torch.bfloat16: "fused_trunk_fwd_bf16", torch.float32: "fused_trunk_fwd_f32"}
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGS = ([_P] * 14 + [_LL] + [_I] * 5 + [ctypes.c_float, _P, ctypes.POINTER(_I)]
+         + [_P, _LL])  # and the probe
 _SIGNATURES = {
-    **{fn: [_P] * 14 + [ctypes.c_longlong] + [_I] * 5 + [ctypes.c_float, _P,
-                                                           ctypes.POINTER(_I)]
-       for fn in _FWD.values()},
-    "fused_trunk_ws_bytes": [_I] * 6 + [ctypes.POINTER(ctypes.c_longlong)],
+    "fused_trunk_fwd_bf16": _ARGS,
+    "fused_trunk_fwd_f32": _ARGS,
+    "fused_trunk_ws_bytes": [_I] * 6 + [ctypes.POINTER(_LL)],
 }
 
 fused_trunk_reference = _reference_forward
@@ -63,7 +69,32 @@ def fits(x_shape, dtype) -> bool:
     return min(b, h, w) > 0 and c % 64 == 0 and 64 <= c <= 1024
 
 
-def _launch_fwd(x, w1s, w2s, g1s, b1s, g2s, b2s, als, eps):
+def probe_words(x_shape, n: int) -> int:
+    """int64 words of a probe that fits any K6 launch on x of `x_shape`:
+    the barrier count, then (blocks, 2n, 4) stamps for at most as many
+    blocks as the bf16 kernel has tiles (the padded grid's 64-position
+    tiles times C / 64)."""
+    b, h, w, c = x_shape
+    return 1 + -(-b * (h + 2) * (w + 2) // 64) * (c // 64) * 2 * n * 4
+
+
+def probe_syncs(probe) -> int:
+    """Grid barriers that each block of the probed launch passed."""
+    total = int(probe.view(-1)[0])
+    if last_grid <= 0 or total % last_grid:
+        raise ValueError(f"fused_trunk: {total} barriers do not divide among {last_grid} blocks")
+    return total // last_grid
+
+
+def _launch_fwd(x, w1s, w2s, g1s, b1s, g2s, b2s, als, eps, weights=None, probe=None):
+    """K6 on CUDA tensors; `weights`: the conv weights already laid out by
+    `packed_trunk._layout_fwd` (else laid out here). `probe`: a zeroed,
+    contiguous int64 tensor on x's device, of `probe_words` words, into
+    which the launch counts each block's grid barriers (word 0, read by
+    `probe_syncs`) and, in bf16, writes after it each block's ns stamps
+    per conv (blocks, 2n, 4): its first tile starts; its last epilogue
+    ends; the conv's grid barrier releases it; the moments and the next
+    BatchNorm's gamma and beta are in shared memory."""
     global launches, last_grid
     if x.device.type != "cuda":
         raise ValueError(f"fused_trunk: no kernel for device {x.device}")
@@ -75,9 +106,7 @@ def _launch_fwd(x, w1s, w2s, g1s, b1s, g2s, b2s, als, eps):
     n = w1s.shape[0]
     b, h, w, c = x.shape
     dev, cdt = x.device, x.dtype
-    # [block][tap][out][in]
-    w1t, w2t = (ws.to(device=dev, dtype=cdt).permute(0, 1, 2, 4, 3)
-                .reshape(n, 9, c, c).contiguous() for ws in (w1s, w2s))
+    w1t, w2t = weights if weights is not None else _layout_fwd(w1s, w2s, dev, cdt)
     vecs = [_f32(t, dev) for t in (g1s, b1s, g2s, b2s, als.reshape(n))]
     y = torch.empty_like(x)
     xs, a1s, a2s = (torch.empty((n, b, h, w, c), device=dev, dtype=cdt) for _ in range(3))
@@ -88,12 +117,19 @@ def _launch_fwd(x, w1s, w2s, g1s, b1s, g2s, b2s, als, eps):
                                           ctypes.byref(nbytes)), "fused_trunk workspace")
     ws = torch.empty(nbytes.value, device=dev, dtype=torch.uint8)
     grid = ctypes.c_int(0)
+    if probe is not None and (probe.dtype != torch.int64 or probe.device != dev
+                              or not probe.is_contiguous() or probe.numel() == 0):
+        raise ValueError(f"fused_trunk: the probe must be a non-empty contiguous int64 "
+                         f"tensor on {dev}; got {probe.dtype} {tuple(probe.shape)} on "
+                         f"{probe.device}")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, _FWD[cdt])(
             x.data_ptr(), w1t.data_ptr(), w2t.data_ptr(), *(v.data_ptr() for v in vecs),
             y.data_ptr(), xs.data_ptr(), a1s.data_ptr(), a2s.data_ptr(), stats.data_ptr(),
-            ws.data_ptr(), ws.numel(), n, b, h, w, c, eps, stream, ctypes.byref(grid))
+            ws.data_ptr(), ws.numel(), n, b, h, w, c, eps, stream, ctypes.byref(grid),
+            None if probe is None else probe.data_ptr(),
+            0 if probe is None else probe.numel())
     _build.check(err, "fused_trunk forward")
     launches += 1
     last_grid = grid.value

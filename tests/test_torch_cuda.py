@@ -299,6 +299,43 @@ def test_packed_trunk_gates_on_saved_residuals(dev, shape, n):
         assert torch.equal(a, b)
 
 
+# chip_smoke.py's TRUNK_SHAPES: the training shape, an edge shape, two
+# channel tiles
+TRUNK_SHAPES = [((16, 24, 24, 64), 16), ((3, 22, 26, 64), 2), ((2, 12, 16, 128), 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,n", TRUNK_SHAPES)
+def test_hybrid_trunk_gates(dev, shape, n):
+    """TRUNK_MODE "hybrid": the plain forward, then K5 on that forward's
+    residuals, against the plain backward on the same residuals. f32 (TF32
+    off): y and stats within 1e-4 max|ref|, each of the 8 gradients within
+    1e-3; bf16: within 2x the plain version's bf16-vs-f32 envelope; a second
+    run gives the same bits. One K5 launch and no K4 a call."""
+    from srgan_st_tpu_torch.kernels import packed_trunk as pt
+
+    x, params = _trunk_inputs(dev, shape, n, seed=7)
+    before = (pt.fwd_launches, pt.bwd_launches)
+    got = _trunk_run(pt.hybrid_trunk, x, params)
+    assert (pt.fwd_launches, pt.bwd_launches) == (before[0], before[1] + 1)
+    ref = _trunk_run(pt.packed_trunk_reference, x, params)
+    for i, (g, r) in enumerate(zip(got, ref)):
+        assert g.dtype == r.dtype and g.shape == r.shape
+        assert _err(g, r) <= (1e-4 if i < 2 else 1e-3) * float(r.abs().max()), i
+    xb = x.bfloat16()
+    p16 = [params[0].bfloat16().float(), params[1].bfloat16().float(), *params[2:]]
+    ref32 = _trunk_run(pt.packed_trunk_reference, xb.float(), p16)
+    plain16 = _trunk_run(pt.packed_trunk_reference, xb, params)
+    got16 = _trunk_run(pt.hybrid_trunk, xb, params)
+    for i, (g, p, r) in enumerate(zip(got16, plain16, ref32)):
+        env = _err(p, r)
+        assert 0 < env and _err(g, r) <= 2 * env, (i, _err(g, r), env)
+    for a, b in zip(got16, _trunk_run(pt.hybrid_trunk, xb, params)):
+        assert torch.equal(a, b)
+    for a, b in zip(got, _trunk_run(pt.hybrid_trunk, x, params)):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 def test_conv3_kernel_path_has_the_plain_gradients(dev):
     """The coarse conv kernel's autograd Function: a kernel-A forward whose
@@ -443,23 +480,44 @@ def test_buddy_select_raises_on_inputs_it_does_not_take(dev):
 
 
 @pytest.mark.cuda
-def test_registry_picks_the_kernel_on_cuda(dev):
+def test_registry_picks_the_kernel_on_cuda(dev, monkeypatch):
     """PatchwiseST from the registry launches K7 once per call on CUDA
-    tensors unless its spec says pallas=False; both give the same loss
-    within 1e-6 relative."""
+    tensors unless its spec says pallas=False. The indices each call
+    selects agree with the plain selection on the same features, or are an
+    f64 near tie (kernels/_checks.py, the smoke's gate (a)); the noise is
+    seeded."""
     from srgan_st_tpu_torch.core.config import Config
+    from srgan_st_tpu_torch.kernels import _checks
     from srgan_st_tpu_torch.kernels import buddy_select as bs
+    from srgan_st_tpu_torch.losses import functions as LF
     from srgan_st_tpu_torch.losses.registry import build_one
 
+    calls = []
+
+    def recorded(select):
+        def fn(p1, p2, bank, *args):
+            idx = select(p1, p2, bank, *args)
+            calls.append((p1, p2, bank, idx))
+            return idx
+        return fn
+
+    monkeypatch.setattr(LF, "buddy_select_index", recorded(bs.buddy_select_index))
+    monkeypatch.setattr(LF, "buddy_select_reference", recorded(bs.buddy_select_reference))
     rng = np.random.default_rng(13)
     gt = torch.from_numpy(rng.random((2, 96, 96, 3), dtype=np.float32)).to(dev)
-    sr = (gt + 0.05 * torch.randn_like(gt)).clamp(0, 1)
-    vals = []
+    noise = torch.randn(gt.shape, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(13))
+    sr = (gt + 0.05 * noise).clamp(0, 1)
     for spec, launched in (({}, 1), ({"pallas": False}, 0)):
         before = bs.launches
-        vals.append(float(build_one(Config(), "PatchwiseST", spec)(sr, gt)))
+        calls.clear()
+        loss = build_one(Config(), "PatchwiseST", spec)(sr, gt)
         assert bs.launches == before + launched
-    assert abs(vals[0] - vals[1]) <= 1e-6 * abs(vals[1])
+        assert torch.isfinite(loss) and len(calls) == 1
+        p1, p2, bank, idx = calls[0]
+        ref = bs.buddy_select_reference(p1, p2, bank)
+        scores = _checks.f64_scores(p1, p2, bank)
+        assert bool(_checks.near_tie_agrees(idx, ref, scores).all())
 
 
 # ---------------------------------------------------------------------------
@@ -505,6 +563,65 @@ def test_fused_trunk_is_deterministic(dev, dtype):
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,n", TRUNK_SHAPES + [((2, 6, 80, 64), 2), ((1, 3, 70, 128), 3),
+                                                   ((16, 24, 24, 128), 2)])
+def test_fused_trunk_bf16_has_k4_bits(dev, shape, n):
+    """In bf16, K6 runs K4's conv tile and sums K4's partials in K4's order:
+    y, xs, a1s, a2s and the stats equal K4's bit for bit, in one launch: at
+    the smoke's shapes, at widths that take the banded window, and at C =
+    128 with 338 tiles a conv, more than the grid's co-resident blocks (one
+    an SM at this shared memory), so that each block walks several."""
+    from srgan_st_tpu_torch.kernels import fused_trunk as ft
+    from srgan_st_tpu_torch.kernels import packed_trunk as pt
+
+    x, params = _trunk_inputs(dev, shape, n, seed=8)
+    xb = x.bfloat16()
+    before = ft.launches
+    got = ft._launch_fwd(xb, *params, 1e-5)
+    want = pt._launch_fwd(xb, *params, 1e-5)
+    torch.cuda.synchronize()
+    assert ft.launches == before + 1
+    if shape[-1] == 128 and shape[0] == 16:
+        assert ft.last_grid < 338
+    for name, a, b in zip(("y", "xs", "a1s", "a2s", "stats"), got, want):
+        assert torch.equal(a, b), name
+    # a probed launch counts 2n grid barriers in every block, same bits
+    probe = torch.zeros(ft.probe_words(xb.shape, n), dtype=torch.int64, device=dev)
+    probed = ft._launch_fwd(xb, *params, 1e-5, probe=probe)
+    torch.cuda.synchronize()
+    assert ft.probe_syncs(probe) == 2 * n
+    for name, a, b in zip(("y", "xs", "a1s", "a2s", "stats"), probed, want):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,syncs", [(torch.float32, lambda n: 6 * n - 1),
+                                         (torch.bfloat16, lambda n: 2 * n)])
+def test_fused_trunk_probe_counts_barriers(dev, dtype, syncs):
+    """The probe counts the grid barriers each block passed (f32: after
+    each conv, stats and apply phase but the last; bf16: after each conv),
+    and a probe of the wrong dtype, empty, or too short for the launch's
+    stamps (bf16) is refused before anything runs."""
+    from srgan_st_tpu_torch.kernels import fused_trunk as ft
+
+    n = 3
+    x, params = _trunk_inputs(dev, (2, 8, 8, 64), n, seed=9)
+    x = x.to(dtype)
+    probe = torch.zeros(ft.probe_words(x.shape, n), dtype=torch.int64, device=dev)
+    ft._launch_fwd(x, *params, 1e-5, probe=probe)
+    torch.cuda.synchronize()
+    assert ft.probe_syncs(probe) == syncs(n)
+    before = ft.launches
+    for bad in (probe.int(), probe[:0]):
+        with pytest.raises(ValueError):
+            ft._launch_fwd(x, *params, 1e-5, probe=bad)
+    if dtype == torch.bfloat16:
+        with pytest.raises(RuntimeError):
+            ft._launch_fwd(x, *params, 1e-5, probe=probe[:1])
+    assert ft.launches == before
 
 
 @pytest.mark.cuda

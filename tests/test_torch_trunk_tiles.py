@@ -417,3 +417,127 @@ def test_backward_block_dataflow_matches_plain(shape):
         # dal sums the terms of both signs over every negative PReLU input:
         # its f32 reference keeps fewer digits of it
         assert _rel(gv, wv[0] if name != "dx" else wv) <= (1e-4 if name == "dal" else 1e-5), name
+
+
+# ---------------------------------------------------------------------------
+# K6 (csrc/fused_trunk.cu `fused_trunk_wgmma`): K4's tile in one persistent
+# launch. A CTA walks the jobs blockIdx.x, + grid, ... of each conv (M tile
+# job % M tiles, N tile job // M tiles); after the conv's grid barrier every
+# CTA sums the partials in tile order.
+
+def _walk(jobs, grid):
+    """Each CTA's jobs of one conv, in its order."""
+    return [list(range(cta, jobs, grid)) for cta in range(grid)]
+
+
+def _conv_job(src, img, q0, nt, transform=None):
+    """The accumulators of one job: M tile at q0, N tile nt (64 x 64)."""
+    shape = src.shape
+    c = shape[-1]
+    geo = geometry(shape[2])
+    flat = src.reshape(-1, c)
+    acc = torch.zeros(MT, pt.CK, dtype=torch.float64)
+    for kc in range(c // pt.CK):
+        sl = slice(kc * pt.CK, (kc + 1) * pt.CK)
+        win, _, _ = _window(flat[:, sl], q0, shape,
+                            transform and (lambda v, p, o, s=sl: transform(v, p, o, s)))
+        for tap in range(9):
+            row = (tap // 3) * geo["tapstride"] + tap % 3
+            bmat = img[nt, kc, tap].permute(1, 0, 2).reshape(pt.CK, pt.CK)
+            acc += win[row:row + MT] @ bmat.T
+    return acc
+
+
+@pytest.mark.parametrize("shape,grid", [((2, 12, 16, 128), 5), ((1, 3, 70, 64), 3),
+                                        ((3, 22, 26, 64), 7)])
+def test_persistent_schedule_covers_every_tile(shape, grid):
+    """With fewer CTAs than jobs (C = 128: two N tiles; a banded width),
+    the walk computes each (M tile, N tile) once, the outputs are the plain
+    conv, and the partials, written in the order the CTAs finish them and
+    summed in tile order, give K4's moments bit for bit."""
+    x, p, _ = _inputs(shape)
+    b, h, w, c = shape
+    mtiles = len(_tiles(shape))
+    jobs = mtiles * (c // pt.CK)
+    assert grid < jobs
+    walks = _walk(jobs, grid)
+    assert sorted(j for walk in walks for j in walk) == list(range(jobs))
+    img = pt.weight_image(p[0][0][None])[0].double()
+    out = torch.zeros(b * h * w, c, dtype=torch.float64)
+    part = torch.full((mtiles, 2, c), float("nan"), dtype=torch.float64)
+    # the CTAs' jobs interleaved as they might finish: round by round, last CTA first
+    for rnd in range(max(len(wk) for wk in walks)):
+        for walk in reversed(walks):
+            if rnd >= len(walk):
+                continue
+            job = walk[rnd]
+            mt, nt = job % mtiles, job // mtiles
+            acc = _conv_job(x, img, mt * MT, nt)
+            pix = _pixel_of(mt * MT + torch.arange(MT), b, h, w)
+            cols = slice(nt * pt.CK, (nt + 1) * pt.CK)
+            out[pix[pix >= 0], cols] = acc[pix >= 0]
+            vals = torch.where((pix >= 0)[:, None], acc, 0.0)
+            part[mt, 0, cols] = _tile_partial(vals)
+            part[mt, 1, cols] = _tile_partial(vals * vals)
+    assert _rel(out.reshape(shape), _conv64(x, p[0][0])) <= 1e-9
+    assert not torch.isnan(part).any()
+    s, ss = (_ticket_reduce([part[mt, k] for mt in range(mtiles)]) for k in (0, 1))
+    m = s / (b * h * w)
+    v = torch.clamp(ss / (b * h * w) - m * m, min=0.0)
+    _, per_tile = _conv_tiles(x, p[0][0])
+    m4, v4 = _moments_from(per_tile, b * h * w)
+    assert torch.equal(m, m4) and torch.equal(v, v4)
+
+
+@pytest.mark.parametrize("nk", [1, 2, 3, 4])
+@pytest.mark.parametrize("njobs", [1, 3])
+def test_persistent_ring_parity(nk, njobs):
+    """The ring's mbarriers across a CTA's tiles and convs: the prologue
+    issues the first job's first `stages` weight chunks, the mainloop chunk
+    kc + 2, and after each mainloop the next job's first chunks. Each wait
+    on stage s uses parity bit s of `ph` (flipped after it): it must be the
+    parity of the load it waits for (the w-th into that stage: w & 1), and
+    no copy is left in flight at the end."""
+    stages = 2 if nk > 1 else 1
+    issued = [0, 0]   # loads into each stage so far
+    waited = [0, 0]
+    ph = 0
+    for kc in range(stages):
+        issued[kc & 1] += 1
+    total = njobs * 3  # the job's tiles over three convs
+    for job in range(total):
+        for kc in range(nk):
+            st = kc & 1
+            assert issued[st] > waited[st]          # its copy was issued
+            assert (ph >> st) & 1 == waited[st] & 1  # the parity of the w-th phase
+            waited[st] += 1
+            ph ^= 1 << st
+            if kc + 2 < nk:
+                issued[st] += 1
+        if job + 1 < total:
+            for kc in range(stages):
+                issued[kc & 1] += 1
+    assert issued == waited
+
+
+@pytest.mark.parametrize("shape,n", [((16, 24, 24, 64), 16), ((2, 12, 16, 128), 2),
+                                     ((1, 3, 70, 64), 3)])
+def test_probe_words_cover_every_launch(shape, n):
+    """A probe of `probe_words` words holds the barrier count and the
+    (blocks, 2n, 4) stamps of any launch: the grid is at most the jobs of
+    a conv, the M tiles of the padded grid times C / 64."""
+    from srgan_st_tpu_torch.kernels import fused_trunk as ft
+
+    jobs = len(_tiles(shape)) * (shape[-1] // pt.CK)
+    assert ft.probe_words(shape, n) == 1 + jobs * 2 * n * 4
+
+
+def test_probe_syncs_divides_among_blocks(monkeypatch):
+    """Each block adds one at every barrier it passes: the count is the
+    total over the last launch's blocks, which must divide it."""
+    from srgan_st_tpu_torch.kernels import fused_trunk as ft
+
+    monkeypatch.setattr(ft, "last_grid", 7)
+    assert ft.probe_syncs(torch.tensor([7 * 32, 5, 6])) == 32
+    with pytest.raises(ValueError):
+        ft.probe_syncs(torch.tensor([7 * 32 + 1]))
