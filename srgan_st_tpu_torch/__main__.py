@@ -6,10 +6,12 @@ Usage:
     python -m srgan_st_tpu_torch train ...      # adversarial training
     python -m srgan_st_tpu_torch infer ...      # upscale arbitrary images
     python -m srgan_st_tpu_torch validate ...   # PSNR/SSIM eval on a test set
+    python -m srgan_st_tpu_torch export ...     # torch.export serving artifact
 
 Each command forwards to its module's CLI (same flags as running the
 module directly) and is imported lazily. The other commands of
-``python -m srgan_st_tpu`` wait for their slices (ROADMAP.md Queue A).
+``python -m srgan_st_tpu`` (bench, prepare-dataset) wait for ROADMAP.md
+Queue A item 6.
 """
 
 from __future__ import annotations
@@ -36,7 +38,11 @@ _COMMANDS: dict[str, tuple[str, str, str]] = {
     ),
     "infer": (
         "srgan_st_tpu_torch.eval.infer", "main",
-        "upscale image files/directories with npz generator weights",
+        "upscale image files/directories with npz weights or an artifact",
+    ),
+    "export": (
+        "srgan_st_tpu_torch.eval.export", "main",
+        "export the generator as a torch.export serving artifact",
     ),
 }
 

@@ -102,7 +102,7 @@ class Config:
             "Pixel": {"kind": "pixel", "criterion": "mse"},
         }
         self.MODEL.G_LOSS.WARMUP_WEIGHTS = {"Pixel": 1.0}
-        # converted VGG19 IMAGENET1K_V1 weights (ContentVGG: not ported yet)
+        # converted VGG19 IMAGENET1K_V1 weights of ContentVGG (tools/convert_vgg19.py)
         self.MODEL.G_LOSS.VGG19_WEIGHTS = "weights/vgg19_imagenet.npz"
         # D weights (npz) of ContentDiscriminator; "" = a fresh seeded D, as
         # the reference instantiates a fresh random one (loss.py:263)
@@ -133,10 +133,12 @@ class Config:
         self.TPU = dotdict()
         # "float32" (reference parity) or "bfloat16"
         self.TPU.COMPUTE_DTYPE = "float32"
-        # None = auto (eval and bf16 training run the unfused trunk), or
+        # None = auto (bf16 training: "packed" inside its gate; else the
+        # unfused trunk), or
         # "unfused" / "packed" (the K4/K5 kernels) / "hybrid" (plain
-        # forward, K5 backward) / "fused" (the K6 forward, train only);
-        # "xpack*" is not ported
+        # forward, K5 backward) / "fused" (the K6 forward, train only) /
+        # "xpack" ("packed" in training; in eval, kernels/xpack_trunk.py:
+        # BN folded into the convs) / "xpack_eval" (eval only)
         self.TPU.TRUNK_MODE = None
         # None = direct 9x9 stem conv, "s2d" = space-to-depth(4) factored
         self.TPU.STEM_MODE = None
@@ -148,7 +150,7 @@ class Config:
         self.TPU.TAIL_MODE = None
         # halo-tiled eval inference (eval/tiled.py)
         self.TPU.TILED_EVAL = False
-        # geometric x8 self-ensemble: waits for the eval/ensemble.py slice
+        # geometric x8 self-ensemble (eval/ensemble.py); composes with TILED_EVAL
         self.TPU.SELF_ENSEMBLE = False
 
     def add_g_criterion(self, name: str, spec: dict, weight: float = 1.0) -> None:

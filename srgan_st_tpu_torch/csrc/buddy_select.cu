@@ -13,6 +13,17 @@
 // the last bank tile's rows past M are never compared. The gather of the
 // selected rows and the stop-gradient stay outside, in torch.
 //
+// Near ties of the l2 expansion: |p|^2 + |q|^2 - 2 p.q cancels. With the
+// PatchwiseST features |p|^2 + |q|^2 is ~1,800 times the smallest score of
+// a row, so the f32 rounding of the expansion (~eps * (|p|^2 + |q|^2)) is
+// larger than the gap between a row's two best bank rows on about one row
+// in 16,000, and two f32 evaluations in different orders (this kernel, the
+// plain version) pick different rows there. So the l2 kernels keep each
+// row's two best (score, index) by the expansion and score those two
+// exactly, (p - q)^2 summed in f64 (bf16 differences and their squares are
+// exact there), keeping the exactly smaller, the first occurrence on an
+// exact tie ("refine"). l1 sums |p - q| directly and needs none.
+//
 // What bounds it on an H100: at the PatchwiseST shape, p1/p2 (16, 1024, 27)
 // and a bank of (16, 1344, 27) in bf16, it reads 3.0 MB and does 2.38 GFLOP
 // of scoring (two 27-wide dots and the score per (n, m) pair). bf16 x bf16
@@ -64,6 +75,71 @@ constexpr int MTILE = 64;   // bank rows per shared-memory tile
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
+__device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
+
+// (s, i) before (t, j) in the lexicographic order, which keeps the first
+// occurrence of equal scores
+__device__ __forceinline__ bool lex_less(float s, int i, float t, int j) {
+  return s < t || (s == t && i < j);
+}
+
+// a scan's next (score, m), m increasing: the two best so far, strict `<`
+__device__ __forceinline__ void push2(float& b1, int& i1, float& b2, int& i2, float s, int m) {
+  if (s < b1) {
+    b2 = b1;
+    i2 = i1;
+    b1 = s;
+    i1 = m;
+  } else if (s < b2) {
+    b2 = s;
+    i2 = m;
+  }
+}
+
+// the two best of two lists of the two best (disjoint indices), into the first
+__device__ __forceinline__ void merge2(float& b1, int& i1, float& b2, int& i2, float c1, int j1,
+                                       float c2, int j2) {
+  if (lex_less(c1, j1, b1, i1)) {
+    if (lex_less(c2, j2, b1, i1)) {
+      b2 = c2;
+      i2 = j2;
+    } else {
+      b2 = b1;
+      i2 = i1;
+    }
+    b1 = c1;
+    i1 = j1;
+  } else if (lex_less(c1, j1, b2, i2)) {
+    b2 = c1;
+    i2 = j1;
+  }
+}
+
+// alpha |p1 - q|^2 + beta |p2 - q|^2 in f64 from the rows' own values
+template <typename T>
+__device__ double exact_score(const T* p1r, const T* p2r, const T* q, int d, float alpha,
+                              float beta) {
+  double s1 = 0.0, s2 = 0.0;
+  for (int k = 0; k < d; ++k) {
+    const double v = to_f(q[k]);
+    const double a = (double)to_f(p1r[k]) - v, c = (double)to_f(p2r[k]) - v;
+    s1 += a * a;
+    s2 += c * c;
+  }
+  return (double)alpha * s1 + (double)beta * s2;
+}
+
+// the refine: of the expansion's two best bank rows i1, i2 (b2 +inf: one
+// row only), the exactly smaller, the first occurrence on an exact tie
+template <typename T>
+__device__ int refine(const T* p1r, const T* p2r, const T* bk, int d, float alpha, float beta,
+                      int i1, float b2, int i2) {
+  if (isinf(b2)) return i1;
+  const double e1 = exact_score(p1r, p2r, bk + (size_t)i1 * d, d, alpha, beta);
+  const double e2 = exact_score(p1r, p2r, bk + (size_t)i2 * d, d, alpha, beta);
+  return (e2 < e1 || (e2 == e1 && i2 < i1)) ? i2 : i1;
+}
+
 template <typename T, int DP, bool L1>
 __global__ void __launch_bounds__(ROWS)
     buddy_kernel(const T* __restrict__ p1, const T* __restrict__ p2,
@@ -90,8 +166,8 @@ __global__ void __launch_bounds__(ROWS)
     n2 = __fadd_rn(n2, __fmul_rn(c, c));
   }
 
-  float best = __int_as_float(0x7f800000);  // +inf
-  int arg = 0;
+  float best = inf_f(), best2 = inf_f();
+  int arg = 0, arg2 = 0;
   const T* bk = bank + (size_t)b * M * d;
   for (int m0 = 0; m0 < M; m0 += MTILE) {
     const int mt = min(MTILE, M - m0);
@@ -131,13 +207,14 @@ __global__ void __launch_bounds__(ROWS)
         s2 = fmaxf(__fsub_rn(__fadd_rn(n2, bn), __fmul_rn(2.f, c2)), 0.f);
       }
       const float score = __fadd_rn(__fmul_rn(alpha, s1), __fmul_rn(beta, s2));
-      if (score < best) {  // strict: the first of equal scores stays
-        best = score;
-        arg = m0 + r;
-      }
+      push2(best, arg, best2, arg2, score, m0 + r);  // strict: the first of equal scores stays
     }
   }
-  if (live) idx[(size_t)b * N + n] = arg;
+  if (live) {
+    const size_t row = ((size_t)b * N + n) * d;
+    idx[(size_t)b * N + n] =
+        L1 ? arg : refine(p1 + row, p2 + row, bk, d, alpha, beta, arg, best2, arg2);
+  }
 }
 
 template <typename T, int DP>
@@ -175,9 +252,10 @@ constexpr int TC_MT = 64;                   // bank rows per tile, 32 a column h
 constexpr int TC_BUFS = 3;                  // tile buffers: scored, normed, being stored
 
 // shared memory: the tile buffers [TC_BUFS][TC_MT][DP + 8] bf16, their bank
-// rows' norms [TC_BUFS][TC_MT], the column halves' minima [2][TC_ROWS] x 2
+// rows' norms [TC_BUFS][TC_MT], the column halves' two best [2][TC_ROWS] x 4
+// (scores and indices)
 __host__ __device__ constexpr size_t tc_smem(int dp) {
-  return (size_t)TC_BUFS * TC_MT * (dp + 8) * 2 + TC_BUFS * TC_MT * 4 + 2 * 2 * TC_ROWS * 4;
+  return (size_t)TC_BUFS * TC_MT * (dp + 8) * 2 + TC_BUFS * TC_MT * 4 + 2 * 4 * TC_ROWS * 4;
 }
 
 // the bf16 pair (k, k + 1) of row `row` of x (N rows of d), zero past d and N
@@ -211,15 +289,6 @@ __device__ __forceinline__ float fragment_norm(const uint32_t (&a)[KSTEPS][4], i
   return s;
 }
 
-// (score, index) b replaces a when it is smaller, or equal with a smaller
-// index: the lexicographic min, which keeps the first occurrence
-__device__ __forceinline__ void lex_min(float& best, int& arg, float b, int i) {
-  if (b < best || (b == best && i < arg)) {
-    best = b;
-    arg = i;
-  }
-}
-
 template <int DP>
 __global__ void __launch_bounds__(TC_THREADS)
     buddy_mma_kernel(const bf16* __restrict__ p1, const bf16* __restrict__ p2,
@@ -231,8 +300,8 @@ __global__ void __launch_bounds__(TC_THREADS)
   extern __shared__ __align__(16) unsigned char tc_shared[];
   bf16* tiles = reinterpret_cast<bf16*>(tc_shared);                    // [TC_BUFS][TC_MT][KS]
   float* tnorm = reinterpret_cast<float*>(tiles + TC_BUFS * TC_MT * KS);  // [TC_BUFS][TC_MT]
-  float* mbest = tnorm + TC_BUFS * TC_MT;                                // [2][TC_ROWS]
-  int* marg = reinterpret_cast<int*>(mbest + 2 * TC_ROWS);               // [2][TC_ROWS]
+  float* mbest = tnorm + TC_BUFS * TC_MT;                                // [2][2][TC_ROWS]
+  int* marg = reinterpret_cast<int*>(mbest + 4 * TC_ROWS);               // [2][2][TC_ROWS]
   const int b = blockIdx.y, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3, rg = warp & 3, half = warp >> 2;
   const int row0 = blockIdx.x * TC_ROWS + rg * 16;  // the warp's first row
@@ -311,8 +380,9 @@ __global__ void __launch_bounds__(TC_THREADS)
     }
   };
 
-  float best[2] = {__int_as_float(0x7f800000), __int_as_float(0x7f800000)};  // +inf
-  int arg[2] = {0, 0};
+  // per row hh: the two best (score, index) of the thread's columns
+  float best[2] = {inf_f(), inf_f()}, best2[2] = {inf_f(), inf_f()};
+  int arg[2] = {0, 0}, arg2[2] = {0, 0};
   const int ntiles = (M + TC_MT - 1) / TC_MT;
   __syncthreads();  // the zero fill
   load(0);
@@ -361,36 +431,44 @@ __global__ void __launch_bounds__(TC_THREADS)
           const float s1 = fmaxf(__fmaf_rn(-2.f, c1[j][2 * hh + e], __fadd_rn(n1[hh], bn)), 0.f);
           const float s2 = fmaxf(__fmaf_rn(-2.f, c2[j][2 * hh + e], __fadd_rn(n2[hh], bn)), 0.f);
           const float score = __fadd_rn(__fmul_rn(alpha, s1), __fmul_rn(beta, s2));
-          if (score < best[hh]) {
-            best[hh] = score;
-            arg[hh] = m0 + col;
-          }
+          push2(best[hh], arg[hh], best2[hh], arg2[hh], score, m0 + col);
         }
       }
     if (it + 2 < ntiles) store((it + 2) % TC_BUFS, m0 + 2 * TC_MT);  // last read in it - 1
     __syncthreads();
   }
-  // the quad's lanes hold the same rows: merge them, then the column halves
+  // the quad's lanes hold the same rows: merge their two best, then the
+  // column halves', then refine the row's two best
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
-    for (int o = 1; o < 4; o <<= 1)
-      lex_min(best[hh], arg[hh], __shfl_xor_sync(0xffffffffu, best[hh], o),
-              __shfl_xor_sync(0xffffffffu, arg[hh], o));
+    for (int o = 1; o < 4; o <<= 1) {
+      const float c1 = __shfl_xor_sync(0xffffffffu, best[hh], o);
+      const int j1 = __shfl_xor_sync(0xffffffffu, arg[hh], o);
+      const float c2 = __shfl_xor_sync(0xffffffffu, best2[hh], o);
+      const int j2 = __shfl_xor_sync(0xffffffffu, arg2[hh], o);
+      merge2(best[hh], arg[hh], best2[hh], arg2[hh], c1, j1, c2, j2);
+    }
   if (t == 0) {
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
-      mbest[half * TC_ROWS + rg * 16 + g + 8 * hh] = best[hh];
-      marg[half * TC_ROWS + rg * 16 + g + 8 * hh] = arg[hh];
+      const int r = half * 2 * TC_ROWS + rg * 16 + g + 8 * hh;
+      mbest[r] = best[hh];
+      marg[r] = arg[hh];
+      mbest[r + TC_ROWS] = best2[hh];
+      marg[r + TC_ROWS] = arg2[hh];
     }
   }
   __syncthreads();
   const int n = blockIdx.x * TC_ROWS + tid;
   if (tid < TC_ROWS && n < N) {
-    float s = mbest[tid];
-    int i = marg[tid];
-    lex_min(s, i, mbest[TC_ROWS + tid], marg[TC_ROWS + tid]);
-    idx[(size_t)b * N + n] = i;
+    float s1 = mbest[tid], s2 = mbest[TC_ROWS + tid];
+    int i1 = marg[tid], i2 = marg[TC_ROWS + tid];
+    merge2(s1, i1, s2, i2, mbest[2 * TC_ROWS + tid], marg[2 * TC_ROWS + tid],
+           mbest[3 * TC_ROWS + tid], marg[3 * TC_ROWS + tid]);
+    const size_t row = ((size_t)b * N + n) * d;
+    idx[(size_t)b * N + n] =
+        refine(p1 + row, p2 + row, bank + (size_t)b * M * d, d, alpha, beta, i1, s2, i2);
   }
 }
 

@@ -5,8 +5,8 @@ Reproduces the reference's validate.py:18-113 contract: batch-1 no-grad
 loop, the exact uint8 round-trip metric recipe, optional PNG dumps
 (optionally side-by-side with GT), a per-image `_metrics.txt` log, and mean
 +/- 95% normal-approximation confidence intervals. The "bicubic" /
-"nearest" baselines and the self-ensemble wait for ROADMAP.md Queue A,
-item 3.
+"nearest" EXP.NAME substitution (validate.py:48-51) gives the baseline
+upscalers; TPU.SELF_ENSEMBLE wraps the generator in the x8 self-ensemble.
 """
 
 from __future__ import annotations
@@ -22,11 +22,6 @@ from srgan_st_tpu_torch.ops.color import bgr2ycbcr
 from srgan_st_tpu_torch.ops.metrics import psnr as psnr_fn
 from srgan_st_tpu_torch.ops.metrics import ssim as ssim_fn
 from srgan_st_tpu_torch.ops.metrics import tensor2img
-
-BASELINE_TODO = ("the bicubic/nearest baselines wait for ops/resize.py and "
-                 "models/baselines.py (ROADMAP.md Queue A, item 3)")
-ENSEMBLE_TODO = ("the x8 self-ensemble waits for eval/ensemble.py "
-                 "(ROADMAP.md Queue A, item 3)")
 
 
 def confidence_interval(data, confidence: float = 0.95) -> float:
@@ -117,15 +112,14 @@ def make_generator_apply(config, variables, device=None):
     """Eval-mode generator `fn(lr_nhwc) -> sr_nhwc` (a float32 tensor on
     `device`) with running BN statistics, from a JAX-format variables tree.
     Runs on CUDA unless `device` says otherwise. With
-    config.TPU.TILED_EVAL, wraps the halo-tiled applier (numpy out)."""
+    config.TPU.TILED_EVAL, wraps the halo-tiled applier (numpy out), and
+    with config.TPU.SELF_ENSEMBLE the x8 self-ensemble around it."""
     from srgan_st_tpu_torch.core.device import resolve_device
     from srgan_st_tpu_torch.models.generator import Generator
     from srgan_st_tpu_torch.train.checkpoint import (
         generator_state_dict_from_variables,
     )
 
-    if config.TPU.get("SELF_ENSEMBLE"):
-        raise NotImplementedError(ENSEMBLE_TODO)
     dev = resolve_device(device)
     g_model = Generator.from_config(config)
     g_model.load_state_dict(generator_state_dict_from_variables(variables))
@@ -144,6 +138,10 @@ def make_generator_apply(config, variables, device=None):
             apply_fn, upscale=config.DATA.UPSCALE_FACTOR,
             halo=generator_halo(config.MODEL.G_N_RCB, config.DATA.UPSCALE_FACTOR),
         )
+    if config.TPU.get("SELF_ENSEMBLE"):
+        from srgan_st_tpu_torch.eval.ensemble import self_ensemble
+
+        apply_fn = self_ensemble(apply_fn)
     return apply_fn
 
 
@@ -151,17 +149,19 @@ def test(config, save_images: bool = True, g_path: str | None = None,
          concat_w_gt: bool = False, device=None) -> tuple[float, float]:
     """Test a generator on the configured paired test set (with
     DATA.SYNTHETIC, on the seeded synthetic pairs the training loops
-    validate on)."""
+    validate on); EXP.NAME "bicubic" / "nearest" tests the baseline
+    upscaler instead (reference validate.py:28-58)."""
+    from srgan_st_tpu_torch.models.baselines import baseline
     from srgan_st_tpu_torch.train.checkpoint import load_params_npz
     from srgan_st_tpu_torch.train.utils import make_test_pairs
 
-    if config.EXP.NAME in ("bicubic", "nearest"):
-        raise NotImplementedError(BASELINE_TODO)
     pairs = make_test_pairs(config)
-    if not g_path:
-        g_path = f"results/{config.EXP.NAME}/g_best.npz"
-    variables = load_params_npz(g_path)
-    apply_fn = make_generator_apply(config, variables, device=device)
+    if config.EXP.NAME in ("bicubic", "nearest"):
+        apply_fn = baseline(config, device)
+    else:
+        if not g_path:
+            g_path = f"results/{config.EXP.NAME}/g_best.npz"
+        apply_fn = make_generator_apply(config, load_params_npz(g_path), device=device)
     return validate(
         apply_fn, pairs, config,
         save_images=save_images, concat_with_gt=concat_w_gt, save_metrics=True,
@@ -179,7 +179,10 @@ def main(argv=None) -> None:
 
     from srgan_st_tpu_torch.core.config import Config
 
-    parser = argparse.ArgumentParser(description="Run evaluation on a model.")
+    parser = argparse.ArgumentParser(
+        description="Run evaluation on a model. If --exp_name is 'bicubic' or "
+        "'nearest' the corresponding baseline upscaler is evaluated instead of "
+        "a trained generator.")
     parser.add_argument("--exp_name", type=str, required=True)
     parser.add_argument("--test_set", type=str, default="Set5")
     parser.add_argument("--data_root", type=str, default="data")
@@ -190,7 +193,7 @@ def main(argv=None) -> None:
     parser.add_argument("--tiled", action="store_true",
                         help="halo-tiled inference for large images")
     parser.add_argument("--ensemble", action="store_true",
-                        help="geometric x8 self-ensemble (not ported yet)")
+                        help="geometric x8 self-ensemble (eval/ensemble.py)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device (default cuda)")
     args = parser.parse_args(argv)

@@ -8,7 +8,9 @@
 | fused_trunk.py  | csrc/fused_trunk.cu  | fused_trunk.py `_kernel` |
 | buddy_select.py | csrc/buddy_select.cu | buddy_select.py `_buddy_kernel` |
 
-Each wrapper counts its launches in a module-level integer.
+Each wrapper counts its launches in a module-level integer. xpack_trunk.py
+has no kernel: the JAX module it ports is plain XLA, so its eval trunk is
+plain torch, and its training trunk is packed_trunk.py's.
 """
 
 

@@ -7,7 +7,13 @@ For each batch element and each row n of the candidate patches,
 
 with s the squared l2 distance (clamped at 0) or the l1 distance, scores in
 f32 from inputs upcast to f32, ties to the first occurrence (as torch.min
-and jnp.argmin). `buddy_select_index` returns the (B, N) int32 indices: on
+and jnp.argmin). With l2 both the kernels and the plain version keep each
+row's two best by the f32 expansion |p|^2 + |q|^2 - 2 p.q and return the
+one whose exact score (p - q)^2, summed in f64 in feature order, is
+smaller (the lower index on an exact tie): the expansion cancels, and
+its rounding can order two close rows either way (csrc/buddy_select.cu,
+"Near ties"). The JAX kernel keeps the expansion's order (ROADMAP.md Queue
+C). `buddy_select_index` returns the (B, N) int32 indices: on
 a CUDA tensor it launches a hand-written kernel of csrc/buddy_select.cu,
 chosen by the function: bf16 inputs with l2 scores take the tensor-core
 kernel ("mma": the cross terms by mma.sync, exact bf16 products into f32),
@@ -45,17 +51,53 @@ _SIGNATURES = {"buddy_select_bf16": [_P] * 4 + [_I] * 4 + [_F, _F, _I, _P],
 MAX_D = 160  # feature width the kernel takes (ksize 7 gives 3 * 49 = 147)
 
 
+def _exact_scores(p1, p2, rows, alpha: float, beta: float) -> torch.Tensor:
+    """alpha |p1 - q|^2 + beta |p2 - q|^2 in f64 for p1, p2 (B, N, d) and
+    rows (B, N, k, d) -> (B, N, k), summed over the features in order as
+    the kernels' `exact_score` does, alpha and beta taken as f32."""
+    a, c = (p.double()[:, :, None] for p in (p1, p2))
+    q = rows.double()
+    s1 = s2 = torch.zeros(q.shape[:-1], dtype=torch.float64, device=q.device)
+    for k in range(q.shape[-1]):
+        s1 = s1 + (a[..., k] - q[..., k]) ** 2
+        s2 = s2 + (c[..., k] - q[..., k]) ** 2
+    f32 = lambda v: float(torch.tensor(v, dtype=torch.float32))  # noqa: E731
+    return f32(alpha) * s1 + f32(beta) * s2
+
+
+@torch.no_grad()
+def expansion_scores(p1, p2, bank, alpha: float = 1.0, beta: float = 1.0,
+                     dist_norm: str = "l2") -> torch.Tensor:
+    """The (B, N, M) f32 scores alpha * d(p1, bank) + beta * d(p2, bank) by
+    ops/pairwise.py from inputs upcast to f32 (l2: ||p||^2 + ||q||^2 -
+    2 p.q, the cross term a batched product with TF32 off)."""
+    bank = bank.float()
+    return (alpha * batch_pairwise_distance(p1.float(), bank, dist_norm)
+            + beta * batch_pairwise_distance(p2.float(), bank, dist_norm))
+
+
 @torch.no_grad()
 def buddy_select_reference(p1, p2, bank, alpha: float = 1.0, beta: float = 1.0,
                            dist_norm: str = "l2") -> torch.Tensor:
-    """The plain version: f32 upcast, alpha * d(p1, bank) + beta * d(p2,
-    bank) by ops/pairwise.py (l2: ||p||^2 + ||q||^2 - 2 p.q, the cross term
-    a batched product with TF32 off), argmin over the bank (first
-    occurrence). Returns (B, N) int32."""
-    bank = bank.float()
-    score = (alpha * batch_pairwise_distance(p1.float(), bank, dist_norm)
-             + beta * batch_pairwise_distance(p2.float(), bank, dist_norm))
-    return torch.argmin(score, dim=2).to(torch.int32)
+    """The plain version: the argmin of `expansion_scores` over the bank
+    (first occurrence); with l2, of that row and the next best (the first
+    occurrence among the rest) the one with the smaller exact score, as the
+    kernels refine. Returns (B, N) int32."""
+    score = expansion_scores(p1, p2, bank, alpha, beta, dist_norm)
+    i1 = torch.argmin(score, dim=2, keepdim=True)
+    if dist_norm != "l2":
+        return i1[..., 0].to(torch.int32)
+    rest = score.scatter(2, i1, float("inf"))
+    i2 = torch.argmin(rest, dim=2, keepdim=True)
+    two = torch.cat([i1, i2], dim=2)  # (B, N, 2)
+    b, n, _ = two.shape
+    rows = torch.gather(bank, 1, two.reshape(b, 2 * n, 1).expand(-1, -1, bank.shape[-1]))
+    e = _exact_scores(p1, p2, rows.reshape(b, n, 2, -1), alpha, beta)
+    e1, e2 = e[..., 0], e[..., 1]
+    j1, j2 = i1[..., 0], i2[..., 0]
+    take = (torch.isfinite(torch.gather(rest, 2, i2)[..., 0])
+            & ((e2 < e1) | ((e2 == e1) & (j2 < j1))))
+    return torch.where(take, j2, j1).to(torch.int32)
 
 
 def _launch(p1, p2, bank, alpha, beta, dist_norm) -> torch.Tensor:

@@ -6,13 +6,15 @@ whatever the compute dtype; with `dtype` both images are first cast to it,
 as the JAX package's `_cast_pair` does. The buddy losses select with
 kernels/buddy_select.py: `pallas` (the JAX package's spec key) False forces
 the plain version, None or True take the hand-written kernel on a CUDA
-tensor. ContentVGG (`content_loss_vgg`) waits for ROADMAP.md Queue A.
+tensor. `content_loss_vgg` compares VGG19 tap activations
+(models/vgg.py).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from srgan_st_tpu_torch.core.device import compute_dtype
 from srgan_st_tpu_torch.kernels.buddy_select import (
@@ -164,6 +166,32 @@ def content_loss_discriminator(sr, gt, d_apply, layer_weights, criterion="mse"):
     crit = _elementwise_criterion(criterion)
     sr_feats = d_apply(imagenet_normalize(sr))
     gt_feats = d_apply(imagenet_normalize(gt))
+    loss = 0.0
+    for name, weight in layer_weights.items():
+        loss = loss + weight * crit(sr_feats[name], gt_feats[name])
+    return loss
+
+
+def content_loss_vgg(sr, gt, vgg_apply=None, layer_weights=None, criterion="mse",
+                     remat=False, vgg_pair=None):
+    """VGG19 perceptual content loss (reference loss.py:11-74, the GramGAN
+    recipe): both images ImageNet-normalized, each tap's activations
+    compared by the weighted elementwise criterion.
+
+    `vgg_apply` (the default) runs two forwards differentiated by autograd;
+    `remat` recomputes the sr branch's forward in the backward instead of
+    saving its activations. `vgg_pair` (models/vgg.py
+    make_vgg19_frozen_pair, opt-in through spec["pair"]) runs both in one
+    batch-concatenated forward with a hand-written sr-only backward."""
+    crit = _elementwise_criterion(criterion)
+    if vgg_pair is not None:
+        sr_feats, gt_feats = vgg_pair(imagenet_normalize(sr), imagenet_normalize(gt))
+    else:
+        def sr_branch(z):
+            return vgg_apply(imagenet_normalize(z))
+
+        sr_feats = checkpoint(sr_branch, sr, use_reentrant=False) if remat else sr_branch(sr)
+        gt_feats = vgg_apply(imagenet_normalize(gt))
     loss = 0.0
     for name, weight in layer_weights.items():
         loss = loss + weight * crit(sr_feats[name], gt_feats[name])

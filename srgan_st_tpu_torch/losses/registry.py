@@ -6,8 +6,9 @@ handles it by name, with the live discriminator, as the reference does
 (train.py:135-136). Specs of the image criteria run at TPU.COMPUTE_DTYPE
 unless they pin a "dtype". The buddy kinds keep the JAX package's spec key
 "pallas": False forces the plain selection, None (the default) the
-hand-written kernel on CUDA tensors. "content_vgg" raises until
-ROADMAP.md Queue A item 2.
+hand-written kernel on CUDA tensors. The frozen feature extractors of
+"content_vgg" and "content_disc" live on the step's device, moved there at
+their first call.
 """
 
 from __future__ import annotations
@@ -39,8 +40,56 @@ _SIMPLE_KINDS = {
     "st": F.st_loss,
 }
 
-CONTENT_VGG_TODO = ("criterion kind 'content_vgg' (ContentVGG and models/vgg.py) is "
-                    "not ported yet (ROADMAP.md Queue A, item 2)")
+
+def content_vgg(config, spec: dict):
+    """The frozen VGG19 of ContentVGG at TPU.COMPUTE_DTYPE, tapped at
+    MODEL.G_LOSS.VGG19_LAYERS: the npz of spec["weights"] or
+    MODEL.G_LOSS.VGG19_WEIGHTS (tools/convert_vgg19.py's format). A missing
+    file raises, unless spec["allow_random_init"]: then a fresh VGG19
+    initialized from a torch generator seeded with 0."""
+    from srgan_st_tpu_torch.core.device import compute_dtype
+    from srgan_st_tpu_torch.models.vgg import VGG19Features, init_vgg19, load_vgg19_npz
+
+    taps = tuple(config.MODEL.G_LOSS.VGG19_LAYERS)
+    model = VGG19Features(taps, dtype=compute_dtype(config.TPU.COMPUTE_DTYPE))
+    path = spec.get("weights", config.MODEL.G_LOSS.VGG19_WEIGHTS)
+    try:
+        model.load_state_dict(load_vgg19_npz(path, taps))
+    except FileNotFoundError:
+        if not spec.get("allow_random_init", False):
+            raise FileNotFoundError(
+                f"VGG19 weights not found at '{path}'. Convert the "
+                "torchvision IMAGENET1K_V1 checkpoint once with "
+                "tools/convert_vgg19.py, or set spec['allow_random_init']=True "
+                "for testing.") from None
+        init_vgg19(model, torch.Generator().manual_seed(0))
+    return model
+
+
+def _on_device(model: torch.nn.Module, x: torch.Tensor) -> torch.nn.Module:
+    if next(model.parameters()).device != x.device:
+        model.to(x.device)  # a frozen extractor lives on the step's device
+    return model
+
+
+def _build_content_vgg(config, spec: dict) -> Callable:
+    from srgan_st_tpu_torch.models.vgg import make_vgg19_frozen_pair
+
+    layer_weights = dict(config.MODEL.G_LOSS.VGG19_LAYERS)
+    model = content_vgg(config, spec)
+    criterion = spec.get("criterion", "mse")
+    if spec.get("pair", False):
+        pair = make_vgg19_frozen_pair(model)
+
+        def vgg_pair(sr, gt):
+            _on_device(model, sr)
+            return pair(sr, gt)
+
+        return functools.partial(F.content_loss_vgg, layer_weights=layer_weights,
+                                 criterion=criterion, vgg_pair=vgg_pair)
+    return functools.partial(
+        F.content_loss_vgg, layer_weights=layer_weights, criterion=criterion,
+        vgg_apply=lambda x: _on_device(model, x)(x), remat=spec.get("remat", False))
 
 
 def content_discriminator(config, spec: dict) -> torch.nn.Module:
@@ -80,9 +129,7 @@ def _build_content_disc(config, spec: dict) -> Callable:
     model = content_discriminator(config, spec)
 
     def d_apply(x):
-        if next(model.parameters()).device != x.device:
-            model.to(x.device)  # the content D lives on the step's device
-        return model(x, train=False, taps=taps)
+        return _on_device(model, x)(x, train=False, taps=taps)
 
     return functools.partial(F.content_loss_discriminator, d_apply=d_apply,
                              layer_weights=layer_weights,
@@ -99,7 +146,7 @@ def build_one(config, name: str, spec: dict) -> Callable | None:
     if kind == "adversarial":
         return None
     if kind == "content_vgg":
-        raise NotImplementedError(CONTENT_VGG_TODO)
+        return _build_content_vgg(config, spec)
     if kind == "content_disc":
         return _build_content_disc(config, spec)
     if kind in _SIMPLE_KINDS:

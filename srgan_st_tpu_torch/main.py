@@ -6,8 +6,9 @@ scheduler map onto it; reference main.py:27-47), then train and test:
 
     python -m srgan_st_tpu_torch run --job_index 1 [--set GROUP.FIELD=VALUE] [--device cpu]
 
-Jobs 1, 3 and 4 run; jobs 0 and 2 need ContentVGG, which raises until
-ROADMAP.md Queue A item 2.
+Every job runs. Jobs 0 and 2 (ContentVGG) read the VGG19 weights at
+MODEL.G_LOSS.VGG19_WEIGHTS, an npz in tools/convert_vgg19.py's format
+(HWIO kernels under torchvision's `features.{i}.weight` / `.bias` keys).
 """
 
 from __future__ import annotations
@@ -55,7 +56,10 @@ def main(argv=None) -> None:
 
     parser = argparse.ArgumentParser(
         description="Run one experiment of the ST-comparison sweep, selected "
-        "by job index (array-job compatible).")
+        "by job index (array-job compatible): 0 PatchwiseST + ContentVGG, "
+        "1 PatchwiseST + ContentDiscriminator, 2 ST + ContentVGG, "
+        "3 ST + ContentDiscriminator, 4 the pixel baseline. The ContentVGG "
+        "jobs read MODEL.G_LOSS.VGG19_WEIGHTS (tools/convert_vgg19.py's npz).")
     parser.add_argument("--job_index", type=int, default=None,
                         help="experiment index; default: the job_index "
                         "environment variable set by the scheduler")

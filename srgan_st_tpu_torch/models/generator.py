@@ -17,10 +17,12 @@ to the compute dtype at use, as the JAX package's are.
 `forward(x, train=True)` normalizes with batch statistics and updates the
 running statistics in place (the JAX package's mutable batch_stats). The
 trunk then runs as per-block modules ("unfused") or, with
-trunk_mode="packed" in a bf16 train step, through the hand-written K4/K5
-kernels (kernels/packed_trunk.py); "hybrid" is the plain forward with the
-K5 backward; "fused", in any train step, runs the K6 forward and its torch
-backward (kernels/fused_trunk.py). The last upsample block's shuffle is elided and the
+trunk_mode="packed" (the auto in a bf16 train step) inside its gate,
+through the hand-written K4/K5 kernels (kernels/packed_trunk.py); "hybrid"
+is the plain forward with the K5 backward; "fused", in any train step, runs
+the K6 forward and its torch backward (kernels/fused_trunk.py); "xpack"
+is "packed" in training and, in eval, kernels/xpack_trunk.py's trunk with
+each BatchNorm folded into its conv. The last upsample block's shuffle is elided and the
 reconstruction conv runs on its pre-shuffle activation
 (conv2d_subpixel_pre_shuffled), through the hand-written coarse conv kernel
 by default; TAIL_MODE="fused" runs the last up-conv, PReLU and conv3 as one
@@ -39,9 +41,7 @@ from srgan_st_tpu_torch.models.common import (
     BatchNorm, Conv2d, PReLU, TapConv, init_weights, pixel_shuffle,
 )
 
-_XPACK_TODO = ("trunk_mode='xpack' (the W-parity lane packing of the trunk as "
-               "plain convs) is not ported yet (ROADMAP.md Queue A, item 1)")
-_TRUNK_MODES = ("unfused", "packed", "hybrid", "fused")
+_TRUNK_MODES = ("unfused", "packed", "hybrid", "fused", "xpack", "xpack_eval")
 
 
 class ResidualConvBlock(nn.Module):
@@ -119,8 +119,6 @@ class Generator(nn.Module):
         self.upscale = upscale
         self.dtype = dtype
         if trunk_mode is not None and trunk_mode not in _TRUNK_MODES:
-            if trunk_mode.startswith("xpack"):
-                raise NotImplementedError(_XPACK_TODO)
             raise ValueError(f"unknown trunk_mode {trunk_mode!r}")
         self.trunk_mode = trunk_mode
         self.tail_mode = tail_mode
@@ -212,27 +210,58 @@ class Generator(nn.Module):
 
         return x.dtype == torch.bfloat16 and fits(x.shape, x.dtype)
 
+    def _trunk_mode(self, train: bool, x: torch.Tensor) -> str:
+        """The trunk path (the JAX package's generator.py:191-262). Auto is
+        "packed" (the K4/K5 kernels) in a bf16 train step, where the JAX
+        package's auto is xpack, and "unfused" otherwise: paired on the
+        H100, a packed GAN step took 0.52-0.61 (Adversarial) and 0.66-0.70
+        (run job 0) of an unfused one (PERF.md, "Where the time goes"). In
+        a train step "xpack" is "packed": the JAX xpack trunk is K4/K5's
+        function in a TPU lane layout. In eval, an explicit "xpack" takes
+        the BatchNorm-folded trunk and every other mode the unfused blocks
+        (the kernel trunks have no eval mode); "xpack_eval" is eval only
+        and takes even widths, as the JAX Generator does; "packed" and
+        "hybrid" run inside the K4/K5 gate, "fused" at any dtype and shape
+        (on CUDA its kernel raises on what it does not take). Elsewhere:
+        unfused."""
+        mode = self.trunk_mode or (
+            "packed" if train and self.dtype == torch.bfloat16 else "unfused")
+        if train and mode == "xpack_eval":
+            raise ValueError(
+                "trunk_mode='xpack_eval' is an eval-only formulation; use "
+                "trunk_mode='xpack' (eval resolves it to the BN-folded eval "
+                "trunk automatically)")
+        if train and mode == "xpack":
+            mode = "packed"
+        if not train:
+            mode = "xpack_eval" if mode.startswith("xpack") else "unfused"
+        if mode == "xpack_eval" and x.shape[2] % 2:
+            return "unfused"
+        if mode in ("packed", "hybrid") and not self._packed_ok(x):
+            return "unfused"
+        return mode
+
     def _trunk(self, x: torch.Tensor, train: bool) -> torch.Tensor:
-        """The residual trunk on NHWC x; NHWC out. Auto runs the unfused
-        blocks in eval and in training (the JAX package's bf16-train auto,
-        xpack, is a TPU lane packing of the same function). The kernel
-        trunks run only in a train step, as in the JAX package (generator.py:
-        224-262), and read the blocks' parameters stacked: "packed" and
-        "hybrid" inside the K4/K5 gate (else the unfused blocks), "fused"
-        at any dtype and shape (on CUDA its kernel raises on what it does
-        not take)."""
-        mode = self.trunk_mode or "unfused"
-        if (mode == "unfused" or not train
-                or (mode in ("packed", "hybrid") and not self._packed_ok(x))):
+        """The residual trunk on NHWC x; NHWC out. Every path but the
+        unfused blocks reads the blocks' parameters stacked, and in a train
+        step feeds the batch moments it returns to the running-stat EMA."""
+        mode = self._trunk_mode(train, x)
+        if mode == "unfused":
             h = x.permute(0, 3, 1, 2)
             for blk in self.trunk:
                 h = blk(h, train)
             return h.permute(0, 2, 3, 1)
         from srgan_st_tpu_torch.kernels.fused_trunk import fused_trunk
         from srgan_st_tpu_torch.kernels.packed_trunk import hybrid_trunk, packed_trunk
+        from srgan_st_tpu_torch.kernels.xpack_trunk import xpack_trunk_eval
 
+        operands = stack_rcb_params(self.trunk)
+        if mode == "xpack_eval":  # the running statistics m1s, v1s, m2s, v2s
+            running = [torch.stack([getattr(blk.rcb[i], name) for blk in self.trunk])
+                       for i in (1, 4) for name in ("running_mean", "running_var")]
+            return xpack_trunk_eval(x, *operands, *running, 1e-5)
         fn = {"fused": fused_trunk, "hybrid": hybrid_trunk, "packed": packed_trunk}[mode]
-        y, stats = fn(x.contiguous(), *stack_rcb_params(self.trunk), 1e-5)
+        y, stats = fn(x.contiguous(), *operands, 1e-5)
         nelem = x.numel() // x.shape[-1]
         for i, blk in enumerate(self.trunk):
             blk.rcb[1].update_running(stats[i, 0], stats[i, 1], nelem)

@@ -130,3 +130,8 @@ def resize_bicubic(x: torch.Tensor, scale: float, method: str = "matlab",
     if quantize:
         out = torch.round(255.0 * out) / 255.0
     return out
+
+
+def nearest_upscale(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """Nearest-neighbour NHWC upscale (reference bicubic.py:5-12)."""
+    return x.repeat_interleave(factor, dim=1).repeat_interleave(factor, dim=2)

@@ -9,11 +9,15 @@ exactly as the kernel indexes its operands and merges its minima.
   32 half + 8 j + 2 t + e: run through the PTX fragment layout, they give
   the cross term p . q.
 - The selection: a thread's columns of every bank tile scanned in
-  increasing m with a strict `<`, the lexicographic (score, index) merge
-  over the 4 lanes of a quad (xor 1, xor 2) and then over the two column
-  halves, and the last bank tile's columns past M never compared. Against
-  the plain version within kernels/_checks.py's near-tie gate, and on a
-  duplicate-heavy bank, exactly the f64 first-occurrence argmin.
+  increasing m with a strict `<`, keeping its two best (score, index); the
+  lexicographic merge of those pairs over the 4 lanes of a quad (xor 1,
+  xor 2) and then over the two column halves; the last bank tile's
+  columns past M never compared; then the refine: of the row's two best
+  by the f32 expansion, the one whose exact score (p - q)^2 summed in f64
+  is smaller, the first occurrence on an exact tie. Against the plain
+  version within kernels/_checks.py's near-tie gate, on a duplicate-heavy
+  bank exactly the f64 first-occurrence argmin, and on near ties that the
+  expansion's rounding splits, the f64 argmin.
 """
 
 import numpy as np
@@ -125,35 +129,65 @@ def _kernel_scores(p1, p2, bank, alpha, beta):
     return out[0] + out[1]
 
 
-def _lex_min(best, arg, b, i):
-    take = (b < best) | ((b == best) & (i < arg))
-    return torch.where(take, b, best), torch.where(take, i, arg)
+def _lex_less(s, i, t, j):
+    return (s < t) | ((s == t) & (i < j))
 
 
-def _emulate_select(scores, m_real, mask=True):
+def _merge2(a, b):
+    """`merge2`: the two best of two lists (b1, i1, b2, i2) of the two best."""
+    b1, i1, b2, i2 = a
+    c1, j1, c2, j2 = b
+    first_c = _lex_less(c1, j1, b1, i1)
+    sec_c2 = _lex_less(c2, j2, b1, i1)
+    sec_c1 = _lex_less(c1, j1, b2, i2)
+    w = torch.where
+    return (w(first_c, c1, b1), w(first_c, j1, i1),
+            w(first_c, w(sec_c2, c2, b1), w(sec_c1, c1, b2)),
+            w(first_c, w(sec_c2, j2, i1), w(sec_c1, j1, i2)))
+
+
+def _exact_scores(p1, p2, bank, alpha, beta):
+    """`exact_score`: alpha |p1 - q|^2 + beta |p2 - q|^2, (p - q)^2 summed
+    in f64."""
+    q = bank.double()[:, None]
+    return (alpha * ((p1.double()[:, :, None] - q) ** 2).sum(-1)
+            + beta * ((p2.double()[:, :, None] - q) ** 2).sum(-1))
+
+
+def _emulate_select(scores, m_real, mask=True, exact=None):
     """(B, N, Mp) scores (Mp a whole number of tiles; columns past m_real
     what the kernel would compute there) -> the kernel's indices. Owner of
     column m: column half (m % 64) // 32 and lane t = (m % 8) // 2 of the
     rows' quad; each owner scans its columns in increasing m with a strict
-    `<` (best +inf, index 0 to start); then xor 1 and xor 2 over the quad,
-    then the two halves."""
+    `<`, keeping its two best (+inf, index 0 to start); then xor 1 and
+    xor 2 over the quad, then the two halves; then, given the (B, N, Mp)
+    `exact` scores, the refine."""
     bsz, n, mp = scores.shape
-    best = torch.full((2, 4, bsz, n), INF)
+    best, best2 = torch.full((2, 4, bsz, n), INF), torch.full((2, 4, bsz, n), INF)
     arg = torch.zeros((2, 4, bsz, n), dtype=torch.long)
+    arg2 = torch.zeros((2, 4, bsz, n), dtype=torch.long)
     for m in range(mp):
         if mask and m >= m_real:
             continue  # past the bank: never compared
         half, t = (m % TC_MT) // 32, (m % 8) // 2
         s = scores[..., m]
-        upd = s < best[half, t]
-        best[half, t] = torch.where(upd, s, best[half, t])
-        arg[half, t] = torch.where(upd, torch.full_like(arg[half, t], m), arg[half, t])
+        mm = torch.full_like(arg[half, t], m)
+        upd1 = s < best[half, t]
+        upd2 = ~upd1 & (s < best2[half, t])
+        best2[half, t] = torch.where(upd1, best[half, t], torch.where(upd2, s, best2[half, t]))
+        arg2[half, t] = torch.where(upd1, arg[half, t], torch.where(upd2, mm, arg2[half, t]))
+        best[half, t] = torch.where(upd1, s, best[half, t])
+        arg[half, t] = torch.where(upd1, mm, arg[half, t])
+    lists = (best, arg, best2, arg2)
     for off in (1, 2):  # __shfl_xor_sync over the quad: every lane reads the old values
-        pb, pa = best[:, [t ^ off for t in range(4)]], arg[:, [t ^ off for t in range(4)]]
-        best, arg = _lex_min(best, arg, pb, pa)
-    b0, a0 = best[0, 0], arg[0, 0]
-    _, a = _lex_min(b0, a0, best[1, 0], arg[1, 0])
-    return a.to(torch.int32)
+        lists = _merge2(lists, tuple(x[:, [t ^ off for t in range(4)]] for x in lists))
+    b1, i1, b2, i2 = _merge2(tuple(x[0, 0] for x in lists), tuple(x[1, 0] for x in lists))
+    if exact is not None:
+        e1 = torch.gather(exact, 2, i1[..., None])[..., 0]
+        e2 = torch.gather(exact, 2, i2[..., None])[..., 0]
+        take = torch.isfinite(b2) & ((e2 < e1) | ((e2 == e1) & (i2 < i1)))
+        i1 = torch.where(take, i2, i1)
+    return i1.to(torch.int32)
 
 
 def _padded(bank):
@@ -168,7 +202,8 @@ def _padded(bank):
 def test_merge_matches_the_plain_selection(b, n, m, d):
     rng = np.random.default_rng(3)
     p1, p2, bank = _bf16(rng, b, n, d), _bf16(rng, b, n, d), _bf16(rng, b, m, d)
-    idx = _emulate_select(_kernel_scores(p1, p2, _padded(bank), 1.0, 0.5), m)
+    idx = _emulate_select(_kernel_scores(p1, p2, _padded(bank), 1.0, 0.5), m,
+                          exact=_exact_scores(p1, p2, _padded(bank), 1.0, 0.5))
     ref = bs.buddy_select_reference(p1, p2, bank, 1.0, 0.5)
     scores = _checks.f64_scores(p1, p2, bank, 1.0, 0.5)
     assert bool(_checks.near_tie_agrees(idx, ref, scores).all())
@@ -190,7 +225,8 @@ def test_duplicate_heavy_bank_keeps_the_first_occurrence():
     p1, p2, bank = grid(b, n, d), grid(b, n, d), grid(b, m, d)
     bank[:, m // 2:] = bank[:, : m - m // 2]
     p1, p2, bank = p1.bfloat16(), p2.bfloat16(), bank.bfloat16()
-    idx = _emulate_select(_kernel_scores(p1, p2, _padded(bank), 1.0, 1.0), m)
+    idx = _emulate_select(_kernel_scores(p1, p2, _padded(bank), 1.0, 1.0), m,
+                          exact=_exact_scores(p1, p2, _padded(bank), 1.0, 1.0))
     want = torch.argmin(_checks.f64_scores(p1, p2, bank), dim=2)
     assert torch.equal(idx.long(), want)
     assert bool((idx < m // 2).all())
@@ -206,10 +242,28 @@ def test_last_partial_tile_is_masked():
     p1, p2 = _bf16(rng, b, n, d, scale=0.1), _bf16(rng, b, n, d, scale=0.1)
     bank = (_bf16(rng, b, m, d, scale=0.1).float() + 3.0).bfloat16()
     scores = _kernel_scores(p1, p2, _padded(bank), 1.0, 1.0)
-    idx = _emulate_select(scores, m)
+    exact = _exact_scores(p1, p2, _padded(bank), 1.0, 1.0)
+    idx = _emulate_select(scores, m, exact=exact)
     ref = bs.buddy_select_reference(p1, p2, bank)
     assert bool(_checks.near_tie_agrees(idx, ref, _checks.f64_scores(p1, p2, bank)).all())
-    assert int(_emulate_select(scores, m, mask=False).min()) >= m
+    assert int(_emulate_select(scores, m, mask=False, exact=exact).min()) >= m
+
+
+def test_refine_resolves_near_ties_the_expansion_splits():
+    """On kernels/_checks.py near_tie_bank the expansion alone (no refine)
+    misses the f64 argmin on some rows, as the JAX kernel's order does; with
+    the refine every row gets it, in the emulated kernel and in the plain
+    version alike."""
+    p1, p2, bank, best = _checks.near_tie_bank(np.random.default_rng(7), 2, 64)
+    m = bank.shape[1]
+    want = torch.argmin(_checks.f64_scores(p1, p2, bank), dim=2)
+    assert torch.equal(want, best)
+    scores = _kernel_scores(p1, p2, bank, 1.0, 1.0)
+    assert not torch.equal(_emulate_select(scores, m).long(), want)
+    assert not torch.equal(torch.argmin(bs.expansion_scores(p1, p2, bank), dim=2), want)
+    idx = _emulate_select(scores, m, exact=_exact_scores(p1, p2, bank, 1.0, 1.0))
+    assert torch.equal(idx.long(), want)
+    assert torch.equal(bs.buddy_select_reference(p1, p2, bank).long(), want)
 
 
 def test_dispatch_is_by_function():

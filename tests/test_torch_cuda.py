@@ -675,3 +675,151 @@ def test_generator_fused_trunk_launches_k6(dev):
     assert counts["packed_trunk_fwd"] == 0 and counts["packed_trunk_bwd"] == 0
     for name, p in g.named_parameters():
         assert p.grad is not None and torch.isfinite(p.grad).all(), name
+
+
+def _content_vgg_taps_and_grad(device, dtype_name, npz, sr, gt):
+    """ContentVGG on the VGG19 of `npz` at `dtype_name` on `device`: (loss,
+    {tap: activation of sr}, d loss / d sr)."""
+    from srgan_st_tpu_torch.core.config import Config
+    from srgan_st_tpu_torch.losses.registry import build_one, content_vgg
+    from srgan_st_tpu_torch.ops.color import imagenet_normalize
+
+    cfg = Config()
+    cfg.TPU.COMPUTE_DTYPE = dtype_name
+    cfg.MODEL.G_LOSS.VGG19_WEIGHTS = npz
+    fn = build_one(cfg, "ContentVGG", {"kind": "content_vgg"})
+    s = sr.to(device).requires_grad_()
+    loss = fn(s, gt.to(device))
+    (grad,) = torch.autograd.grad(loss, s)
+    with torch.no_grad():
+        taps = content_vgg(cfg, {}).to(device)(imagenet_normalize(sr.to(device)))
+    return (float(loss.detach()), {k: v.float().cpu() for k, v in taps.items()},
+            grad.float().cpu())
+
+
+@pytest.mark.cuda
+def test_content_vgg_bf16_within_envelope(dev, tmp_path):
+    """bf16 ContentVGG on the card against f32 ContentVGG on the card, on
+    the same seeded images and weights: every tap activation and the sr
+    gradient within 2x the envelope the same criterion loses in bf16 on the
+    CPU (bf16 - f32 there), the loss finite; the f32 taps on the card within
+    1e-4 of max|ref| of the CPU's (TF32 off). The f32 gradient is held to
+    the CPU's in test_content_vgg_f32_grad_within_cpu_error."""
+    from chip_smoke import write_vgg_npz
+
+    npz = write_vgg_npz(str(tmp_path / "vgg19.npz"))
+    rng = np.random.default_rng(20)
+    sr = torch.from_numpy(rng.random((2, 48, 48, 3), np.float32))
+    gt = torch.from_numpy(rng.random((2, 48, 48, 3), np.float32))
+    cpu32, cpu16 = (_content_vgg_taps_and_grad("cpu", d, npz, sr, gt)
+                    for d in ("float32", "bfloat16"))
+    gpu32, gpu16 = (_content_vgg_taps_and_grad(dev, d, npz, sr, gt)
+                    for d in ("float32", "bfloat16"))
+    assert np.isfinite(gpu16[0]) and np.isfinite(gpu32[0])
+    for t in gpu32[1]:
+        assert _err(gpu32[1][t], cpu32[1][t]) <= 1e-4 * float(cpu32[1][t].abs().max()), t
+    pairs = [(gpu32[1][t], gpu16[1][t], cpu32[1][t], cpu16[1][t]) for t in gpu32[1]]
+    pairs.append((gpu32[2], gpu16[2], cpu32[2], cpu16[2]))
+    for g32, g16, c32, c16 in pairs:
+        env = _err(c16, c32)
+        assert 0 < env and _err(g16, g32) <= 2 * env, (_err(g16, g32), env)
+
+
+def _content_vgg_grad_f64(npz, sr, gt):
+    """ContentVGG's d loss / d sr in f64 on the CPU: VGG19Features at f64
+    and each tap's weighted mean squared difference, as content_loss_vgg
+    computes them in f32."""
+    from srgan_st_tpu_torch.core.config import Config
+    from srgan_st_tpu_torch.models.vgg import VGG19Features, load_vgg19_npz
+    from srgan_st_tpu_torch.ops.color import imagenet_normalize
+
+    layers = dict(Config().MODEL.G_LOSS.VGG19_LAYERS)
+    vgg = VGG19Features(tuple(layers), dtype=torch.float64)
+    vgg.load_state_dict(load_vgg19_npz(npz, tuple(layers)))
+    s = sr.double().requires_grad_()
+    fs, fg = vgg(imagenet_normalize(s)), vgg(imagenet_normalize(gt.double()))
+    loss = sum(w * ((fs[t] - fg[t]) ** 2).mean() for t, w in layers.items())
+    return torch.autograd.grad(loss, s)[0]
+
+
+@pytest.mark.cuda
+def test_content_vgg_f32_grad_within_cpu_error(dev, tmp_path):
+    """f32 ContentVGG's sr gradient on the card (TF32 off) against the f64
+    gradient on the CPU, over 5 seeded image pairs: its error within 2x the
+    CPU f32 gradient's own error against the same f64 gradient. Each
+    seed's readings (errors over max|f64 grad|) are printed. No fixed
+    epsilon on card against CPU fits: the gradient jumps where f32 rounding
+    takes a ReLU or max-pool decision the other way from f64, on either
+    device, and the jump covers a receptive field (on the H100, card
+    against CPU: ~2e-5 on four seeds, 7.9e-3 on seed 20, where the CPU's
+    error spans ~3,000 of the 13,824 input values and the card's does
+    not)."""
+    from chip_smoke import write_vgg_npz
+
+    npz = write_vgg_npz(str(tmp_path / "vgg19.npz"))
+    readings = []
+    for seed in range(20, 25):
+        rng = np.random.default_rng(seed)
+        sr = torch.from_numpy(rng.random((2, 48, 48, 3), np.float32))
+        gt = torch.from_numpy(rng.random((2, 48, 48, 3), np.float32))
+        g64 = _content_vgg_grad_f64(npz, sr, gt)
+        cpu = _content_vgg_taps_and_grad("cpu", "float32", npz, sr, gt)[2].double()
+        gpu = _content_vgg_taps_and_grad(dev, "float32", npz, sr, gt)[2].double()
+        scale = float(g64.abs().max())
+        e_cpu, e_gpu = (float((g - g64).abs().max()) for g in (cpu, gpu))
+        readings.append({"seed": seed, "max_abs_grad": scale, "cpu_f32": e_cpu / scale,
+                         "card_f32": e_gpu / scale,
+                         "card_vs_cpu": float((gpu - cpu).abs().max()) / scale})
+        print("content_vgg f32 grad", readings[-1])
+    for r in readings:
+        assert 0 < r["cpu_f32"] and r["card_f32"] <= 2 * r["cpu_f32"], readings
+
+
+@pytest.mark.cuda
+def test_xpack_eval_within_envelope_of_unfused(dev):
+    """The eval generator with trunk_mode="xpack" (BatchNorm folded into the
+    trunk's convs) on the card against the unfused eval generator: f32
+    within 1e-4 (TF32 off), bf16 within 2x the unfused network's own bf16
+    envelope (bf16 - f32 on the card); no trunk kernel launches."""
+    from srgan_st_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from srgan_st_tpu_torch.models.generator import Generator, random_variables
+    from srgan_st_tpu_torch.train.checkpoint import generator_state_dict_from_variables
+
+    sd = generator_state_dict_from_variables(random_variables(0, num_rcb=4))
+    lr = torch.from_numpy(np.random.default_rng(21).random((1, 64, 96, 3), np.float32)).to(dev)
+    out = {}
+    reset_launch_counts()
+    for dtype in (torch.float32, torch.bfloat16):
+        for mode in (None, "xpack"):
+            g = Generator(num_rcb=4, dtype=dtype, trunk_mode=mode)
+            g.load_state_dict(sd)
+            with torch.inference_mode():
+                out[(dtype, mode)] = g.to(dev).eval()(lr)
+    counts = launch_counts()
+    assert counts["packed_trunk_fwd"] == counts["fused_trunk"] == 0
+    ref = out[(torch.float32, None)]
+    assert _err(out[(torch.float32, "xpack")], ref) <= 1e-4
+    env = _err(out[(torch.bfloat16, None)], ref)
+    assert 0 < env and _err(out[(torch.bfloat16, "xpack")], ref) <= 2 * env
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_buddy_refine_picks_the_exact_argmin(dev, dtype):
+    """On kernels/_checks.py's near-tie bank, where the f32 expansion's
+    rounding orders each patch's two close bank rows, K7 (the tensor-core
+    kernel for bf16, the SIMT kernel for f32) returns every patch's
+    f64-best row: its refine scores the expansion's two best exactly. The
+    plain version refines alike, on the card and on the CPU, and returns
+    the same rows."""
+    from srgan_st_tpu_torch.kernels import _checks
+    from srgan_st_tpu_torch.kernels import buddy_select as bs
+
+    p1, p2, bank, best = _checks.near_tie_bank(np.random.default_rng(7), 3, 200, dtype=dtype)
+    idx = bs.buddy_select_index(p1.to(dev), p2.to(dev), bank.to(dev))
+    torch.cuda.synchronize()
+    assert bs.last_variant == ("mma" if dtype == torch.bfloat16 else "simt")
+    assert torch.equal(idx.cpu().long(), best)
+    ref = bs.buddy_select_reference(p1.to(dev), p2.to(dev), bank.to(dev))
+    assert torch.equal(ref.cpu().long(), best)
+    assert torch.equal(bs.buddy_select_reference(p1, p2, bank).long(), best)

@@ -194,12 +194,17 @@ def test_load_params_npz_with_target_keeps_mismatched(tmp_path):
 
 
 def test_unported_modes_raise():
-    """Train mode runs, with the trunk "fused" (K6, ported) too; the
-    unported trunk "xpack" raises, naming its ROADMAP.md queue."""
+    """Train mode runs, with the trunks "fused" (K6) and "xpack" ("packed"
+    in training, here outside its gate) too; no
+    trunk mode is left unported: "xpack_eval" raises in a train step only
+    (the JAX ValueError), and an unknown mode raises at construction."""
     g = Generator(channels=16, num_rcb=1, upscale=2)
     x = torch.zeros(1, 4, 4, 3)
     assert g(x, train=True).shape == (1, 8, 8, 3)
-    fused = Generator(channels=16, num_rcb=1, upscale=2, trunk_mode="fused")
-    assert fused(x, train=True).shape == (1, 8, 8, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
-        Generator(channels=16, num_rcb=1, upscale=2, trunk_mode="xpack")(x)
+    for mode in ("fused", "xpack"):
+        assert Generator(channels=16, num_rcb=1, upscale=2,
+                         trunk_mode=mode)(x, train=True).shape == (1, 8, 8, 3)
+    with pytest.raises(ValueError, match="eval-only"):
+        Generator(channels=16, num_rcb=1, upscale=2, trunk_mode="xpack_eval")(x, train=True)
+    with pytest.raises(ValueError, match="unknown trunk_mode"):
+        Generator(channels=16, num_rcb=1, upscale=2, trunk_mode="xpack2")

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 from srgan_st_tpu_torch.kernels import buddy_select as bs
 from srgan_st_tpu_torch.kernels._checks import near_tie_agrees
 from srgan_st_tpu_torch.losses import functions as T
+from tests.test_torch_vgg import write_vgg_npz
 
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens")
 GOLD = np.load(os.path.join(GOLDENS, "reference_goldens.npz"))
@@ -409,9 +410,10 @@ def test_content_disc_fresh_d_is_seeded():
 # ---------------------------------------------------------------------------
 # the registry and the experiment configs
 
-def test_registry_builds_every_kind_but_content_vgg():
+def test_registry_builds_every_kind_but_content_vgg(tmp_path):
     """Every kind of the JAX registry builds, with the same weights and the
-    step's compute dtype in the spec; content_vgg raises naming its item."""
+    step's compute dtype in the spec; content_vgg, the last kind ported,
+    builds from its VGG19 npz and raises FileNotFoundError without one."""
     from srgan_st_tpu_torch.core.config import Config
     from srgan_st_tpu_torch.losses.registry import build_criterions
 
@@ -428,8 +430,14 @@ def test_registry_builds_every_kind_but_content_vgg():
     cfg.remove_g_criterion("ST")
     assert "ST" not in cfg.MODEL.G_LOSS.CRITERIONS
     cfg.add_g_criterion("ContentVGG", {"kind": "content_vgg"})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A, item 2"):
+    cfg.MODEL.G_LOSS.VGG19_WEIGHTS = str(tmp_path / "absent.npz")
+    with pytest.raises(FileNotFoundError, match="VGG19 weights not found"):
         build_criterions(cfg)
+    cfg.MODEL.G_LOSS.VGG19_WEIGHTS = write_vgg_npz(tmp_path / "vgg19.npz")
+    crits = build_criterions(cfg)
+    assert crits["ContentVGG"][1] == 1.0
+    assert crits["ContentVGG"][0].keywords["layer_weights"] == dict(
+        cfg.MODEL.G_LOSS.VGG19_LAYERS)
 
 
 @pytest.mark.parametrize("job", range(5))
@@ -514,11 +522,11 @@ def test_gan_golden_first_steps(tmp_path, golden, criteria):
 
 @pytest.mark.parametrize("job", [1, 3, 4, 0, 2])
 def test_run_command_on_cpu(tmp_path, monkeypatch, capsys, job):
-    """`run --job_index j` at tiny width on the CPU: jobs 1 (PatchwiseST +
-    ContentDiscriminator), 3 (ST + ContentDiscriminator) and 4 (the pixel
-    baseline) train, then test on the synthetic pairs and write the
-    experiment's checkpoints, images and metrics; jobs 0 and 2 (ContentVGG)
-    raise naming its ROADMAP item before training."""
+    """`run --job_index j` at tiny width on the CPU: every job trains, then
+    tests on the synthetic pairs and writes the experiment's checkpoints,
+    images and metrics: 1 (PatchwiseST + ContentDiscriminator), 3 (ST +
+    ContentDiscriminator), 4 (the pixel baseline), and 0 and 2 (ContentVGG)
+    on a seeded VGG19 npz."""
     from srgan_st_tpu_torch.main import VARIANTS
 
     from srgan_st_tpu_torch.__main__ import main
@@ -531,10 +539,7 @@ def test_run_command_on_cpu(tmp_path, monkeypatch, capsys, job):
         argv += ["--set", s]
     name = VARIANTS[job][0]
     if job in (0, 2):
-        with pytest.raises(NotImplementedError, match="Queue A, item 2"):
-            main(argv)
-        assert not (tmp_path / "results").exists()
-        return
+        argv += ["--set", f"MODEL.G_LOSS.VGG19_WEIGHTS={write_vgg_npz(tmp_path / 'vgg19.npz')}"]
     main(argv)
     out = capsys.readouterr().out
     assert f"Running job: {job}" in out and f"Finished job: {job}" in out and "[Test]" in out

@@ -238,21 +238,32 @@ def test_entry_points_need_cuda_unless_cpu(gpath, monkeypatch, tmp_path):
 
 
 def test_unported_options_raise(gpath, tmp_path):
+    """Every serving option of the JAX CLI is ported (the x8 ensemble, the
+    baselines, artifacts); what raises is what the JAX CLI refuses: flags
+    that reconfigure a live model beside --artifact, and --ensemble on a
+    non-square fixed-shape artifact; a file that is not an artifact of the
+    port raises too."""
+    from srgan_st_tpu_torch.core.config import Config
     from srgan_st_tpu_torch.eval import infer
-    from srgan_st_tpu_torch.eval.validate import make_generator_apply
+    from srgan_st_tpu_torch.eval.export import export_generator, load_runner, save_artifact
     from srgan_st_tpu_torch.train.checkpoint import load_params_npz
 
-    base = ["--input", str(tmp_path), "--output", str(tmp_path / "o"),
-            "--gpath", gpath, "--device", "cpu"]
-    _write_png(tmp_path / "x.png", np.zeros((4, 4, 3)))
-    for extra in (["--artifact", "m.srganx"], ["--ensemble"],
-                  ["--exp_name", "bicubic"], ["--exp_name", "nearest"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    cfg = Config()
+    cfg.MODEL.G_N_CHANNEL, cfg.MODEL.G_N_RCB = 16, 2
+    art = str(tmp_path / "m.srganx")
+    save_artifact(art, *export_generator(cfg, load_params_npz(gpath), fixed_shape=(1, 4, 6),
+                                         device="cpu"))
+    _write_png(tmp_path / "x.png", np.zeros((4, 6, 3)))
+    base = ["--input", str(tmp_path / "x.png"), "--output", str(tmp_path / "o"),
+            "--device", "cpu", "--artifact", art]
+    for extra, match in ((["--gpath", gpath], "--gpath does not apply"),
+                         (["--tiled"], "--tiled does not apply"),
+                         (["--bf16"], "--bf16 does not apply"),
+                         (["--ensemble"], "must be square")):
+        with pytest.raises(SystemExit, match=match):
             infer.main(base + extra)
-    _, cfg = _configs()
-    cfg.TPU.SELF_ENSEMBLE = True
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_generator_apply(cfg, load_params_npz(gpath), device="cpu")
+    with pytest.raises(ValueError, match="not a srgan-st-tpu export artifact"):
+        load_runner(gpath, device="cpu")
 
 
 def test_cli_dispatch(capsys):
@@ -260,10 +271,195 @@ def test_cli_dispatch(capsys):
 
     main([])
     usage = capsys.readouterr().out
-    assert all(cmd in usage for cmd in ("infer", "validate", "warmup", "train"))
+    assert all(cmd in usage for cmd in ("infer", "validate", "warmup", "train", "run",
+                                        "export"))
     with pytest.raises(SystemExit) as e:
         main(["bench"])  # a command of the JAX package not ported yet
     assert e.value.code == 2
+
+
+# ---------------------------------------------------------------------------
+# the x8 self-ensemble, the baselines and the exported artifacts
+
+def test_dihedral_round_trips_match_jax():
+    """dihedral / dihedral_inverse are the JAX functions on a non-square
+    batch, and each inverse undoes its transform."""
+    from srgan_st_tpu.eval import ensemble as jens
+    from srgan_st_tpu_torch.eval import ensemble
+
+    x = np.random.default_rng(6).random((2, 5, 7, 3), np.float32)
+    for k in range(4):
+        for flip in (False, True):
+            y = ensemble.dihedral(x, k, flip)
+            np.testing.assert_array_equal(y, jens.dihedral(x, k, flip))
+            np.testing.assert_array_equal(ensemble.dihedral_inverse(y, k, flip), x)
+
+
+def test_self_ensemble_matches_jax(gpath):
+    """The x8 ensemble of the port's generator against the JAX package's
+    ensemble of its generator on the same weights and an odd, non-square
+    batch: within 1e-4 (the generators' f32 parity), and the port's
+    generator ran 8 times."""
+    from srgan_st_tpu.eval.ensemble import self_ensemble as jax_ensemble
+    from srgan_st_tpu.eval.validate import make_generator_apply as jax_apply
+    from srgan_st_tpu.train.checkpoint import load_params_npz as jax_load
+    from srgan_st_tpu_torch.eval.ensemble import self_ensemble
+    from srgan_st_tpu_torch.eval.validate import make_generator_apply
+    from srgan_st_tpu_torch.train.checkpoint import load_params_npz
+
+    jcfg, cfg = _configs()
+    for c in (jcfg, cfg):
+        c.MODEL.G_N_CHANNEL, c.MODEL.G_N_RCB = 16, 2
+    lr = np.random.default_rng(7).random((1, 7, 9, 3), np.float32)
+    want = np.asarray(jax_ensemble(jax_apply(jcfg, jax_load(gpath)))(lr))
+    live = make_generator_apply(cfg, load_params_npz(gpath), device="cpu")
+    shapes = []
+    got = self_ensemble(lambda x: shapes.append(x.shape) or live(x))(lr)
+    assert got.dtype == np.float32 and got.shape == want.shape == (1, 28, 36, 3)
+    assert sorted(set(shapes)) == [(1, 7, 9, 3), (1, 9, 7, 3)] and len(shapes) == 8
+    np.testing.assert_allclose(got, want, atol=1e-4)
+    cfg.TPU.SELF_ENSEMBLE = True
+    np.testing.assert_array_equal(
+        make_generator_apply(cfg, load_params_npz(gpath), device="cpu")(lr), got)
+
+
+@pytest.mark.parametrize("name", ["bicubic", "nearest"])
+def test_baselines_match_jax(name):
+    """BicubicUpscaler (MATLAB bicubic x4 with its quantization) and
+    NearestNeighbourUpscaler equal the JAX baselines bit for bit on a
+    uint8-valued odd batch."""
+    from srgan_st_tpu.models import baselines as jb
+    from srgan_st_tpu_torch.models import baselines
+
+    cls = {"bicubic": "BicubicUpscaler", "nearest": "NearestNeighbourUpscaler"}[name]
+    lr = np.random.default_rng(8).integers(0, 256, (2, 9, 11, 3)).astype(np.float32) / 255
+    want = np.asarray(getattr(jb, cls)(4)(jnp_asarray(lr)))
+    got = getattr(baselines, cls)(4, device="cpu")(lr)
+    assert got.device.type == "cpu" and got.shape == (2, 36, 44, 3)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def jnp_asarray(x):
+    import jax.numpy as jnp
+
+    return jnp.asarray(x)
+
+
+def test_validate_baseline_matches_jax(tmp_path):
+    """test() with EXP.NAME "bicubic" scores the baseline on the pair set,
+    as the JAX package's test() does: (PSNR, SSIM) within 1e-6."""
+    from srgan_st_tpu_torch.eval import validate
+
+    jval = importlib.import_module("srgan_st_tpu.eval.validate")
+    rng = np.random.default_rng(9)
+    gt_dir, lr_dir = tmp_path / "GTmod12", tmp_path / "LRbicx4"
+    gt_dir.mkdir()
+    lr_dir.mkdir()
+    for i in range(2):
+        hr = rng.random((32, 40, 3))
+        _write_png(gt_dir / f"{i}.png", hr)
+        _write_png(lr_dir / f"{i}.png", hr.reshape(8, 4, 10, 4, 3).mean((1, 3)))
+    jcfg, cfg = _configs()
+    for c in (jcfg, cfg):
+        c.EXP.NAME = "bicubic"
+        c.DATA.TEST_GT_IMAGES_DIR, c.DATA.TEST_LR_IMAGES_DIR = str(gt_dir), str(lr_dir)
+        c.DATA.TEST_SR_IMAGES_DIR = str(tmp_path / "out")
+    want = jval.test(jcfg, save_images=False)
+    got = validate.test(cfg, save_images=True, device="cpu")
+    np.testing.assert_allclose(got, want, atol=1e-6)
+    assert "_metrics.txt" in os.listdir(tmp_path / "out" / "bicubic")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_export_round_trip_is_bit_exact(gpath, tmp_path, dtype):
+    """A dynamic-shape artifact, saved and loaded, equals the live plain
+    generator bit for bit at two sizes (one odd) and two batch sizes; a
+    fixed-shape one at its shape; the header carries the JAX header's
+    fields with `torch_version` and `devices` in place of `jax_version` and
+    `platforms`."""
+    from srgan_st_tpu_torch.core.config import Config
+    from srgan_st_tpu_torch.eval import export as ex
+    from srgan_st_tpu_torch.train.checkpoint import load_params_npz
+
+    cfg = Config()
+    cfg.MODEL.G_N_CHANNEL, cfg.MODEL.G_N_RCB = 16, 2
+    cfg.TPU.COMPUTE_DTYPE = dtype
+    variables = load_params_npz(gpath)
+    rng = np.random.default_rng(10)
+    for fixed, sizes in ((None, [(1, 8, 10), (2, 7, 9)]), ((1, 6, 8), [(1, 6, 8)])):
+        path = str(tmp_path / f"g{fixed is None}.srganx")
+        ex.save_artifact(path, *ex.export_generator(cfg, variables, fixed_shape=fixed,
+                                                    device="cpu"))
+        meta = ex.inspect_artifact(path)
+        assert meta["format"] == "srgan-st-tpu-torch/torch.export"
+        assert (meta["upscale"], meta["channels"], meta["num_rcb"]) == (4, 16, 2)
+        assert meta["compute_dtype"] == dtype and meta["devices"] == ["cpu"]
+        assert meta["fixed_shape"] == (list(fixed) if fixed else None)
+        assert meta["torch_version"] == torch.__version__ and meta["n_params"] > 0
+        run = ex.load_runner(path, device="cpu")
+        assert run.meta == meta
+        live = ex.plain_eval_generator(cfg, variables, fixed is None, "cpu")
+        for b, h, w in sizes:
+            lr = torch.from_numpy(rng.random((b, h, w, 3), np.float32))
+            with torch.inference_mode():
+                want = live(lr)
+            got = run(lr.numpy())
+            assert got.dtype == torch.float32 and got.shape == (b, 4 * h, 4 * w, 3)
+            assert torch.equal(got, want), (fixed, (b, h, w))
+
+
+def test_infer_cli_serves_artifact_ensemble_and_bicubic(gpath, tmp_path):
+    """`export` then `infer --artifact` writes the live generator's PNG;
+    `--ensemble` and `--exp_name bicubic` write theirs, each the image the
+    JAX CLI writes from the same input within one level (the generators
+    agree to 1e-4; the baseline bit for bit)."""
+    from PIL import Image
+
+    from srgan_st_tpu.eval import infer as jinfer
+    from srgan_st_tpu_torch.__main__ import main
+
+    img = tmp_path / "a.png"
+    _write_png(img, np.random.default_rng(11).random((7, 9, 3)))
+    art = str(tmp_path / "g.srganx")
+    main(["export", "--gpath", gpath, "--out", art, "--device", "cpu"])
+    runs = {"live": ["--gpath", gpath], "artifact": ["--artifact", art],
+            "ensemble": ["--gpath", gpath, "--ensemble"],
+            "bicubic": ["--exp_name", "bicubic"]}
+    out = {}
+    for name, extra in runs.items():
+        main(["infer", "--input", str(img), "--output", str(tmp_path / name),
+              "--device", "cpu", *extra])
+        out[name] = np.asarray(Image.open(tmp_path / name / "a_x4.png"), np.int16)
+        assert out[name].shape == (28, 36, 3)
+    np.testing.assert_array_equal(out["artifact"], out["live"])
+    for name in ("ensemble", "bicubic"):
+        jinfer.main(["--input", str(img), "--output", str(tmp_path / f"jax-{name}"),
+                     *runs[name]])
+        want = np.asarray(Image.open(tmp_path / f"jax-{name}" / "a_x4.png"), np.int16)
+        assert np.abs(out[name] - want).max() <= (0 if name == "bicubic" else 1), name
+
+
+def test_validate_cli_ensemble_and_baseline(tmp_path, monkeypatch, capsys):
+    """`validate --ensemble` (the default-width generator, as the CLI
+    builds it) and `validate --exp_name nearest` run on a Set5-style layout
+    and write their metrics."""
+    from srgan_st_tpu_torch.__main__ import main
+    from srgan_st_tpu_torch.train.checkpoint import save_variables_npz
+
+    monkeypatch.chdir(tmp_path)
+    gpath = str(tmp_path / "g.npz")
+    save_variables_npz(gpath, random_variables(0))
+    rng = np.random.default_rng(12)
+    for sub, size in (("GTmod12", (16, 20)), ("LRbicx4", (4, 5))):
+        d = tmp_path / "data" / "Tiny" / sub
+        d.mkdir(parents=True)
+        _write_png(d / "0.png", rng.random((*size, 3)))
+    base = ["validate", "--test_set", "Tiny", "--data_root", "data", "--device", "cpu"]
+    main(base + ["--exp_name", "g", "--gpath", gpath, "--ensemble"])
+    main(base + ["--exp_name", "nearest"])
+    assert capsys.readouterr().out.count("[Test]") == 2
+    for name in ("g", "nearest"):
+        assert (tmp_path / "results" / "_test" / "Tiny" / name / "_metrics.txt").exists()
 
 
 def _port_sources():
