@@ -63,7 +63,10 @@ Then the training slice, bf16 with TRUNK_MODE="packed" unless named:
            (the plain forward, then K5 on its residuals, through
            `hybrid_trunk`) against the plain backward on the same
            residuals at the same shapes, with K5's gates and a second
-           run's bits;
+           run's bits (dal, in bf16: its per-block error rate against the
+           f64 evaluation of the same residuals within 2x the plain bf16
+           version's), then those gates over 10 seeded draws at each shape
+           (`seed_sweep`), each gate's worst ratio and the f64 yardsticks;
   train    seeded full-width G (16 RCB, 64 ch) and D (64 ch), batch 16 of
            synthetic uint8 96x96 patches, through warmup() then train()
            (3 batches each, D_UPDATE_INTERVAL=2) in a temporary working
@@ -81,7 +84,32 @@ Then the training slice, bf16 with TRUNK_MODE="packed" unless named:
            and unfused, by CUDA events (median of 10), and patches/s; then
            12 packed / unfused GAN step pairs timed in turns, with the
            median, min and max of the per-pair ratio;
-  profile  one GAN step of each trunk under torch.profiler.
+  profile  one GAN step of each trunk under torch.profiler;
+  data     a patches.pack.npy the size of DIV2K tiled at 96^2 (130,208
+           patches, 3.6 GB, written with open_memmap, each patch's first 8
+           bytes its index), which DATA.DEVICE_CACHE="auto" copies to the
+           card: for epochs 0 and 1 the resident and the host path give the
+           (seed, epoch) permutation's indices in the same order, and the
+           first and last batches bit for bit; ms per batch fetch to the
+           card, host and resident, in turns; train() (Adversarial, bf16,
+           packed, full width, global batch 16, 24 batches an epoch) from the
+           pack with DEVICE_CACHE on and off, 2 runs each in turns, its G and
+           GAN step times from the batches' hand-out times and patches/s at
+           the reference cadence, K4 = K5 = 1 per G step; then, from a pack
+           of 120^2 tiles with DATA.AUGMENT, the card's crop + augment equal
+           to the CPU function given the same draws (gt bit for bit, lr
+           within one 1/255 level) and a warmup() from that pack;
+  dist     two gloo ranks on the one card through warmup() and train()
+           (3 + 3 batches, full width, global batch 16): (a) sync-BN (f32,
+           the unfused trunk) against one process on the global batch:
+           losses within 1e-2 relative, parameters within 2.01 lr per Adam
+           update, running statistics within 1e-3 relative, both ranks bit
+           for bit; (b) LOCAL_BN (bf16, packed): K4 and K5 once per rank per
+           G step, kernel A once per G forward, running statistics and
+           parameters bit-identical across the ranks; (c) a one-rank NCCL
+           group through train's command-line entry; (d) the tiled eval of a
+           960x540 frame over the two ranks, bit for bit the one-rank output;
+           per-rank GAN step ms, noted as two ranks sharing one card.
 
 Then the structure-tensor loss study (`run`, job 1: Adversarial +
 PatchwiseST + ContentDiscriminator), bf16:
@@ -207,6 +235,7 @@ TRUNK_SHAPES = (((16, 24, 24, 64), 16), ((3, 22, 26, 64), 2), ((2, 12, 16, 128),
 EPS = 1e-5
 TRAIN_STEPS = 3  # batches per epoch of warmup() and train() in the train phase
 TRUNK_PAIRS = 12  # packed / unfused GAN step pairs timed in turns
+HYBRID_SEEDS = 10  # seeded draws at each TRUNK_SHAPES entry of the hybrid sweep
 
 
 def emit(phase: str, **fields) -> None:
@@ -891,27 +920,13 @@ def phase_kernel_trunk(gen, dev) -> tuple[dict, dict]:
                + [k for k, ok in deterministic.items() if not ok])
         if bad:
             raise AssertionError(f"packed_trunk at {shape}, n={n}: {bad} out of bounds")
-        # hybrid: K5 on the plain forward's residuals (ref, plain16)
-        hy = _hybrid_grads(x, p, dy)
-        hy16 = _hybrid_grads(xb, p, dyb)
-        hrb = pt._reference_backward(dy, *ref[1:], *bp, EPS)
-        hres32 = [t.float() for t in plain16[1:4]] + [plain16[4]]
-        hpb16 = pt._reference_backward(dyb, *plain16[1:], *bp, EPS)
-        hrb32 = pt._reference_backward(dyb.float(), *hres32, *_bwd_params(p16), EPS)
-        hsame = {"f32": all(torch.equal(a, b) for a, b in zip(hy, _hybrid_grads(x, p, dy))),
-                 "bf16": all(torch.equal(a, b) for a, b in zip(hy16, _hybrid_grads(xb, p, dyb)))}
-        torch.cuda.synchronize()
-        h32 = {k: _rel(a, b) for k, a, b in zip(GRAD_NAMES, hy, hrb)}
-        h16 = {k: (max_abs(a, r), max_abs(b, r))
-               for k, a, b, r in zip(GRAD_NAMES, hy16, hpb16, hrb32)}
-        emit("kernel", kernel="hybrid_trunk", shape=list(shape), n=n, f32_rel_err_bwd=h32,
-             bf16_err_and_envelope_bwd=h16, bitwise_repeatable=hsame)
-        bad = ([k for k, e in h32.items() if not e <= 1e-3]
-               + [k for k, (e, env) in h16.items() if not (env > 0 and e <= 2 * env)]
-               + [k for k, ok in hsame.items() if not ok])
+        # hybrid: K5 on the plain forward's residuals
+        hrec = _hybrid_case(x, p, dy, bits=True)
+        emit("kernel", kernel="hybrid_trunk", shape=list(shape), n=n, **hrec)
+        bad = [f"{k} {g}" for k, r in hrec["ratios"].items() for g in ("f32", "bf16")
+               if not r[g] <= 1] + [k for k, ok in hrec["bitwise_repeatable"].items() if not ok]
         if bad:
             raise AssertionError(f"hybrid_trunk at {shape}, n={n}: {bad} out of bounds")
-        del hy, hy16, hrb, hpb16, hrb32
         fwd_rec["errors"].append({"shape": list(shape), "f32_rel": f32_fwd, "bf16": bf16_fwd})
         bwd_rec["errors"].append({"shape": list(shape), "f32_rel": f32_bwd, "bf16": bf16_bwd})
         if shape == TRUNK_SHAPES[0][0]:
@@ -919,6 +934,91 @@ def phase_kernel_trunk(gen, dev) -> tuple[dict, dict]:
         del got, ref, gb, rb, got16, plain16, ref32, gb16, pb16, rb32
     _time_trunk(*timed, fwd_rec, bwd_rec)
     return fwd_rec, bwd_rec
+
+
+def _sweep_draw(dev, shape, n, seed):
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1000 + seed)
+    return _trunk_inputs(gen, dev, shape, n)
+
+
+def _hybrid_case(x, p, dy, bits: bool = False) -> dict:
+    """The "hybrid" gates on one draw, as ratios of error to bound per
+    gradient (a gate holds at <= 1). f32 (TF32 off): within 1e-3 max|ref|
+    of the plain backward on the plain forward's residuals. bf16: within 2x
+    the plain version's bf16-vs-f32 envelope, except dal: its per-block
+    error rate against the f64 evaluation of the same residuals within 2x
+    the plain bf16 version's (kernels/_checks.py dal_gate_ratio; dal is a
+    signed sum of ~B*H*W*C products, whose error over max|dal| a cancelling
+    sum inflates). Beside them, the f32 and bf16 errors of the kernel and of
+    the plain version against f64, over max|f64|. `bits`: a second run of
+    each gives the same bits."""
+    import torch
+
+    from srgan_st_tpu_torch.kernels import packed_trunk as pt
+    from srgan_st_tpu_torch.kernels._checks import dal_gate_ratio, trunk_backward_f64
+
+    def rel64(a, ref):
+        return float((a.double() - ref).abs().max() / ref.abs().max().clamp(min=1e-300))
+
+    bp = _bwd_params(p)
+    hy = _hybrid_grads(x, p, dy)
+    ref = pt._reference_forward(x, *p, EPS)
+    hrb = pt._reference_backward(dy, *ref[1:], *bp, EPS)
+    h64 = trunk_backward_f64(dy, *ref[1:], *bp, EPS)
+    xb, dyb = x.bfloat16(), dy.bfloat16()
+    p16 = [p[0].bfloat16().float(), p[1].bfloat16().float(), *p[2:]]
+    hy16 = _hybrid_grads(xb, p, dyb)
+    plain16 = pt._reference_forward(xb, *p, EPS)
+    hres32 = [t.float() for t in plain16[1:4]] + [plain16[4]]
+    hpb16 = pt._reference_backward(dyb, *plain16[1:], *bp, EPS)
+    hrb32 = pt._reference_backward(dyb.float(), *hres32, *_bwd_params(p16), EPS)
+    h64_16 = trunk_backward_f64(dyb, *plain16[1:], *_bwd_params(p16), EPS)
+    ratios = {}
+    for i, k in enumerate(GRAD_NAMES):
+        env = max_abs(hpb16[i], hrb32[i])
+        if k == "dal":
+            r16 = dal_gate_ratio(hy16[i], hpb16[i], h64_16[i], h64_16[8])
+        else:
+            r16 = max_abs(hy16[i], hrb32[i]) / (2 * env) if env > 0 else float("inf")
+        ratios[k] = {"f32": _rel(hy[i], hrb[i]) / 1e-3, "bf16": r16,
+                     "f32_kernel_vs_f64": rel64(hy[i], h64[i]),
+                     "f32_plain_vs_f64": rel64(hrb[i], h64[i]),
+                     "bf16_kernel_vs_f64": rel64(hy16[i], h64_16[i]),
+                     "bf16_plain_vs_f64": rel64(hpb16[i], h64_16[i])}
+    rec = {"ratios": ratios}
+    if bits:
+        rec["bitwise_repeatable"] = {
+            "f32": all(torch.equal(a, b) for a, b in zip(hy, _hybrid_grads(x, p, dy))),
+            "bf16": all(torch.equal(a, b) for a, b in zip(hy16, _hybrid_grads(xb, p, dyb)))}
+    torch.cuda.synchronize()
+    return rec
+
+
+def phase_hybrid_sweep(dev) -> dict:
+    """The "hybrid" gates (_hybrid_case) over HYBRID_SEEDS seeded draws at
+    each TRUNK_SHAPES entry, f32 and bf16: per gradient, the worst ratio of
+    each gate and the worst of each f64 yardstick, and every draw that
+    failed a gate."""
+    worst, failures = {}, []
+    for shape, n in TRUNK_SHAPES:
+        for seed in range(HYBRID_SEEDS):
+            ratios = _hybrid_case(*_sweep_draw(dev, shape, n, seed))["ratios"]
+            for k, r in ratios.items():
+                w = worst.setdefault(k, dict.fromkeys(r, 0.0))
+                for g, v in r.items():
+                    w[g] = max(w[g], v)
+                failures += [{"shape": list(shape), "seed": seed, "grad": k, "gate": g, **r}
+                             for g in ("f32", "bf16") if not r[g] <= 1]
+    rec = {"case": "seed_sweep", "seeds": HYBRID_SEEDS,
+           "shapes": [[list(s), n] for s, n in TRUNK_SHAPES],
+           "worst_ratio": worst, "failures": failures}
+    emit("kernel", kernel="hybrid_trunk", **rec)
+    if failures:
+        raise AssertionError(f"hybrid_trunk seed sweep: {len(failures)} gate failures")
+    return rec
 
 
 def _cudnn_trunk(x, p):
@@ -1190,6 +1290,506 @@ def phase_time_train(dev, batch) -> dict:
                                       "min": min(ratios), "max": max(ratios)}}
     emit("time", train="batch 16, 96x96 GT, x4, bf16", **rec)
     emit("profile", train="one GAN step (G + D)", **profiles)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# the data pipeline (packed archive, resident pack, crops, augmentation)
+
+# DIV2K's 800 training images tiled at 96^2, as the JAX package sizes its
+# HBM-resident pack (~3.6 GB, srgan_st_tpu/data/pipeline.py:370-374)
+PACK_PATCHES = 130_208
+DATA_STEPS = 24  # batches of each capped train() epoch from the pack
+DATA_RUNS = 2  # train() runs per DEVICE_CACHE setting, in turns
+FETCH_BATCHES = 200  # batches per fetch timing
+
+
+def _write_pack(path: str, n: int, size: int, seed: int = 0) -> None:
+    """A uint8 (n, size, size, 3) pack written with open_memmap: a seeded
+    4,096-patch block repeated, each patch's first 8 bytes its index
+    (little-endian int64), so that order checks are exact."""
+    block = np.random.default_rng(seed).integers(0, 256, (4096, size, size, 3), np.uint8)
+    pack = np.lib.format.open_memmap(path, mode="w+", dtype=np.uint8, shape=(n, size, size, 3))
+    for i in range(0, n, len(block)):
+        k = min(len(block), n - i)
+        chunk = block[:k].copy()
+        chunk.reshape(k, -1)[:, :8] = np.arange(i, i + k, dtype="<i8").view(np.uint8).reshape(k, 8)
+        pack[i:i + k] = chunk
+    pack.flush()
+    del pack
+
+
+def _codes(batch):
+    """The patch indices coded in a batch's first bytes (numpy int64)."""
+    import torch
+
+    head = batch.reshape(batch.shape[0], -1)[:, :8]
+    if isinstance(head, torch.Tensor):
+        head = head.cpu().numpy()
+    return np.ascontiguousarray(head).view("<i8")[:, 0]
+
+
+class _CappedSource:
+    """The first `k` batches of each epoch of `source`, with the host time
+    at which each was handed to the training loop (and the time the loop
+    asked for one more). The epoch's set-up (the resident copy) comes
+    before the first stamp."""
+
+    def __init__(self, source, k: int):
+        self.source, self.k, self.stamps = source, k, []
+
+    def __len__(self) -> int:
+        return self.k
+
+    def epoch(self, epoch_idx=None):
+        it = self.source.epoch(epoch_idx)
+        for _, batch in zip(range(self.k), it):
+            self.stamps.append(time.perf_counter())
+            yield batch
+        self.stamps.append(time.perf_counter())
+        it.close()
+
+
+def _capped_train(entry, cfg, dev, k: int):
+    """warmup() or train() (`entry`) with its source capped at k batches an
+    epoch and the synthetic validation pairs (the machine has no PIL to
+    decode a test set), in a temporary directory. Returns (state, the
+    capped source, launch counts, seconds)."""
+    import importlib
+
+    import torch
+
+    from srgan_st_tpu_torch.core.config import Config
+    from srgan_st_tpu_torch.data import pipeline
+    from srgan_st_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from srgan_st_tpu_torch.train.utils import make_test_pairs
+
+    module = importlib.import_module(entry.__module__)
+    capped = []
+
+    def source(config, device=None):
+        capped.append(_CappedSource(pipeline.make_train_source(config, device), k))
+        return capped[-1]
+
+    def pairs(config):
+        synthetic = Config()
+        synthetic.DATA.SYNTHETIC = True
+        return make_test_pairs(synthetic)
+
+    saved = module.make_train_source, module.make_test_pairs
+    module.make_train_source, module.make_test_pairs = source, pairs
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            state = entry(cfg, device=dev)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = launch_counts()
+        finally:
+            os.chdir(cwd)
+            module.make_train_source, module.make_test_pairs = saved
+    return state, capped[0], counts, seconds
+
+
+def _stamped_step_times(stamps) -> dict:
+    """ms per G step and per GAN step from a capped epoch's stamps: the
+    interval after batch i is step i (a D step too on even i, with
+    D_UPDATE_INTERVAL=2) and the next fetch; batch 0 (its log line waits
+    for the device) is left out."""
+    gaps = np.diff(np.asarray(stamps)) * 1e3
+    g_ms = float(np.median(gaps[1::2]))
+    gan_ms = float(np.median(gaps[2::2]))
+    return {"ms_per_g_step": g_ms, "ms_per_gan_step": gan_ms,
+            "patches_per_s_d_every_100": 16 / ((g_ms + (gan_ms - g_ms) / 100) / 1e3)}
+
+
+def phase_data(dev) -> dict:
+    """The packed archive at DIV2K's size, its resident copy and the train
+    step's crops and augmentation on the card."""
+    import torch
+
+    from srgan_st_tpu_torch.core.config import Config, apply_overrides
+    from srgan_st_tpu_torch.data.pipeline import PackedPatchSource
+    from srgan_st_tpu_torch.train.steps import _prepare_batch, draw_augment
+    from srgan_st_tpu_torch.train.train import train
+    from srgan_st_tpu_torch.train.warmup import warmup
+
+    rec = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        pack = os.path.join(tmp, "patches.pack.npy")
+        t0 = time.perf_counter()
+        _write_pack(pack, PACK_PATCHES, 96)
+        rec["pack"] = {"patches": PACK_PATCHES, "bytes": os.path.getsize(pack),
+                       "write_seconds": time.perf_counter() - t0, "cut": None}
+        auto = PackedPatchSource(pack, 16, device=dev)
+        rec["pack"]["auto_takes_the_resident_pack"] = auto.device_cache
+        # (1) order: the resident and the host path, epochs 0 and 1
+        order = {}
+        for epoch in (0, 1):
+            host = PackedPatchSource(pack, 16, device_cache=False, device=dev)
+            res = PackedPatchSource(pack, 16, device_cache=True, device=dev)
+            want = np.random.default_rng((0, epoch)).permutation(PACK_PATCHES)[:len(host) * 16]
+            host_codes, res_heads, ends = [], [], {}
+            for b, (hb, rb) in enumerate(zip(host.epoch(epoch), res.epoch(epoch))):
+                host_codes.append(_codes(hb))
+                res_heads.append(rb.reshape(16, -1)[:, :8].clone())
+                if b in (0, len(host) - 1):
+                    ends[b] = bool(torch.equal(torch.from_numpy(hb).to(dev), rb))
+            res_codes = _codes(torch.cat(res_heads))
+            host_codes = np.concatenate(host_codes)
+            order[epoch] = {"batches": len(host), "host_is_permutation": bool(
+                np.array_equal(host_codes, want)), "resident_equals_host": bool(
+                np.array_equal(res_codes, host_codes)), "first_last_batch_bits": ends}
+        rec["order"] = order
+        # (2) ms per batch fetch, to a batch on the card, in turns
+        fetch = {"host": [], "resident": []}
+        for _ in range(2):
+            for kind in fetch:
+                src = PackedPatchSource(pack, 16, device_cache=kind == "resident", device=dev)
+                it = src.epoch(5)
+                next(it)  # the resident copy, the prefetch thread's start
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _, b in zip(range(FETCH_BATCHES), it):
+                    torch.as_tensor(b).to(dev, non_blocking=False)
+                torch.cuda.synchronize()
+                fetch[kind].append((time.perf_counter() - t0) * 1e3 / FETCH_BATCHES)
+                it.close()
+        rec["ms_per_batch_fetch"] = fetch
+        # (3) train() from the pack, DEVICE_CACHE on and off in turns
+        runs = {"true": [], "false": []}
+        for _ in range(DATA_RUNS):
+            for cache in runs:
+                cfg = apply_overrides(Config(), [
+                    "TPU.COMPUTE_DTYPE=bfloat16", "TPU.TRUNK_MODE=packed",
+                    f"DATA.TRAIN_GT_IMAGES_DIR={tmp}", f"DATA.DEVICE_CACHE={cache}",
+                    "EXP.N_EPOCHS=1", "SOLVER.D_UPDATE_INTERVAL=2", "EXP.NAME=smoke-data"])
+                _, capped, counts, seconds = _capped_train(train, cfg, dev, DATA_STEPS)
+                runs[cache].append({**_stamped_step_times(capped.stamps), "seconds": seconds,
+                                    "launches": counts})
+        rec["train"] = {"steps_per_run": DATA_STEPS, "device_cache": runs}
+        want_counts = {"packed_trunk_fwd": DATA_STEPS, "packed_trunk_bwd": DATA_STEPS,
+                       "coarse_conv_s2d": DATA_STEPS + 3, "serving_tail": 0,
+                       "fused_trunk": 0, "buddy_select": 0}
+        del auto
+    # (4) 120^2 tiles, crop + augment on the card against the CPU function
+    with tempfile.TemporaryDirectory() as tmp:
+        pack = os.path.join(tmp, "patches.pack.npy")
+        _write_pack(pack, 64, 120, seed=1)
+        cfg = apply_overrides(Config(), ["DATA.TILE_SIZE=120", "DATA.AUGMENT=true"])
+        batch = next(PackedPatchSource(pack, 16, device_cache=True, device=dev).epoch(0))
+        draws = draw_augment(cfg, 3, 0, 16, (120, 120), True)
+        gt_c, lr_c = _prepare_batch(batch, cfg, dev, **draws)
+        gt_p, lr_p = _prepare_batch(batch.cpu(), cfg, "cpu", **draws)
+        lr_diff = (lr_c.cpu() - lr_p).abs()
+        aug = {"gt_bits_equal": bool(torch.equal(gt_c.cpu(), gt_p)),
+               "lr_max_abs_diff": float(lr_diff.max()),
+               "lr_equal_fraction": float((lr_diff == 0).float().mean()),
+               "flips": int(draws["flip"].sum()), "rot_counts": torch.bincount(
+                   draws["rot"], minlength=4).tolist()}
+        # warmup() from this pack through the entry point, cropped and augmented
+        wcfg = apply_overrides(Config(), [
+            "TPU.COMPUTE_DTYPE=bfloat16", f"DATA.TRAIN_GT_IMAGES_DIR={tmp}",
+            "DATA.TILE_SIZE=120", "DATA.AUGMENT=true", "EXP.N_EPOCHS=1",
+            "EXP.NAME=smoke-augment", "LOG_TRAIN_PERIOD=1"])
+        state, _, counts, _ = _capped_train(warmup, wcfg, dev, 4)
+        aug["warmup_launches"] = counts
+        aug["warmup_finite"] = bool(torch.isfinite(_flat(state.g_model)).all())
+    rec["crop_augment"] = aug
+    emit("data", **rec)
+    bad = [e for e, o in order.items() if not (o["host_is_permutation"]
+           and o["resident_equals_host"] and all(o["first_last_batch_bits"].values()))]
+    bad += [f"{c} launches {r['launches']}" for c, rs in runs.items() for r in rs
+            if r["launches"] != want_counts]
+    if not rec["pack"]["auto_takes_the_resident_pack"]:
+        bad.append("DEVICE_CACHE=auto did not take the pack")
+    if not (aug["gt_bits_equal"] and aug["lr_max_abs_diff"] <= 1 / 255 + 1e-6
+            and aug["warmup_finite"] and aug["warmup_launches"]["packed_trunk_fwd"] == 4):
+        bad.append(f"crop/augment {aug}")
+    if bad:
+        raise AssertionError(f"data phase: {bad}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# multi-GPU training: two gloo ranks on one card, a one-rank NCCL group
+
+DIST_STEPS = 3  # batches per epoch of warmup() and train() in the dist phase
+DIST_TIMED = 5  # GAN steps timed per rank
+
+
+def _dist_sets(dtype: str, local_bn: bool, name: str) -> list[str]:
+    return [f"TPU.COMPUTE_DTYPE={dtype}", f"TPU.LOCAL_BN={local_bn}", "DATA.SYNTHETIC=true",
+            f"DATA.SYNTHETIC_N_BATCHES={DIST_STEPS}", "EXP.N_EPOCHS=1",
+            "SOLVER.D_UPDATE_INTERVAL=2", "LOG_TRAIN_PERIOD=1", f"EXP.NAME={name}"]
+
+
+def _dist_run(sets: list[str], dev) -> dict:
+    """warmup() then train() with `sets` in the working directory: the
+    losses they print, their final states (numpy), the launch counts and
+    the ms of DIST_TIMED more GAN steps on this rank's share of a batch."""
+    import contextlib
+    import io
+    import re
+
+    import torch
+
+    from srgan_st_tpu_torch.core.config import Config, apply_overrides
+    from srgan_st_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from srgan_st_tpu_torch.losses.registry import build_criterions
+    from srgan_st_tpu_torch.parallel.mesh import make_mesh
+    from srgan_st_tpu_torch.train.steps import make_gan_steps
+    from srgan_st_tpu_torch.train.train import train
+    from srgan_st_tpu_torch.train.warmup import warmup
+
+    log = io.StringIO()
+    reset_launch_counts()
+    name = apply_overrides(Config(), sets).EXP.NAME
+    with contextlib.redirect_stdout(log):
+        w = warmup(apply_overrides(Config(), sets + [f"EXP.NAME={name}-warmup"]), device=dev)
+        t = train(apply_overrides(Config(), sets), device=dev)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    text = log.getvalue()
+    losses = {"G": [float(v) for v in re.findall(r"\[G loss: ([^\]]+)\]", text)],
+              "D": [float(v) for v in re.findall(r"\[D loss: ([^\]]+)\]", text)]}
+    states = {f"{p}/{k}": v.detach().float().cpu().numpy().copy()  # before the timed steps
+              for p, m in (("w", w.g_model), ("g", t.g_model), ("d", t.d_model))
+              for k, v in m.state_dict().items() if not k.endswith("num_batches_tracked")}
+    cfg = apply_overrides(Config(), sets)
+    mesh = make_mesh(cfg)
+    g_step, d_step = make_gan_steps(cfg, build_criterions(cfg), mesh)
+    batch = torch.from_numpy(np.random.default_rng(9).integers(
+        0, 256, (16, 96, 96, 3), np.uint8)[mesh.batch_slice(16)]).to(dev)
+
+    def gan():
+        _, sr, _ = g_step(t, batch)
+        d_step(t, batch, sr)
+
+    gan()
+    mesh.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DIST_TIMED):
+        gan()
+    torch.cuda.synchronize()
+    gan_ms = (time.perf_counter() - t0) * 1e3 / DIST_TIMED
+    return {"losses": losses, "states": states, "launches": counts, "ms_per_gan_step": gan_ms}
+
+
+def _dist_child(work: str, device: str) -> int:
+    """One of two gloo ranks on `device` (SRGAN_ST_* variables set by
+    phase_dist): sync-BN (f32, unfused) and LOCAL_BN (bf16, packed) runs of
+    warmup() + train(), and the tiled eval of the frame over the ranks."""
+    import torch
+    import torch.distributed as dist
+
+    from srgan_st_tpu_torch.core.config import Config, apply_overrides
+    from srgan_st_tpu_torch.eval.tiled import TiledApplier, generator_halo
+    from srgan_st_tpu_torch.eval.validate import make_generator_apply
+    from srgan_st_tpu_torch.parallel.distributed import initialize_distributed, process_info
+    from srgan_st_tpu_torch.parallel.mesh import make_mesh
+    from srgan_st_tpu_torch.train.checkpoint import load_params_npz
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    assert initialize_distributed(device=dev, backend="gloo")
+    rank = process_info()[0]
+    out = {}
+    for case, sets in (("sync", _dist_sets("float32", False, "smoke-dist-sync")),
+                       ("local", _dist_sets("bfloat16", True, "smoke-dist-local"))):
+        r = _dist_run(sets, dev)
+        out.update({f"{case}/{k}": v for k, v in r.pop("states").items()})
+        out[f"{case}/record"] = json.dumps(r)
+    cfg = apply_overrides(Config(), ["TPU.COMPUTE_DTYPE=bfloat16"])
+    apply_fn = make_generator_apply(cfg, load_params_npz(os.path.join(work, "g.npz")),
+                                    device=dev)
+    tiled = TiledApplier(apply_fn, 4, halo=generator_halo(), mesh=make_mesh(cfg))
+    t0 = time.perf_counter()
+    out["tiled"] = tiled(np.load(os.path.join(work, "frame.npy")))
+    out["tiled_seconds"] = np.array(time.perf_counter() - t0)
+    np.savez(os.path.join(work, f"rank{rank}.npz"), **out)
+    dist.destroy_process_group()
+    return 0
+
+
+def _run_procs(cmds: list[tuple[list[str], dict, str]], timeout: float) -> list[tuple]:
+    """Start one Python process per (args, env, cwd), stdout and stderr to
+    temporary files, and wait for all within `timeout` s. When one fails
+    or time runs out the rest are killed, so that a failed rank fails the
+    phase at once. Returns (returncode, stdout, stderr) per process."""
+    procs, files = [], []
+    for i, (args, env, cwd) in enumerate(cmds):
+        out, err = (tempfile.TemporaryFile("w+") for _ in range(2))
+        files.append((out, err))
+        procs.append(subprocess.Popen([sys.executable, *args], env={**os.environ, **env},
+                                      cwd=cwd, stdout=out, stderr=err, text=True))
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline or any(p.returncode for p in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    results = []
+    for p, (out, err) in zip(procs, files):
+        out.seek(0)
+        err.seek(0)
+        results.append((p.returncode, out.read(), err.read()))
+        out.close()
+        err.close()
+    return results
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_dist(dev) -> dict:
+    """Two gloo ranks on cuda:0 through warmup() / train(): (a) sync-BN (f32,
+    the unfused trunk, as the trunk gate requires) against one process on
+    the global batch; (b) LOCAL_BN (bf16, the packed trunk): K4 and K5 once
+    per rank per G step, kernel A once per G forward, running statistics
+    bit-identical across the ranks; (c) a one-rank NCCL group through
+    train's entry point; (d) the tiled eval of a 960x540 frame over the two
+    ranks, bit for bit the one-rank output. Two ranks share one card: their
+    step times are no scaling number."""
+    from srgan_st_tpu_torch.core.config import Config, apply_overrides
+    from srgan_st_tpu_torch.eval.tiled import TiledApplier, generator_halo
+    from srgan_st_tpu_torch.eval.validate import make_generator_apply
+    from srgan_st_tpu_torch.models.generator import random_variables
+    from srgan_st_tpu_torch.train.checkpoint import load_params_npz, save_variables_npz
+
+    rec, bad = {}, []
+    lr = _train_config("packed", "x").SOLVER.G_BASE_LR
+    with tempfile.TemporaryDirectory() as work:
+        cfg = apply_overrides(Config(), ["TPU.COMPUTE_DTYPE=bfloat16"])
+        save_variables_npz(os.path.join(work, "g.npz"), random_variables(0))
+        frame = np.random.default_rng(3).random((1, *LR_4K, 3), np.float32)
+        np.save(os.path.join(work, "frame.npy"), frame)
+        # the ranks share one working directory, as processes of a run share
+        # a file system (the coordinator writes, every rank may resume); the
+        # one-rank NCCL group (c) runs beside them, through train's
+        # command-line entry
+        port, cmds, shared = _free_port(), [], tempfile.mkdtemp(dir=work)
+        for rank in range(2):
+            cmds.append((["-c", f"import sys; sys.path.insert(0, {HERE!r}); import chip_smoke; "
+                                f"sys.exit(chip_smoke._dist_child({work!r}, 'cuda:0'))"],
+                         {"SRGAN_ST_COORDINATOR": f"127.0.0.1:{port}",
+                          "SRGAN_ST_NUM_PROCESSES": "2", "SRGAN_ST_PROCESS_ID": str(rank),
+                          # half the cores each: spinning threads of a rank that
+                          # waits in a collective starve the other rank's host ops
+                          "OMP_NUM_THREADS": str(max(1, (os.cpu_count() or 2) // 2))},
+                         shared))
+        code = ("import sys; from srgan_st_tpu_torch.train.train import cli; "
+                "cli(sys.argv[1:]); import torch.distributed as d; "
+                "print('BACKEND', d.get_backend(), d.get_world_size())")
+        argv = ["-c", code, "--device", "cuda"]
+        for item in _dist_sets("bfloat16", False, "smoke-nccl"):
+            argv += ["--set", item]
+        nccl_dir = tempfile.mkdtemp(dir=work)
+        cmds.append((argv, {"SRGAN_ST_COORDINATOR": f"127.0.0.1:{_free_port()}",
+                            "SRGAN_ST_NUM_PROCESSES": "1", "SRGAN_ST_PROCESS_ID": "0",
+                            "PYTHONPATH": HERE}, nccl_dir))
+        t0 = time.perf_counter()
+        results = _run_procs(cmds, 600)
+        rec["processes_seconds"] = time.perf_counter() - t0
+        rc, out, err = results[2] if len(results) > 2 else (None, "", "")
+        nccl = {"rc": rc, "backend_line": [ln for ln in out.splitlines()
+                                           if ln.startswith("BACKEND")],
+                "results_files": sorted(os.listdir(os.path.join(nccl_dir, "results",
+                                                                "smoke-nccl")))
+                if rc == 0 else [], "stderr": err[-2000:] if rc else ""}
+        if [r[0] for r in results] != [0, 0, 0]:
+            raise AssertionError(f"dist: a process failed: {[(r[0], r[2][-3000:]) for r in results]}")
+        ranks = [dict(np.load(os.path.join(work, f"rank{r}.npz"))) for r in range(2)]
+        # the one-rank runs of the same steps, in this process
+        one = {}
+        for case, sets in (("sync", _dist_sets("float32", False, "smoke-dist-sync")),
+                           ("local", _dist_sets("bfloat16", True, "smoke-dist-local"))):
+            cwd = os.getcwd()
+            os.chdir(tempfile.mkdtemp(dir=work))
+            try:
+                one[case] = _dist_run(sets, dev)
+            finally:
+                os.chdir(cwd)
+        tiled1 = TiledApplier(make_generator_apply(cfg, load_params_npz(
+            os.path.join(work, "g.npz")), device=dev), 4, halo=generator_halo())(frame)
+    # (a) sync-BN against one process
+    sync = [json.loads(str(r["sync/record"])) for r in ranks]
+    keys = [k[5:] for k in ranks[0] if k.startswith("sync/") and k != "sync/record"]
+    ref = one["sync"]
+    loss_rel = max(abs(a - b) / abs(b) for kind in ("G", "D")
+                   for a, b in zip(sync[0]["losses"][kind], ref["losses"][kind]))
+    params = [k for k in keys if "running" not in k]
+    running = [k for k in keys if "running" in k]
+    # Adam moves a weight by at most ~1.004 lr an update (b1 0.9, b2 0.999,
+    # up to 3 updates), either way: 2.01 lr per update bounds two runs
+    updates = {"w": DIST_STEPS, "g": DIST_STEPS, "d": -(-DIST_STEPS // 2)}
+    diffs = {m: max(float(np.abs(ranks[0]["sync/" + k] - ref["states"][k]).max())
+                    for k in params if k.startswith(m + "/")) for m in updates}
+    a = {"loss_rel_diff": loss_rel,
+         "losses_logged": {k: len(v) for k, v in sync[0]["losses"].items()},
+         "param_max_diff": diffs,
+         "param_bound": {m: 2.01 * n * lr for m, n in updates.items()},
+         "running_max_rel_diff": max(
+             float(np.abs(ranks[0]["sync/" + k] - ref["states"][k]).max()
+                   / max(np.abs(ref["states"][k]).max(), 1e-30)) for k in running),
+         "ranks_bit_identical": all(np.array_equal(ranks[0]["sync/" + k], ranks[1]["sync/" + k])
+                                    for k in keys),
+         "ms_per_gan_step_per_rank": [s["ms_per_gan_step"] for s in sync],
+         "ms_per_gan_step_one_rank": ref["ms_per_gan_step"]}
+    if not (loss_rel <= 1e-2 and all(diffs[m] <= a["param_bound"][m] for m in updates)
+            and a["running_max_rel_diff"] <= 1e-3 and a["ranks_bit_identical"]
+            and a["losses_logged"] == {"G": 2 * DIST_STEPS, "D": DIST_STEPS}):
+        bad.append(f"sync-BN {a}")
+    # (b) LOCAL_BN: the kernel trunk per rank
+    local = [json.loads(str(r["local/record"])) for r in ranks]
+    lkeys = [k[6:] for k in ranks[0] if k.startswith("local/") and k != "local/record"]
+    g_steps = 2 * DIST_STEPS  # warmup's and train's
+    want = [{"packed_trunk_fwd": g_steps, "packed_trunk_bwd": g_steps,
+             "coarse_conv_s2d": g_steps + (6 if r == 0 else 0), "serving_tail": 0,
+             "fused_trunk": 0, "buddy_select": 0} for r in range(2)]
+    b = {"launches_per_rank": [s["launches"] for s in local], "launches_expected": want,
+         "launches_one_rank": one["local"]["launches"],
+         "running_bit_identical": all(np.array_equal(ranks[0]["local/" + k],
+                                                     ranks[1]["local/" + k])
+                                      for k in lkeys if "running" in k),
+         "params_bit_identical": all(np.array_equal(ranks[0]["local/" + k],
+                                                    ranks[1]["local/" + k])
+                                     for k in lkeys if "running" not in k),
+         "finite": all(np.isfinite(ranks[0]["local/" + k]).all() for k in lkeys),
+         "ms_per_gan_step_per_rank": [s["ms_per_gan_step"] for s in local],
+         "ms_per_gan_step_one_rank": one["local"]["ms_per_gan_step"]}
+    if not (b["launches_per_rank"] == want and b["running_bit_identical"]
+            and b["params_bit_identical"] and b["finite"]):
+        bad.append(f"LOCAL_BN {b}")
+    # (d) tiled eval
+    d = {"shape": list(tiled1.shape), "rank_outputs_equal_one_rank": [
+        bool(np.array_equal(r["tiled"], tiled1)) for r in ranks],
+        "seconds_per_rank": [float(r["tiled_seconds"]) for r in ranks]}
+    if not all(d["rank_outputs_equal_one_rank"]):
+        bad.append(f"tiled {d}")
+    if not (rc == 0 and nccl["backend_line"] == ["BACKEND nccl 1"]
+            and "g_last.npz" in nccl["results_files"]):
+        bad.append(f"nccl {nccl}")
+    rec.update(note="two ranks share one card: no scaling number", sync_bn=a,
+               local_bn=b, nccl_one_rank=nccl, tiled=d)
+    emit("dist", **rec)
+    if bad:
+        raise AssertionError(f"dist phase: {bad}")
     return rec
 
 
@@ -1744,6 +2344,14 @@ def phase_time_run(dev, batch, vgg: str) -> dict:
     return rec
 
 
+def _new_path_launches(name: str, data_rec: dict, dist_rec: dict) -> dict:
+    """A kernel's launches on the paths of the data and dist phases: one
+    train() run from the resident pack, and each rank of the LOCAL_BN run."""
+    return {"data_train_launches": data_rec["train"]["device_cache"]["true"][0]["launches"][name],
+            "local_bn_launches_per_rank": [c[name] for c in
+                                           dist_rec["local_bn"]["launches_per_rank"]]}
+
+
 def main() -> int:
     try:
         import torch
@@ -1803,11 +2411,16 @@ def run(dev) -> int:
     torch.cuda.empty_cache()
 
     rec_k4, rec_k5 = phase_kernel_trunk(gen, dev)
+    phase_hybrid_sweep(dev)
     torch.cuda.empty_cache()
     batch = torch.from_numpy(rng.integers(0, 256, (16, 96, 96, 3), dtype=np.uint8)).to(dev)
     train_counts = phase_train(dev, batch)["launches_total"]
     phase_check_train(dev, batch)
     phase_time_train(dev, batch)
+    torch.cuda.empty_cache()
+    data_rec = phase_data(dev)
+    torch.cuda.empty_cache()
+    dist_rec = phase_dist(dev)
     torch.cuda.empty_cache()
 
     rec_k7 = phase_kernel_buddy(dev, batch)
@@ -1842,7 +2455,7 @@ def run(dev) -> int:
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "shape": rec["shape"], "f32_max_abs_err": rec["f32_max_abs_err"],
-            "train_launches": train_counts[name],
+            "train_launches": train_counts[name], **_new_path_launches(name, data_rec, dist_rec),
         })
     for rec, name, tpu, replaces in (
         (rec_k4, "packed_trunk_fwd", "K4",
@@ -1859,7 +2472,7 @@ def run(dev) -> int:
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "launch_ms": rec["launch_ms"], "kernels_per_call": rec["profile"]["kernels"],
-            "shape": rec["shape"], "n": rec["n"],
+            "shape": rec["shape"], "n": rec["n"], **_new_path_launches(name, data_rec, dist_rec),
         })
     kernels.append({
         "name": "fused_trunk", "tpu_kernel": "K6", "route": "cuda",

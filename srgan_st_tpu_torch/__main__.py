@@ -7,11 +7,11 @@ Usage:
     python -m srgan_st_tpu_torch infer ...      # upscale arbitrary images
     python -m srgan_st_tpu_torch validate ...   # PSNR/SSIM eval on a test set
     python -m srgan_st_tpu_torch export ...     # torch.export serving artifact
+    python -m srgan_st_tpu_torch prepare-dataset ...  # tile HR images (+ --pack)
 
 Each command forwards to its module's CLI (same flags as running the
-module directly) and is imported lazily. The other commands of
-``python -m srgan_st_tpu`` (bench, prepare-dataset) wait for ROADMAP.md
-Queue A item 6.
+module directly) and is imported lazily. The JAX package's `bench`
+command waits for ROADMAP.md Queue A item 6.
 """
 
 from __future__ import annotations
@@ -43,6 +43,10 @@ _COMMANDS: dict[str, tuple[str, str, str]] = {
     "export": (
         "srgan_st_tpu_torch.eval.export", "main",
         "export the generator as a torch.export serving artifact",
+    ),
+    "prepare-dataset": (
+        "srgan_st_tpu_torch.data.prepare_dataset", "main",
+        "tile HR images into training patches (--pack: patches.pack.npy)",
     ),
 }
 

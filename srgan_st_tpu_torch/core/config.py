@@ -5,7 +5,8 @@ The port's own copy of the JAX package's code-as-config `Config`
 training slices read, and its `--set GROUP.FIELD=value` CLI overrides. Key
 names and defaults are the same, so a config carries over unchanged:
 `TPU.*` names settings (compute dtype, trunk and tail modes, conv3 inner
-factoring, tiled eval), not hardware.
+factoring, tiled eval, the data-parallel layout and LOCAL_BN), not
+hardware.
 """
 
 from __future__ import annotations
@@ -54,12 +55,22 @@ class Config:
         self.DATA.TEST_SR_IMAGES_DIR = "results/_test"
         self.DATA.SEED = 0
         self.DATA.UPSCALE_FACTOR = 4
-        self.DATA.BATCH_SIZE = 16
+        self.DATA.BATCH_SIZE = 16           # GLOBAL batch size (split over the processes)
         self.DATA.GT_IMAGE_SIZE = 96
         self.DATA.SYNTHETIC = False         # seeded synthetic patches (tests/bench)
         self.DATA.SYNTHETIC_N_BATCHES = 64  # synthetic batches per epoch
-        self.DATA.AUGMENT = False           # dihedral augmentation: not ported yet
-        self.DATA.TILE_SIZE = None          # larger tiles + random crops: not ported yet
+        self.DATA.PREFETCH = 2              # batches the source's thread builds ahead
+        self.DATA.AUGMENT = False           # 8-way dihedral augmentation (reference has none)
+        # tile size of the patches on disk (None -> GT_IMAGE_SIZE); larger
+        # tiles (prepare-dataset --output_size 120) get per-sample random
+        # GT_IMAGE_SIZE^2 crops on the device
+        self.DATA.TILE_SIZE = None
+        self.DATA.NUM_WORKERS = 4           # decode worker threads
+        # GPU-resident packed dataset: the pack is copied to the device once
+        # and batches are gathered there (only int64 indices cross PCIe);
+        # "auto" takes it when the pack fits DEVICE_CACHE_BUDGET bytes
+        self.DATA.DEVICE_CACHE = "auto"
+        self.DATA.DEVICE_CACHE_BUDGET = 4 << 30
 
         self.MODEL = dotdict()
         self.MODEL.G_CONTINUE_FROM_WARMUP = False
@@ -131,6 +142,14 @@ class Config:
         self.SCHEDULER.GAMMA = 0.5
 
         self.TPU = dotdict()
+        # the data-parallel layout: only the 1-D ('data',) group over every
+        # process (parallel/mesh.py); None -> its size is the process count
+        self.TPU.MESH_SHAPE = None
+        self.TPU.MESH_AXES = ("data",)
+        # per-process BatchNorm normalization with a global-moment EMA
+        # (torch DDP's BN semantics) instead of sync-BN; lets the kernel
+        # trunks run with more than one process
+        self.TPU.LOCAL_BN = False
         # "float32" (reference parity) or "bfloat16"
         self.TPU.COMPUTE_DTYPE = "float32"
         # None = auto (bf16 training: "packed" inside its gate; else the

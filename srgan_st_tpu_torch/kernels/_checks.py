@@ -63,3 +63,69 @@ def near_tie_bank(rng: np.random.Generator, b: int, n: int, d: int = 27,
     bank = torch.cat([nearer, near], dim=1)[:, perm]
     best = torch.argsort(perm)[:n]  # where each patch's `nearer` row went
     return p.to(dtype), p.to(dtype), bank.to(dtype), best.expand(b, n).contiguous()
+
+
+@torch.no_grad()
+def trunk_backward_f64(dy, xs, a1s, a2s, stats, w1s, w2s, g1s, b1s, g2s, als, eps):
+    """The packed trunk's backward (packed_trunk._reference_backward) on the
+    same residuals, evaluated in float64 with no intermediate rounding: the
+    yardstick against which a kernel and the plain version each have an
+    error. Returns (dx, dw1, dw2, dg1, db1, dg2, db2, dal) in f64 and, last,
+    each block's sum of |dh * pre| over the PReLU's negative side: the scale
+    of the rounding error of dal, a signed sum that can cancel."""
+    import torch.nn.functional as F
+
+    def conv(x, w):
+        return F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                        padding=1).permute(0, 2, 3, 1)
+
+    def wgrad(src, d):
+        _, h, w, _ = src.shape
+        sp = F.pad(src, (0, 0, 1, 1, 1, 1))
+        return torch.stack([torch.stack([
+            torch.einsum("bhwi,bhwo->io", sp[:, ky:ky + h, kx:kx + w], d)
+            for kx in range(3)]) for ky in range(3)])
+
+    def bn_bwd(d, a, m, inv, gamma, nelem):
+        xhat = (a - m) * inv
+        dbeta, dgamma = d.sum((0, 1, 2)), (d * xhat).sum((0, 1, 2))
+        return (gamma * inv) * (d - dbeta / nelem - xhat * (dgamma / nelem)), dgamma, dbeta
+
+    f = lambda t: t.double()  # noqa: E731
+    xs, a1s, a2s, stats = f(xs), f(a1s), f(a2s), f(stats)
+    w1s, w2s, g1s, b1s, g2s, als = map(f, (w1s, w2s, g1s, b1s, g2s, als))
+    n, b, h, w, _ = xs.shape
+    nelem = b * h * w
+    flip = lambda wt: wt.flip((0, 1)).transpose(2, 3)  # noqa: E731
+    g = f(dy)
+    grads = [[None] * n for _ in range(8)]
+    for j in reversed(range(n)):
+        m1, v1, m2, v2 = stats[j]
+        inv1, inv2 = torch.rsqrt(v1 + eps), torch.rsqrt(v2 + eps)
+        da2, dg2, db2 = bn_bwd(g, a2s[j], m2, inv2, g2s[j], nelem)
+        dh = conv(da2, flip(w2s[j]))
+        pre = (a1s[j] - m1) * inv1 * g1s[j] + b1s[j]
+        neg = pre < 0
+        hval = torch.where(neg, als[j] * pre, pre)
+        dal = torch.where(neg, dh * pre, 0.0).sum()
+        dpre = torch.where(neg, dh * als[j], dh)
+        da1, dg1, db1 = bn_bwd(dpre, a1s[j], m1, inv1, g1s[j], nelem)
+        g = g + conv(da1, flip(w1s[j]))
+        dal_abs = torch.where(neg, (dh * pre).abs(), 0.0).sum()
+        for k, val in enumerate((wgrad(xs[j], da1), wgrad(hval, da2), dg1, db1, dg2, db2,
+                                 dal, dal_abs)):
+            grads[k][j] = val
+    return (g, *(torch.stack(gk) for gk in grads))
+
+
+def dal_gate_ratio(kernel_dal, plain_dal, dal64, dal_abs) -> float:
+    """The slope gradients' gate, as a ratio that holds at <= 1: each
+    block's |kernel - f64| within 2x the plain version's worst error rate
+    over the call's blocks, the rate being |plain - f64| over the block's
+    sum of |terms| (trunk_backward_f64). A rate, not an error over
+    max|dal|: dal sums ~B*H*W*C signed products, and where that sum cancels
+    one draw's plain error can be far below its rounding's scale."""
+    k, p = kernel_dal.double(), plain_dal.double()
+    scale = dal_abs.clamp(min=1e-300)
+    rate = float(((p - dal64).abs() / scale).max())
+    return float(((k - dal64).abs() / scale).max()) / (2 * rate) if rate > 0 else float("inf")

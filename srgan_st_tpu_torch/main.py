@@ -52,6 +52,7 @@ def main(argv=None) -> None:
     import argparse
 
     from srgan_st_tpu_torch.eval.validate import test
+    from srgan_st_tpu_torch.parallel.distributed import is_coordinator
     from srgan_st_tpu_torch.train.train import train
 
     parser = argparse.ArgumentParser(
@@ -75,7 +76,8 @@ def main(argv=None) -> None:
     print(f"Running job: {job_index}")
     config = apply_overrides(st_experiment(Config(), job_index), args.set)
     train(config, args.device)
-    test(config, save_images=True, device=args.device)
+    if is_coordinator():  # the test set is scored once, by process 0
+        test(config, save_images=True, device=args.device)
     print(f"Finished job: {job_index}")
 
 

@@ -35,16 +35,40 @@ class BatchNorm(nn.BatchNorm2d):
     dtype. Train: f32 batch moments, var = max(E[x^2] - m^2, 0), the
     normalize in the input's dtype with the f32 moments cast to it, and the
     running-stat EMA (momentum 0.1) of the UNBIASED variance updated in
-    place on the f32 buffers. Both: (x - m) * rsqrt(var + eps) * w + b."""
+    place on the f32 buffers. Both: (x - m) * rsqrt(var + eps) * w + b.
+
+    Across processes (`group`, a parallel/mesh.py DataParallel of more than
+    one rank), the JAX BatchNorm's `axis_name` and `stats_sync`:
+      * "full" (sync-BN): the f32 moments (mean, E[x^2]) are averaged over
+        the ranks on the differentiated path, so normalization and EMA both
+        see the global batch, and n counts the whole world's elements;
+      * "ema" (TPU.LOCAL_BN): each rank normalizes with its own moments,
+        and the EMA takes the global ones (averaged off the differentiated
+        path), so the running statistics stay identical on every rank."""
+
+    group = None
+    stats_sync = "full"
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         dt = x.dtype
         shape = (1, -1, 1, 1)
         if train:
             xf = x.float()
-            mean = xf.mean((0, 2, 3))
-            var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
-            self.update_running(mean, var, x.numel() // x.shape[1])
+            mean, mean2 = xf.mean((0, 2, 3)), (xf * xf).mean((0, 2, 3))
+            n = x.numel() // x.shape[1]
+            g_mean, g_mean2, g_n = mean, mean2, n
+            g = self.group
+            if g is not None and g.active:
+                c = mean.shape[0]
+                if self.stats_sync == "full":
+                    mean, mean2 = g.pmean_differentiable(torch.cat([mean, mean2])).split(c)
+                    g_mean, g_mean2 = mean.detach(), mean2.detach()
+                else:
+                    g_mean, g_mean2 = g.pmean([torch.cat([mean, mean2])])[0].split(c)
+                g_n = n * g.world_size
+            var = torch.clamp(mean2 - mean * mean, min=0.0)
+            g_var = var if g_mean is mean else torch.clamp(g_mean2 - g_mean * g_mean, min=0.0)
+            self.update_running(g_mean, g_var, g_n)
         else:
             mean, var = self.running_mean, self.running_var
         y = (x - mean.to(dt).view(shape)) * torch.rsqrt(
@@ -57,6 +81,16 @@ class BatchNorm(nn.BatchNorm2d):
         elements (biased `var` times n/(n-1)), in place."""
         self.running_mean.mul_(0.9).add_(0.1 * mean)
         self.running_var.mul_(0.9).add_(0.1 * var * (n / max(n - 1, 1)))
+
+
+def set_data_parallel(module: nn.Module, group, local_bn: bool = False) -> None:
+    """Every BatchNorm of `module` reduces its moments over `group` (a
+    parallel/mesh.py DataParallel, or None for none): sync-BN, or under
+    `local_bn` per-rank normalization with a global-moment EMA."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
+            m.stats_sync = "ema" if local_bn else "full"
 
 
 class PReLU(nn.Module):

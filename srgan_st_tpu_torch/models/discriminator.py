@@ -25,7 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from srgan_st_tpu_torch.models.common import BatchNorm, Conv2d, init_weights
+from srgan_st_tpu_torch.models.common import BatchNorm, Conv2d, init_weights, set_data_parallel
 
 
 class Linear(nn.Linear):
@@ -45,7 +45,8 @@ class Discriminator(nn.Module):
     """Input NHWC (B, 96, 96, C_in); output float32 logits (B, out)."""
 
     def __init__(self, in_channels: int = 3, channels: int = 64,
-                 out_channels: int = 1, dtype: torch.dtype = torch.float32):
+                 out_channels: int = 1, dtype: torch.dtype = torch.float32,
+                 group=None, local_bn: bool = False):
         super().__init__()
         self.dtype = dtype
         c = channels
@@ -61,9 +62,13 @@ class Discriminator(nn.Module):
             Linear(8 * c * 6 * 6, 1024), LeakyReLU(), Linear(1024, out_channels))
         init_weights(self)
         self.to(memory_format=torch.channels_last)
+        # across processes: sync-BN, or per-rank normalization (TPU.LOCAL_BN;
+        # the JAX Discriminator's axis_name and local_bn)
+        set_data_parallel(self, group, local_bn)
 
     @classmethod
-    def from_config(cls, config, dtype: torch.dtype | None = None) -> "Discriminator":
+    def from_config(cls, config, dtype: torch.dtype | None = None,
+                    group=None) -> "Discriminator":
         from srgan_st_tpu_torch.core.device import compute_dtype
 
         return cls(
@@ -71,6 +76,8 @@ class Discriminator(nn.Module):
             channels=config.MODEL.D_N_CHANNEL,
             out_channels=config.MODEL.D_OUT_CHANNEL,
             dtype=dtype or compute_dtype(config.TPU.COMPUTE_DTYPE),
+            group=group,
+            local_bn=bool(config.TPU.get("LOCAL_BN")),
         )
 
     def forward(self, x: torch.Tensor, train: bool = False, taps: tuple[str, ...] = ()):

@@ -15,7 +15,9 @@ tests/reference_impls.py TorchSRResNet). Parameters are float32 and cast
 to the compute dtype at use, as the JAX package's are.
 
 `forward(x, train=True)` normalizes with batch statistics and updates the
-running statistics in place (the JAX package's mutable batch_stats). The
+running statistics in place (the JAX package's mutable batch_stats); with
+a data-parallel `group` of several processes, over the global batch
+(sync-BN) or, under `local_bn`, per process with a global-moment EMA. The
 trunk then runs as per-block modules ("unfused") or, with
 trunk_mode="packed" (the auto in a bf16 train step) inside its gate,
 through the hand-written K4/K5 kernels (kernels/packed_trunk.py); "hybrid"
@@ -38,7 +40,7 @@ import torch
 import torch.nn as nn
 
 from srgan_st_tpu_torch.models.common import (
-    BatchNorm, Conv2d, PReLU, TapConv, init_weights, pixel_shuffle,
+    BatchNorm, Conv2d, PReLU, TapConv, init_weights, pixel_shuffle, set_data_parallel,
 )
 
 _TRUNK_MODES = ("unfused", "packed", "hybrid", "fused", "xpack", "xpack_eval")
@@ -112,7 +114,7 @@ class Generator(nn.Module):
                  trunk_mode: str | None = None, stem_mode: str | None = None,
                  conv3_mode: str | None = None,
                  conv3_inner: int | str | None = None,
-                 tail_mode: str | None = None):
+                 tail_mode: str | None = None, group=None, local_bn: bool = False):
         super().__init__()
         self.channels = channels
         self.out_channels = out_channels
@@ -151,9 +153,14 @@ class Generator(nn.Module):
             inner_factor=conv3_inner)
         init_weights(self)
         self.to(memory_format=torch.channels_last)
+        # across processes: sync-BN, or per-rank normalization (local_bn)
+        self.group = group
+        self.local_bn = local_bn
+        set_data_parallel(self, group, local_bn)
 
     @classmethod
-    def from_config(cls, config, dtype: torch.dtype | None = None) -> "Generator":
+    def from_config(cls, config, dtype: torch.dtype | None = None,
+                    group=None) -> "Generator":
         from srgan_st_tpu_torch.core.device import compute_dtype
 
         return cls(
@@ -167,6 +174,8 @@ class Generator(nn.Module):
             stem_mode=config.TPU.get("STEM_MODE"),
             conv3_inner=config.TPU.get("CONV3_INNER"),
             tail_mode=config.TPU.get("TAIL_MODE"),
+            group=group,
+            local_bn=bool(config.TPU.get("LOCAL_BN")),
         )
 
     def _up_factors(self):
@@ -203,9 +212,9 @@ class Generator(nn.Module):
 
     def _packed_ok(self, x: torch.Tensor) -> bool:
         """Gate of the K4/K5 trunk (generator.py:164-189): bf16, even W, C a
-        multiple of 64 (packed_trunk.fits). The JAX gate's single-device
-        condition is the port's single device; its VMEM cap is a TPU
-        budget with no counterpart. x: NHWC."""
+        multiple of 64 (packed_trunk.fits). The JAX gate's multi-device
+        condition (LOCAL_BN) is in _trunk_mode; its VMEM cap is a TPU budget
+        with no counterpart. x: NHWC."""
         from srgan_st_tpu_torch.kernels.packed_trunk import fits
 
         return x.dtype == torch.bfloat16 and fits(x.shape, x.dtype)
@@ -222,8 +231,9 @@ class Generator(nn.Module):
         (the kernel trunks have no eval mode); "xpack_eval" is eval only
         and takes even widths, as the JAX Generator does; "packed" and
         "hybrid" run inside the K4/K5 gate, "fused" at any dtype and shape
-        (on CUDA its kernel raises on what it does not take). Elsewhere:
-        unfused."""
+        (on CUDA its kernel raises on what it does not take). With more
+        than one process the kernel trunks run only under LOCAL_BN: sync-BN
+        needs the unfused blocks' cross-rank moments. Elsewhere: unfused."""
         mode = self.trunk_mode or (
             "packed" if train and self.dtype == torch.bfloat16 else "unfused")
         if train and mode == "xpack_eval":
@@ -236,6 +246,18 @@ class Generator(nn.Module):
         if not train:
             mode = "xpack_eval" if mode.startswith("xpack") else "unfused"
         if mode == "xpack_eval" and x.shape[2] % 2:
+            return "unfused"
+        if (train and mode != "unfused" and self.group is not None and self.group.active
+                and not self.local_bn):
+            # the kernel trunks normalize with the batch moments they compute
+            # per rank; sync-BN needs the unfused blocks' cross-rank mean.
+            # Auto falls back, a forced kernel trunk is an error
+            # (generator.py:243-257)
+            if self.trunk_mode is not None:
+                raise ValueError(
+                    f"trunk_mode={self.trunk_mode!r} computes per-rank batch stats in "
+                    "its kernels; with more than one process it requires "
+                    "TPU.LOCAL_BN=True or trunk_mode='unfused'")
             return "unfused"
         if mode in ("packed", "hybrid") and not self._packed_ok(x):
             return "unfused"
@@ -263,6 +285,13 @@ class Generator(nn.Module):
         fn = {"fused": fused_trunk, "hybrid": hybrid_trunk, "packed": packed_trunk}[mode]
         y, stats = fn(x.contiguous(), *operands, 1e-5)
         nelem = x.numel() // x.shape[-1]
+        if self.group is not None and self.group.active:
+            # LOCAL_BN: the EMA takes the global moments, the variance from
+            # the global E[x^2] (not an average of per-rank variances)
+            m, v = stats[:, 0::2], stats[:, 1::2]
+            gm, ge2 = self.group.pmean([torch.stack([m, v + m * m])])[0]
+            stats = torch.stack([gm, torch.clamp(ge2 - gm * gm, min=0.0)], 2).flatten(1, 2)
+            nelem *= self.group.world_size
         for i, blk in enumerate(self.trunk):
             blk.rcb[1].update_running(stats[i, 0], stats[i, 1], nelem)
             blk.rcb[4].update_running(stats[i, 2], stats[i, 3], nelem)

@@ -18,6 +18,19 @@ loop only when it logs, so a step does not wait for the device.
 warmup() and train() call them once per batch, as the reference's loop does
 (train.py:116-164): the JAX package's `lax.scan` chunking is a TPU
 dispatch device with no counterpart here.
+
+Data parallelism (`mesh`, a parallel/mesh.py DataParallel): each process
+runs the step on its share of the global batch, and the step averages the
+gradients and the criterion values over the processes (one all-reduce),
+D's pre-sigmoid means before the sigmoid; BatchNorm averages its moments
+itself (models/common.py). The JAX package's explicit `shard_map` step
+(`_pmean_if_sharded`, steps.py:170-177), the only form torch has.
+
+Crops and augmentation: tiles larger than GT_IMAGE_SIZE get per-sample
+random crops, and DATA.AUGMENT a per-sample flip then rot90^k, on the
+device. The draws (`draw_augment`) come from a torch.Generator seeded from
+(DATA.SEED + 7, step, rank), the counterpart of `_aug_key`, and are passed
+to `_prepare_batch`; they are not jax.random's bits.
 """
 
 from __future__ import annotations
@@ -25,9 +38,9 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable
 
+import numpy as np
 import torch
 
-from srgan_st_tpu_torch.data.pipeline import DATA_TODO
 from srgan_st_tpu_torch.losses.functions import adversarial_loss
 from srgan_st_tpu_torch.ops.resize import resize_bicubic
 
@@ -108,23 +121,78 @@ def make_d_optimizer(config, params, steps_per_epoch: int):
                           s.D_WEIGHT_DECAY, ms, config.SCHEDULER.GAMMA)
 
 
-def _check_data_options(config) -> None:
-    if config.DATA.AUGMENT:
-        raise NotImplementedError(DATA_TODO.format("DATA.AUGMENT"))
-
-
-def _prepare_batch(gt, config, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """uint8 NHWC GT batch -> (gt, lr) float32 on `device`: /255, then
-    MATLAB-bicubic x(1/upscale) with its quantization (reference
-    dataset.py:23-32)."""
+def draw_augment(config, step: int, rank: int, batch: int, tile: tuple[int, int],
+                 augment: bool) -> dict:
+    """The per-sample random choices of one step on one rank, from a CPU
+    torch.Generator seeded from (DATA.SEED + 7, step, rank): crop offsets
+    (when the tile is larger than GT_IMAGE_SIZE) and, with `augment`, a
+    flip and a rot90 count. Empty when nothing is drawn."""
     s = int(config.DATA.GT_IMAGE_SIZE)
-    if gt.shape[1] != s or gt.shape[2] != s:
-        raise NotImplementedError(DATA_TODO.format(
-            f"a tile of {tuple(gt.shape[1:3])} (random crops to GT_IMAGE_SIZE {s})"))
+    crop = tuple(tile) != (s, s)
+    if not (crop or augment):
+        return {}
+    seed = np.random.SeedSequence((int(config.DATA.SEED) + 7, int(step), int(rank)))
+    gen = torch.Generator().manual_seed(int(seed.generate_state(1)[0]))
+    out = {}
+    if crop:
+        out["offsets"] = (torch.randint(0, tile[0] - s + 1, (batch,), generator=gen),
+                          torch.randint(0, tile[1] - s + 1, (batch,), generator=gen))
+    if augment:
+        out["flip"] = torch.randint(0, 2, (batch,), generator=gen).bool()
+        out["rot"] = torch.randint(0, 4, (batch,), generator=gen)
+    return out
+
+
+def _prepare_batch(gt, config, device, offsets=None, flip=None, rot=None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """uint8 NHWC GT batch -> (gt, lr) float32 on `device`: a per-sample
+    GT_IMAGE_SIZE^2 crop at `offsets` (rows, columns) of larger tiles and,
+    with `flip` / `rot`, a horizontal flip then rot90^rot per sample, all
+    in uint8; then /255 and MATLAB-bicubic x(1/upscale) with its
+    quantization (reference dataset.py:23-32; the JAX package's
+    _prepare_batch with its draws passed in)."""
+    s = int(config.DATA.GT_IMAGE_SIZE)
     gt = torch.as_tensor(gt).to(device)
+    if gt.shape[1] != s or gt.shape[2] != s:
+        if offsets is None:
+            raise ValueError(f"tile size {tuple(gt.shape[1:3])} != GT_IMAGE_SIZE {s} "
+                             "needs crop offsets")
+        ar = torch.arange(s, device=device)
+        rows = (offsets[0].to(device)[:, None] + ar)[:, :, None]
+        cols = (offsets[1].to(device)[:, None] + ar)[:, None, :]
+        gt = gt[torch.arange(gt.shape[0], device=device)[:, None, None], rows, cols]
+    if flip is not None:
+        gt = torch.where(flip.to(device)[:, None, None, None], gt.flip(2), gt)
+        r = rot.to(device)[:, None, None, None]
+        for k in (1, 2, 3):
+            gt = torch.where(r == k, torch.rot90(gt, k, (1, 2)), gt)
     if gt.dtype == torch.uint8:
-        gt = gt.float() / 255.0
+        # a 0-dim tensor divisor (filled on the device, no copy): CUDA divides
+        # by a Python scalar as a multiply by its reciprocal, which differs
+        # from x / 255 in the last bit
+        gt = gt.float() / torch.full((), 255.0, device=gt.device)
     return gt, resize_bicubic(gt, 1.0 / config.DATA.UPSCALE_FACTOR, method="matlab")
+
+
+def _step_batch(config, state, gt_u8, rank: int, augment: bool):
+    """_prepare_batch with this step's draws on this rank."""
+    draws = draw_augment(config, state.step, rank, gt_u8.shape[0],
+                         tuple(gt_u8.shape[1:3]), augment)
+    return _prepare_batch(gt_u8, config, _device(state), **draws)
+
+
+def _pmean_step(mesh, grads, total, values: dict):
+    """Gradients, the loss and the criterion values averaged over the ranks
+    in one all-reduce (the identity with one process)."""
+    avg = mesh.pmean([*grads, total.detach(), *values.values()])
+    n = len(grads)
+    return avg[:n], avg[n], dict(zip(values, avg[n + 1:]))
+
+
+def _no_mesh(mesh):
+    from srgan_st_tpu_torch.parallel.mesh import DataParallel
+
+    return mesh if mesh is not None else DataParallel()
 
 
 def _device(state: GANTrainState) -> torch.device:
@@ -140,28 +208,32 @@ def _criterion_sum(criterions, sr, gt, adversarial=None):
     return total, values
 
 
-def make_warmup_step(config, criterions):
+def make_warmup_step(config, criterions, mesh=None):
     """Generator-only pretraining step (reference warmup.py:74-96)."""
-    _check_data_options(config)
+    mesh = _no_mesh(mesh)
+    augment = bool(config.DATA.AUGMENT)
 
     def warmup_step(state: GANTrainState, gt_u8):
-        gt, lr = _prepare_batch(gt_u8, config, _device(state))
+        gt, lr = _step_batch(config, state, gt_u8, mesh.rank, augment)
         sr = state.g_model(lr, train=True)
         total, values = _criterion_sum(criterions, sr, gt)
-        state.g_opt.step(torch.autograd.grad(total, state.g_opt.params))
+        grads = torch.autograd.grad(total, state.g_opt.params)
+        grads, total, values = _pmean_step(mesh, grads, total, values)
+        state.g_opt.step(grads)
         state.step += 1
-        return state, dict(values, G_Loss=total.detach())
+        return state, dict(values, G_Loss=total)
 
     return warmup_step
 
 
-def make_gan_steps(config, criterions):
+def make_gan_steps(config, criterions, mesh=None):
     """(g_step, d_step) for adversarial training (train.py:116-164)."""
-    _check_data_options(config)
+    mesh = _no_mesh(mesh)
+    augment = bool(config.DATA.AUGMENT)
     real_label = 1.0 - config.EXP.LABEL_SMOOTHING
 
     def g_step(state: GANTrainState, gt_u8):
-        gt, lr = _prepare_batch(gt_u8, config, _device(state))
+        gt, lr = _step_batch(config, state, gt_u8, mesh.rank, augment)
         sr = state.g_model(lr, train=True)
 
         def adversarial(sr_):
@@ -169,22 +241,28 @@ def make_gan_steps(config, criterions):
 
         total, values = _criterion_sum(criterions, sr, gt, adversarial)
         # gradients of G's parameters only: D's are not computed
-        state.g_opt.step(torch.autograd.grad(total, state.g_opt.params))
+        grads = torch.autograd.grad(total, state.g_opt.params)
+        grads, total, values = _pmean_step(mesh, grads, total, values)
+        state.g_opt.step(grads)
         state.step += 1
-        return state, sr.detach(), dict(values, G_Loss=total.detach())
+        return state, sr.detach(), dict(values, G_Loss=total)
 
     def d_step(state: GANTrainState, gt_u8, sr):
-        gt, _ = _prepare_batch(gt_u8, config, _device(state))
+        # D sees unaugmented real patches: any crop of a real tile is a real
+        # patch (its draws are those of the step after the G step's)
+        gt, _ = _step_batch(config, state, gt_u8, mesh.rank, False)
         sr = sr.detach()
         pred_gt = state.d_model(gt, train=True)
         pred_sr = state.d_model(sr, train=True)  # statistics chained after gt's
         d_loss = adversarial_loss(pred_gt, real_label) + adversarial_loss(pred_sr, 0.0)
-        state.d_opt.step(torch.autograd.grad(d_loss, state.d_opt.params))
-        metrics = {
-            "D_Loss": d_loss.detach(),
-            "D(GT)_Probability": torch.sigmoid(pred_gt.detach().mean()),
-            "D(SR)_Probability": torch.sigmoid(pred_sr.detach().mean()),
-        }
+        grads = torch.autograd.grad(d_loss, state.d_opt.params)
+        # the pre-sigmoid means averaged before the sigmoid: sigmoid of the
+        # global mean (steps.py:291-297)
+        *grads, d_loss, mean_gt, mean_sr = mesh.pmean(
+            [*grads, d_loss.detach(), pred_gt.detach().mean(), pred_sr.detach().mean()])
+        state.d_opt.step(grads)
+        metrics = {"D_Loss": d_loss, "D(GT)_Probability": torch.sigmoid(mean_gt),
+                   "D(SR)_Probability": torch.sigmoid(mean_sr)}
         return state, metrics
 
     return g_step, d_step

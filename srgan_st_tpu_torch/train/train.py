@@ -6,15 +6,17 @@ sided label smoothing, the criterion-sum generator update every batch, the
 discriminator update on batches with batch_num % D_UPDATE_INTERVAL == 0
 with that batch's sr, validation at each epoch end, the reference's scalar
 names, the warmup warm-start flags, and the g/d last/best/epoch
-checkpoints. One device, one step per batch; runs on CUDA unless `device`
-says otherwise.
+checkpoints. One step per batch; runs on CUDA unless `device` says
+otherwise. With several processes (parallel/distributed.py) each runs on
+its own GPU with its share of every batch, and only the coordinator
+validates and writes checkpoints, npz files and scalars while the others
+wait at a barrier.
 """
 
 from __future__ import annotations
 
 import os
 
-from srgan_st_tpu_torch.core.device import resolve_device
 from srgan_st_tpu_torch.data.pipeline import make_train_source
 from srgan_st_tpu_torch.losses.registry import build_criterions
 from srgan_st_tpu_torch.models.discriminator import Discriminator
@@ -30,7 +32,8 @@ from srgan_st_tpu_torch.train.checkpoint import (
 )
 from srgan_st_tpu_torch.train.logging import ExperimentWriter
 from srgan_st_tpu_torch.train.steps import create_gan_state, make_gan_steps
-from srgan_st_tpu_torch.train.utils import make_test_pairs
+from srgan_st_tpu_torch.parallel.distributed import is_coordinator
+from srgan_st_tpu_torch.train.utils import make_test_pairs, setup_run
 from srgan_st_tpu_torch.train.warmup import resume, validate_epoch
 
 _D_KEYS = ("D_Loss", "D(GT)_Probability", "D(SR)_Probability")
@@ -44,13 +47,15 @@ def _warm_start(model, path: str, to_variables, from_variables) -> None:
 
 
 def train(config, device=None):
-    dev = resolve_device(device)
-    source = make_train_source(config)
+    dev, mesh = setup_run(config, device)
+    coord = is_coordinator()
+    source = make_train_source(config, device=dev)
     steps_per_epoch = len(source)
     criterions = build_criterions(config)
-    g_step, d_step = make_gan_steps(config, criterions)
-    state = create_gan_state(config, Generator.from_config(config),
-                             Discriminator.from_config(config), steps_per_epoch, dev)
+    g_step, d_step = make_gan_steps(config, criterions, mesh)
+    state = create_gan_state(config, Generator.from_config(config, group=mesh),
+                             Discriminator.from_config(config, group=mesh),
+                             steps_per_epoch, dev)
     if config.MODEL.G_CONTINUE_FROM_WARMUP:
         _warm_start(state.g_model, config.MODEL.G_WARMUP_WEIGHTS,
                     variables_from_generator_state_dict, generator_state_dict_from_variables)
@@ -63,7 +68,9 @@ def train(config, device=None):
     results_dir = f"results/{config.EXP.NAME}"
     policy = CheckpointPolicy(results_dir, config.G_CHECKPOINT_INTERVAL)
     test_pairs = make_test_pairs(config)
-    start_epoch = resume(config, policy, state, steps_per_epoch)
+    start_epoch = resume(config, policy, state, steps_per_epoch, mesh)
+    mesh.broadcast_module(state.g_model)
+    mesh.broadcast_module(state.d_model)
 
     for epoch in range(start_epoch, config.EXP.N_EPOCHS):
         print(f"Beginning train epoch: {epoch+1}")
@@ -84,18 +91,20 @@ def train(config, device=None):
                   f"[D loss: {float(d_vals.get('D_Loss', float('nan')))}] "
                   f"[G loss: {float(metrics['G_Loss'])}]")
 
-        psnr, ssim, g_variables = validate_epoch(config, state, test_pairs, writer,
-                                                 epoch, dev)
-        d_variables = variables_from_discriminator_state_dict(state.d_model.state_dict())
-        save_variables_npz(os.path.join(results_dir, "g_last.npz"), g_variables)
-        save_variables_npz(os.path.join(results_dir, "d_last.npz"), d_variables)
-        if policy.save_epoch(state, epoch, psnr, ssim):
-            save_variables_npz(os.path.join(results_dir, "g_best.npz"), g_variables)
-            save_variables_npz(os.path.join(results_dir, "d_best.npz"), d_variables)
-        if 0 < epoch and epoch % config.G_CHECKPOINT_INTERVAL == 0:
-            save_variables_npz(os.path.join(results_dir, f"g_epoch{epoch}.npz"), g_variables)
-        if 0 < epoch and epoch % config.D_CHECKPOINT_INTERVAL == 0:
-            save_variables_npz(os.path.join(results_dir, f"d_epoch{epoch}.npz"), d_variables)
+        if coord:
+            psnr, ssim, g_variables = validate_epoch(config, state, test_pairs, writer,
+                                                     epoch, dev)
+            d_variables = variables_from_discriminator_state_dict(state.d_model.state_dict())
+            save_variables_npz(os.path.join(results_dir, "g_last.npz"), g_variables)
+            save_variables_npz(os.path.join(results_dir, "d_last.npz"), d_variables)
+            if policy.save_epoch(state, epoch, psnr, ssim):
+                save_variables_npz(os.path.join(results_dir, "g_best.npz"), g_variables)
+                save_variables_npz(os.path.join(results_dir, "d_best.npz"), d_variables)
+            if 0 < epoch and epoch % config.G_CHECKPOINT_INTERVAL == 0:
+                save_variables_npz(os.path.join(results_dir, f"g_epoch{epoch}.npz"), g_variables)
+            if 0 < epoch and epoch % config.D_CHECKPOINT_INTERVAL == 0:
+                save_variables_npz(os.path.join(results_dir, f"d_epoch{epoch}.npz"), d_variables)
+        mesh.barrier()
 
     writer.close()
     return state

@@ -24,3 +24,19 @@ def make_test_pairs(config):
         lr = resize_bicubic(torch.from_numpy(gt), 1.0 / config.DATA.UPSCALE_FACTOR)
         pairs.append((gt, lr.numpy()))
     return pairs
+
+
+def setup_run(config, device=None):
+    """A training loop's start: the process group when the run has several
+    processes (parallel/distributed.py), this process's device (a missing
+    GPU raises), and the data-parallel group. Returns (device, mesh)."""
+    from srgan_st_tpu_torch.core.device import resolve_device
+    from srgan_st_tpu_torch.parallel.distributed import initialize_distributed, rank_device
+    from srgan_st_tpu_torch.parallel.mesh import make_mesh
+
+    dev = resolve_device(device)
+    initialize_distributed(device=dev)
+    dev = rank_device(dev)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    return dev, make_mesh(config)

@@ -4,15 +4,17 @@ srgan_st_tpu/train/warmup.py).
 Mirrors reference warmup.py:14-148: Adam on G only (no LR schedule), the
 WARMUP_CRITERIONS set (default pixel MSE), validation at each epoch end,
 the reference's scalar names, and the g_last / g_best / g_epoch{N} npz
-checkpoints beside the full train state of `CheckpointPolicy`. One device,
-one step per batch; runs on CUDA unless `device` says otherwise.
+checkpoints beside the full train state of `CheckpointPolicy`. One step
+per batch; runs on CUDA unless `device` says otherwise. With several
+processes (parallel/distributed.py) each runs on its own GPU with its share
+of every batch, and only the coordinator validates and writes checkpoints,
+npz files and scalars while the others wait at a barrier.
 """
 
 from __future__ import annotations
 
 import os
 
-from srgan_st_tpu_torch.core.device import resolve_device
 from srgan_st_tpu_torch.data.pipeline import make_train_source
 from srgan_st_tpu_torch.eval.validate import make_generator_apply, validate
 from srgan_st_tpu_torch.losses.registry import build_warmup_criterions
@@ -24,18 +26,32 @@ from srgan_st_tpu_torch.train.checkpoint import (
 )
 from srgan_st_tpu_torch.train.logging import ExperimentWriter
 from srgan_st_tpu_torch.train.steps import create_generator_state, make_warmup_step
-from srgan_st_tpu_torch.train.utils import make_test_pairs
+from srgan_st_tpu_torch.parallel.distributed import is_coordinator
+from srgan_st_tpu_torch.train.utils import make_test_pairs, setup_run
 
 
-def resume(config, policy: CheckpointPolicy, state, steps_per_epoch: int) -> int:
+def resume(config, policy: CheckpointPolicy, state, steps_per_epoch: int,
+           mesh=None) -> int:
     """The epoch to start from: from the restored `last` state's step
-    when one fits (EXP.AUTO_RESUME, or START_EPOCH > 0), else START_EPOCH."""
+    when one fits (EXP.AUTO_RESUME, or START_EPOCH > 0), else START_EPOCH.
+    Every process restores from the results directory the coordinator
+    writes, so the processes of a run must share it: ranks that would start
+    at different epochs raise."""
     start_epoch = config.EXP.START_EPOCH
     if (start_epoch > 0 or config.EXP.AUTO_RESUME) and policy.restore_latest(state):
         start_epoch = state.step // steps_per_epoch
         if start_epoch != config.EXP.START_EPOCH:
             print(f"resuming at epoch {start_epoch} (from checkpoint step), "
                   f"not START_EPOCH={config.EXP.START_EPOCH}")
+    if mesh is not None and mesh.active:
+        import torch
+
+        mean = mesh.pmean([torch.tensor([float(start_epoch)],
+                                        device=next(state.g_model.parameters()).device)])[0]
+        if float(mean) != start_epoch:
+            raise RuntimeError(
+                f"rank {mesh.rank} would resume at epoch {start_epoch}, the ranks' mean is "
+                f"{float(mean)}: the processes must share results/{config.EXP.NAME}")
     return start_epoch
 
 
@@ -53,19 +69,21 @@ def validate_epoch(config, state, test_pairs, writer, epoch: int, device):
 
 
 def warmup(config, device=None):
-    dev = resolve_device(device)
-    source = make_train_source(config)
+    dev, mesh = setup_run(config, device)
+    coord = is_coordinator()
+    source = make_train_source(config, device=dev)
     steps_per_epoch = len(source)
     criterions = build_warmup_criterions(config)
-    step = make_warmup_step(config, criterions)
-    state = create_generator_state(config, Generator.from_config(config),
+    step = make_warmup_step(config, criterions, mesh)
+    state = create_generator_state(config, Generator.from_config(config, group=mesh),
                                    steps_per_epoch, dev, milestones=False)
 
     writer = ExperimentWriter(config)
     results_dir = f"results/{config.EXP.NAME}"
     policy = CheckpointPolicy(results_dir, config.G_CHECKPOINT_INTERVAL)
     test_pairs = make_test_pairs(config)
-    start_epoch = resume(config, policy, state, steps_per_epoch)
+    start_epoch = resume(config, policy, state, steps_per_epoch, mesh)
+    mesh.broadcast_module(state.g_model)
 
     batches_done = start_epoch * steps_per_epoch
     for epoch in range(start_epoch, config.EXP.N_EPOCHS):
@@ -82,14 +100,16 @@ def warmup(config, device=None):
                   f"[Batch {batch_num}/{steps_per_epoch}] "
                   f"[G loss: {float(metrics['G_Loss'])}]")
 
-        psnr, ssim, g_variables = validate_epoch(config, state, test_pairs, writer,
-                                                 epoch, dev)
-        save_variables_npz(os.path.join(results_dir, "g_last.npz"), g_variables)
-        if policy.save_epoch(state, epoch, psnr, ssim):
-            save_variables_npz(os.path.join(results_dir, "g_best.npz"), g_variables)
-        if 0 < epoch and epoch % config.G_CHECKPOINT_INTERVAL == 0:
-            save_variables_npz(os.path.join(results_dir, f"g_epoch{epoch}.npz"),
-                               g_variables)
+        if coord:
+            psnr, ssim, g_variables = validate_epoch(config, state, test_pairs, writer,
+                                                     epoch, dev)
+            save_variables_npz(os.path.join(results_dir, "g_last.npz"), g_variables)
+            if policy.save_epoch(state, epoch, psnr, ssim):
+                save_variables_npz(os.path.join(results_dir, "g_best.npz"), g_variables)
+            if 0 < epoch and epoch % config.G_CHECKPOINT_INTERVAL == 0:
+                save_variables_npz(os.path.join(results_dir, f"g_epoch{epoch}.npz"),
+                                   g_variables)
+        mesh.barrier()
 
     writer.close()
     return state

@@ -337,6 +337,41 @@ def test_hybrid_trunk_gates(dev, shape, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape,n", [TRUNK_SHAPES[0], TRUNK_SHAPES[2]])
+def test_hybrid_dal_gate_holds_over_seeded_draws(dev, shape, n):
+    """The "hybrid" slope gradient dal over 8 seeded draws (chip_smoke.py's
+    hybrid seed sweep): f32 within 1e-3 max|ref| of the plain backward on
+    the plain forward's residuals; bf16, each block's error rate against
+    the float64 evaluation of the same residuals (over the block's sum of
+    |dh * pre|) within 2x the plain bf16 version's worst rate. The bf16
+    envelope over max|dal| failed once on the card where the plain
+    version's own error happened to cancel; the kernel's error against f64
+    stayed within 2x the plain version's (ROADMAP.md Queue C)."""
+    from srgan_st_tpu_torch.kernels import packed_trunk as pt
+    from srgan_st_tpu_torch.kernels._checks import dal_gate_ratio, trunk_backward_f64
+
+    for seed in range(8):
+        gen = torch.Generator(device=dev).manual_seed(1000 + seed)
+        x, params = _trunk_inputs(dev, shape, n, seed=seed)
+        dy = torch.randn(x.shape, device=dev, generator=gen)
+        bp = (params[0], params[1], params[2], params[3], params[4], params[6])
+        for dt in (torch.float32, torch.bfloat16):
+            xd, dyd = x.to(dt), dy.to(dt)
+            xg = xd.clone().requires_grad_()
+            pg = [t.clone().requires_grad_() for t in params]
+            y, _ = pt.hybrid_trunk(xg, *pg)
+            y.backward(dyd)
+            res = pt._reference_forward(xd, *params, 1e-5)[1:]
+            plain = pt._reference_backward(dyd, *res, *bp, 1e-5)[7]
+            if dt == torch.float32:
+                assert _err(pg[6].grad, plain) <= 1e-3 * float(plain.abs().max()), seed
+                continue
+            bp16 = (bp[0].bfloat16().float(), bp[1].bfloat16().float(), *bp[2:])
+            f64 = trunk_backward_f64(dyd, *res, *bp16, 1e-5)
+            assert dal_gate_ratio(pg[6].grad, plain, f64[7], f64[8]) <= 1, seed
+
+
+@pytest.mark.cuda
 def test_conv3_kernel_path_has_the_plain_gradients(dev):
     """The coarse conv kernel's autograd Function: a kernel-A forward whose
     gradients are not zero and equal the plain path's (f32, TF32 off;

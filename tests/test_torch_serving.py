@@ -470,6 +470,12 @@ def _port_sources():
     yield os.path.join(REPO, "chip_smoke.py")
 
 
+# the data and multi-GPU modules, which keep their own copies of the JAX
+# package's pure-Python ones (data/volumes.py, data/prepare_dataset.py)
+NEW_MODULES = ("srgan_st_tpu_torch.parallel.distributed", "srgan_st_tpu_torch.parallel.mesh",
+               "srgan_st_tpu_torch.data.prepare_dataset", "srgan_st_tpu_torch.data.volumes")
+
+
 def test_port_imports_no_jax():
     """No module of the port, and not chip_smoke.py, imports JAX, flax or
     the JAX package: every import statement, lazy ones included, and
@@ -495,8 +501,10 @@ def test_port_imports_no_jax():
         "assert not bad, bad\n"
         "assert 'PIL' not in sys.modules\n"
         "print(len([m for m in sys.modules if m.startswith('srgan_st_tpu_torch')]))\n"
+        "print(all(m in sys.modules for m in " + repr(NEW_MODULES) + "))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    count, new = out.stdout.split()
+    assert int(count) >= 20 and new == "True"

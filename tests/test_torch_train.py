@@ -641,11 +641,16 @@ def test_cli_parses_overrides():
 
 
 def test_unported_training_options_raise(tmp_path):
-    """The data options of Queue A item 4 raise, naming their ROADMAP.md
-    item; content_vgg, ported, raises only for its missing weights."""
-    from srgan_st_tpu_torch.core.config import Config
-    from srgan_st_tpu_torch.data.pipeline import make_train_source
+    """content_vgg, ported, raises only for its missing weights; the data
+    options of Queue A item 4 (DATA.AUGMENT, DATA.TILE_SIZE), ported, build.
+    What the port leaves out raises: TPU.SHARD_MAP is no key of the port
+    (torch has no GSPMD, so its step is always the explicit form), and any
+    mesh but the 1-D ('data',) layout over the processes is refused
+    (ROADMAP.md Queue C)."""
+    from srgan_st_tpu_torch.core.config import Config, apply_overrides
+    from srgan_st_tpu_torch.data.pipeline import SyntheticPatchSource, make_train_source
     from srgan_st_tpu_torch.losses.registry import build_criterions
+    from srgan_st_tpu_torch.parallel.mesh import make_mesh
     from srgan_st_tpu_torch.train.steps import make_warmup_step
 
     cfg = Config()
@@ -653,12 +658,15 @@ def test_unported_training_options_raise(tmp_path):
     cfg.MODEL.G_LOSS.VGG19_WEIGHTS = str(tmp_path / "absent.npz")
     with pytest.raises(FileNotFoundError, match="tools/convert_vgg19.py"):
         build_criterions(cfg)
-    cfg = Config()
-    cfg.DATA.AUGMENT = True
-    with pytest.raises(NotImplementedError, match="Queue A, item 4"):
-        make_warmup_step(cfg, {})
-    cfg = Config()
-    cfg.DATA.TILE_SIZE = 120
-    with pytest.raises(NotImplementedError, match="Queue A, item 4"):
-        make_train_source(cfg)
-
+    cfg = apply_overrides(Config(), ["DATA.AUGMENT=true", "DATA.TILE_SIZE=120",
+                                     "DATA.SYNTHETIC=true"])
+    assert callable(make_warmup_step(cfg, {}))
+    assert isinstance(make_train_source(cfg), SyntheticPatchSource)
+    with pytest.raises(SystemExit):
+        apply_overrides(Config(), ["TPU.SHARD_MAP=true"])
+    assert make_mesh(Config()).world_size == 1
+    for shape, axes in (((1, 1), ("data", "model")), ((2,), ("data",)), (None, ("model",))):
+        cfg = Config()
+        cfg.TPU.MESH_SHAPE, cfg.TPU.MESH_AXES = shape, axes
+        with pytest.raises(ValueError, match="1-D"):
+            make_mesh(cfg)
