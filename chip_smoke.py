@@ -238,8 +238,13 @@ TRUNK_PAIRS = 12  # packed / unfused GAN step pairs timed in turns
 HYBRID_SEEDS = 10  # seeded draws at each TRUNK_SHAPES entry of the hybrid sweep
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line of a phase, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, "elapsed_s": round(time.perf_counter() - _T0, 1),
+                      **fields}), flush=True)
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -1332,8 +1337,10 @@ def _codes(batch):
 class _CappedSource:
     """The first `k` batches of each epoch of `source`, with the host time
     at which each was handed to the training loop (and the time the loop
-    asked for one more). The epoch's set-up (the resident copy) comes
-    before the first stamp."""
+    asked for one more), each stamp after a device synchronize: replayed
+    graph steps leave the host far ahead of the device, so an unsynchronized
+    stamp would time the enqueue. The epoch's set-up (the resident copy)
+    comes before the first stamp."""
 
     def __init__(self, source, k: int):
         self.source, self.k, self.stamps = source, k, []
@@ -1343,9 +1350,13 @@ class _CappedSource:
 
     def epoch(self, epoch_idx=None):
         it = self.source.epoch(epoch_idx)
+        import torch
+
         for _, batch in zip(range(self.k), it):
+            torch.cuda.synchronize()
             self.stamps.append(time.perf_counter())
             yield batch
+        torch.cuda.synchronize()
         self.stamps.append(time.perf_counter())
         it.close()
 
@@ -1459,18 +1470,24 @@ def phase_data(dev) -> dict:
                 fetch[kind].append((time.perf_counter() - t0) * 1e3 / FETCH_BATCHES)
                 it.close()
         rec["ms_per_batch_fetch"] = fetch
-        # (3) train() from the pack, DEVICE_CACHE on and off in turns
-        runs = {"true": [], "false": []}
+        # (3) train() from the pack, DEVICE_CACHE on and off, and on with
+        # the eager steps (TPU.CUDA_GRAPHS=false), in turns; one batch a
+        # chunk, so that each stamp interval is one step
+        runs = {"true": [], "false": [], "true/eager": []}
         for _ in range(DATA_RUNS):
-            for cache in runs:
+            for arm in runs:
+                cache, _, eager = arm.partition("/")
                 cfg = apply_overrides(Config(), [
                     "TPU.COMPUTE_DTYPE=bfloat16", "TPU.TRUNK_MODE=packed",
                     f"DATA.TRAIN_GT_IMAGES_DIR={tmp}", f"DATA.DEVICE_CACHE={cache}",
-                    "EXP.N_EPOCHS=1", "SOLVER.D_UPDATE_INTERVAL=2", "EXP.NAME=smoke-data"])
+                    "EXP.N_EPOCHS=1", "SOLVER.D_UPDATE_INTERVAL=2", "EXP.NAME=smoke-data",
+                    "TPU.CHUNK_STEPS=1", f"TPU.CUDA_GRAPHS={not eager}"])
                 _, capped, counts, seconds = _capped_train(train, cfg, dev, DATA_STEPS)
-                runs[cache].append({**_stamped_step_times(capped.stamps), "seconds": seconds,
-                                    "launches": counts})
-        rec["train"] = {"steps_per_run": DATA_STEPS, "device_cache": runs}
+                runs[arm].append({**_stamped_step_times(capped.stamps), "seconds": seconds,
+                                  "launches": counts})
+        eager_runs = runs.pop("true/eager")
+        rec["train"] = {"steps_per_run": DATA_STEPS, "device_cache": runs,
+                        "device_cache_eager_steps": eager_runs}
         want_counts = {"packed_trunk_fwd": DATA_STEPS, "packed_trunk_bwd": DATA_STEPS,
                        "coarse_conv_s2d": DATA_STEPS + 3, "serving_tail": 0,
                        "fused_trunk": 0, "buddy_select": 0}
@@ -1502,8 +1519,8 @@ def phase_data(dev) -> dict:
     emit("data", **rec)
     bad = [e for e, o in order.items() if not (o["host_is_permutation"]
            and o["resident_equals_host"] and all(o["first_last_batch_bits"].values()))]
-    bad += [f"{c} launches {r['launches']}" for c, rs in runs.items() for r in rs
-            if r["launches"] != want_counts]
+    bad += [f"{c} launches {r['launches']}" for c, rs in [*runs.items(), ("eager", eager_runs)]
+            for r in rs if r["launches"] != want_counts]
     if not rec["pack"]["auto_takes_the_resident_pack"]:
         bad.append("DEVICE_CACHE=auto did not take the pack")
     if not (aug["gt_bits_equal"] and aug["lr_max_abs_diff"] <= 1 / 255 + 1e-6
@@ -1521,10 +1538,13 @@ DIST_STEPS = 3  # batches per epoch of warmup() and train() in the dist phase
 DIST_TIMED = 5  # GAN steps timed per rank
 
 
-def _dist_sets(dtype: str, local_bn: bool, name: str) -> list[str]:
+def _dist_sets(dtype: str, local_bn: bool, name: str, graphs: bool = False) -> list[str]:
+    """The dist runs' overrides: one batch a chunk (a log line a batch), and
+    CUDA graphs off (gloo collectives cannot be captured) unless `graphs`."""
     return [f"TPU.COMPUTE_DTYPE={dtype}", f"TPU.LOCAL_BN={local_bn}", "DATA.SYNTHETIC=true",
             f"DATA.SYNTHETIC_N_BATCHES={DIST_STEPS}", "EXP.N_EPOCHS=1",
-            "SOLVER.D_UPDATE_INTERVAL=2", "LOG_TRAIN_PERIOD=1", f"EXP.NAME={name}"]
+            "SOLVER.D_UPDATE_INTERVAL=2", "LOG_TRAIN_PERIOD=1", f"EXP.NAME={name}",
+            "TPU.CHUNK_STEPS=1", f"TPU.CUDA_GRAPHS={graphs}"]
 
 
 def _dist_run(sets: list[str], dev) -> dict:
@@ -1697,7 +1717,7 @@ def phase_dist(dev) -> dict:
                 "cli(sys.argv[1:]); import torch.distributed as d; "
                 "print('BACKEND', d.get_backend(), d.get_world_size())")
         argv = ["-c", code, "--device", "cuda"]
-        for item in _dist_sets("bfloat16", False, "smoke-nccl"):
+        for item in _dist_sets("bfloat16", False, "smoke-nccl", graphs=True):
             argv += ["--set", item]
         nccl_dir = tempfile.mkdtemp(dir=work)
         cmds.append((argv, {"SRGAN_ST_COORDINATOR": f"127.0.0.1:{_free_port()}",
@@ -2344,6 +2364,270 @@ def phase_time_run(dev, batch, vgg: str) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# the training steps as captured CUDA graphs (train/graphs.py)
+
+GRAPH_STEPS = 6  # steps a case drives eagerly and by graph replays, D on 0, 2, 4
+GRAPH_PAIRS = 6  # eager / graph step pairs timed in turns
+# (recipe, trunk): the Adversarial recipe with the packed and the unfused
+# trunk, run job 1 with the fused trunk, run job 0 with the packed one
+GRAPH_CASES = (("adversarial", "packed"), ("adversarial", "unfused"), (1, "fused"),
+               (0, "packed"))
+
+
+def _graph_config(recipe, trunk: str, vgg: str):
+    if recipe == "adversarial":
+        return _train_config(trunk, "graph")
+    return _run_config(recipe, trunk, vgg)
+
+
+def _train_tensors(state) -> dict:
+    """Everything a step updates: G's and D's parameters and running
+    statistics, both optimizers' moments, step counts and update counts."""
+    out = {}
+    for tag, model, opt in (("g", state.g_model, state.g_opt), ("d", state.d_model, state.d_opt)):
+        out.update({f"{tag}/{k}": v for k, v in model.state_dict().items()})
+        for i, st in enumerate(opt.opt.state.values()):
+            out.update({f"{tag}_adam/{i}/{k}": v for k, v in st.items()})
+        out[f"{tag}_adam/count"] = opt._count
+    return out
+
+
+def _graph_drive(cfg, dev, batches, graphs, between=None):
+    """GRAPH_STEPS GAN steps from the seeded state through the chunk step
+    (chunks of 2, D at each chunk's batch 0), eagerly (graphs None) or by
+    graph replays; `between(state)` runs after the first two chunks.
+    Returns (state, batch-0 metrics per chunk, launch counts, graph launch
+    counts)."""
+    import torch
+
+    from srgan_st_tpu_torch.kernels import (
+        add_launch_counts, graph_launch_counts, launch_counts, reset_launch_counts,
+    )
+    from srgan_st_tpu_torch.losses.registry import build_criterions
+    from srgan_st_tpu_torch.train.steps import make_gan_chunk_step
+
+    state = _gan_state(cfg, dev)
+    chunk_step = make_gan_chunk_step(cfg, build_criterions(cfg), graphs=graphs)
+    metrics = []
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for i in range(0, GRAPH_STEPS, 2):
+        if i == 4 and between is not None:
+            before = launch_counts()
+            between(state)
+            # the steps' launches only: take back those of `between`
+            after = launch_counts()
+            add_launch_counts({k: before[k] - after[k] for k in after})
+        state, m = chunk_step(state, batches[i:i + 2], True)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    return state, metrics, launch_counts(), graph_launch_counts()
+
+
+def _bits(a: dict, b: dict) -> tuple[bool, float, list]:
+    """(every tensor equal bit for bit, the largest difference of a float
+    tensor, the first keys that differ)."""
+    import torch
+
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    worst = max((max_abs(a[k], b[k]) for k in a if a[k].is_floating_point()), default=0.0)
+    return not differ, worst, differ[:8]
+
+
+def phase_graph(dev, batch, vgg: str) -> dict:
+    """The steps as CUDA graphs against the same steps run eagerly, from one
+    seeded state (cuDNN on deterministic algorithms for the comparison):
+    for each GRAPH_CASES case GRAPH_STEPS steps, D on steps 0, 2 and 4,
+    eagerly, by replays, and eagerly again (the control: do eager steps
+    repeat their bits?). Gates: parameters, running statistics, Adam's
+    moments and counts and the metrics equal bit for bit where the eager
+    steps repeat their bits (else within 2.01 lr per update, with the
+    cause); the launch counts of the graph run equal the eager run's, its
+    replays made a launch for every kernel of the path; an eval forward of
+    the trained generator and validation after replays equal those after
+    eager steps (the weight-layout cache after replays). Then TPU.NAN_GUARD
+    warns after a NaN is put into a weight, `doctor --json` reports the
+    card healthy, and the records: ms per warmup, G and GAN step eagerly
+    and by replays in turns, patches/s, a profile of each GAN step, each
+    graph's capture seconds and the pool's size."""
+    import contextlib
+    import io
+
+    import torch
+
+    from srgan_st_tpu_torch.eval.validate import make_generator_apply, validate
+    from srgan_st_tpu_torch.losses.registry import build_criterions, build_warmup_criterions
+    from srgan_st_tpu_torch.models.generator import Generator
+    from srgan_st_tpu_torch.train.checkpoint import variables_from_generator_state_dict
+    from srgan_st_tpu_torch.train.graphs import StepGraphs
+    from srgan_st_tpu_torch.train.steps import (
+        create_generator_state, make_gan_chunk_step, make_warmup_chunk_step,
+    )
+    from srgan_st_tpu_torch.train.utils import make_test_pairs
+    from srgan_st_tpu_torch.utils.debugging import nan_guard
+
+    rng = np.random.default_rng(11)
+    batches = [torch.from_numpy(rng.integers(0, 256, batch.shape, dtype=np.uint8)).to(dev)
+               for _ in range(GRAPH_STEPS)]
+    x_eval = torch.from_numpy(rng.random((2, 24, 24, 3), np.float32)).to(dev)
+    rec, bad, replayed = {"cases": {}}, [], {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for recipe, trunk in GRAPH_CASES:
+            cfg = _graph_config(recipe, trunk, vgg)
+            lr = cfg.SOLVER.G_BASE_LR
+            evals = {}
+
+            def between(state, tag):
+                with torch.no_grad():
+                    evals[tag] = state.g_model(x_eval, train=False)
+
+            eager, e_metrics, e_counts, _ = _graph_drive(
+                cfg, dev, batches, None, lambda s: between(s, "eager_mid"))
+            graphs = StepGraphs(dev)
+            graph, g_metrics, g_counts, g_replayed = _graph_drive(
+                cfg, dev, batches, graphs, lambda s: between(s, "graph_mid"))
+            again, a_metrics, _, _ = _graph_drive(cfg, dev, batches, None)
+            with torch.no_grad():
+                y_eager = eager.g_model(x_eval, train=False)
+                y_graph = graph.g_model(x_eval, train=False)
+            flat = {name: _train_tensors(st) for name, st in
+                    (("eager", eager), ("graph", graph), ("again", again))}
+            for name, ms in (("eager", e_metrics), ("graph", g_metrics), ("again", a_metrics)):
+                for i, m in enumerate(ms):
+                    flat[name].update({f"metric{i}/{k}": v.reshape(()) for k, v in m.items()})
+            repeats, repeat_diff, repeat_keys = _bits(flat["eager"], flat["again"])
+            equal, diff, keys = _bits(flat["eager"], flat["graph"])
+            pairs = make_test_pairs(cfg)
+            psnr = {name: validate(make_generator_apply(
+                cfg, variables_from_generator_state_dict(st.g_model.state_dict()), device=dev),
+                pairs, cfg) for name, st in (("eager", eager), ("graph", graph))}
+            updates = {"g": GRAPH_STEPS, "d": GRAPH_STEPS // 2}
+            c = {"eager_repeats_bits": repeats, "eager_repeat_max_diff": repeat_diff,
+                 "eager_repeat_differs": repeat_keys,
+                 "graph_equals_eager_bits": equal, "graph_max_param_diff": diff,
+                 "graph_differs": keys, "param_bound": 2.01 * lr * updates["g"],
+                 "launches_eager": e_counts, "launches_graph": g_counts,
+                 "launches_replayed": g_replayed,
+                 "eval_after_replays_equals_eager": bool(torch.equal(y_eager, y_graph)),
+                 "eval_moved_by_the_last_replays": not bool(torch.equal(evals["graph_mid"],
+                                                                        y_graph)),
+                 "validate": psnr, "capture_seconds": graphs.capture_seconds(),
+                 "launches_per_replay": graphs.launches_per_replay(),
+                 "pool_bytes": graphs.pool_bytes()}
+            name = f"{recipe}/{trunk}"
+            rec["cases"][name] = c
+            for k, n in g_replayed.items():
+                replayed[k] = replayed.get(k, 0) + n
+            # the first call of each step kind runs eagerly (then its capture):
+            # of 6 steps, 4 are replays
+            path = [k for k, n in e_counts.items() if n]
+            ok = (g_counts == e_counts and all(g_replayed[k] * GRAPH_STEPS == e_counts[k] * 4
+                                               for k in path)
+                  and c["eval_moved_by_the_last_replays"])
+            if repeats:
+                ok = (ok and equal and c["eval_after_replays_equals_eager"]
+                      and psnr["eager"] == psnr["graph"])
+            else:
+                ok = ok and diff <= c["param_bound"]
+            if not ok:
+                bad.append(f"{name}: {c}")
+            del eager, graph, again, flat, graphs
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    emit("graph", **rec)
+
+    # TPU.NAN_GUARD: a NaN put into a G weight between replayed chunks
+    cfg = _graph_config("adversarial", "packed", vgg)
+    state = _gan_state(cfg, dev)
+    guard = nan_guard(make_gan_chunk_step(cfg, build_criterions(cfg), graphs=StepGraphs(dev)))
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        for i in range(0, GRAPH_STEPS, 2):
+            state, _ = guard(state, batches[i:i + 2], True)
+        guard.flush()
+        clean = log.getvalue()
+        with torch.no_grad():
+            state.g_model.conv1[0].weight[0, 0, 0, 0] = float("nan")
+        for i in range(0, GRAPH_STEPS, 2):
+            state, _ = guard(state, batches[i:i + 2], True)
+        guard.flush()
+    warning = "WARNING: non-finite training metrics"
+    nan = {"warnings_before_the_nan": clean.count(warning),
+           "warnings_after_the_nan": log.getvalue().count(warning) - clean.count(warning)}
+    if nan["warnings_before_the_nan"] or not nan["warnings_after_the_nan"]:
+        bad.append(f"nan_guard {nan}")
+    del state, guard
+
+    # doctor
+    proc = subprocess.run([sys.executable, "-m", "srgan_st_tpu_torch", "doctor", "--json"],
+                          capture_output=True, text=True, cwd=HERE, timeout=300)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    doctor = {"rc": proc.returncode, **(json.loads(lines[-1]) if lines else
+                                        {"stderr": proc.stderr[-2000:]})}
+    if proc.returncode != 0 or not doctor.get("ok"):
+        bad.append(f"doctor {doctor}")
+    emit("graph_checks", nan_guard=nan, doctor=doctor)
+
+    # ms per step, eager and by replays in turns (ABAB), one state each
+    timed = {}
+    profiles = {}
+    for recipe, trunk in GRAPH_CASES:
+        cfg = _graph_config(recipe, trunk, vgg)
+        crits = build_criterions(cfg)
+        arms = {}
+        for arm in ("eager", "graph"):
+            graphs = StepGraphs(dev) if arm == "graph" else None
+            st = _gan_state(cfg, dev)
+            chunk = make_gan_chunk_step(cfg, crits, graphs=graphs)
+            arms[arm] = {"graphs": graphs,
+                         "gan": lambda st=st, chunk=chunk: chunk(st, [batch], True),
+                         "g": lambda st=st, chunk=chunk: chunk(st, [batch], False)}
+            if recipe == "adversarial" and trunk == "packed":
+                w_state = create_generator_state(cfg, Generator.from_config(cfg),
+                                                 TRAIN_STEPS, dev, milestones=False)
+                w_chunk = make_warmup_chunk_step(cfg, build_warmup_criterions(cfg),
+                                                 graphs=graphs)
+                arms[arm]["warmup"] = lambda st=w_state, chunk=w_chunk: chunk(st, [batch])
+            for fn in [v for k, v in arms[arm].items() if k != "graphs"]:
+                fn()  # the first call of each kind (eager, then the capture)
+                fn()
+        times = {arm: {k: [] for k in arms[arm] if k != "graphs"} for arm in arms}
+        for _ in range(GRAPH_PAIRS):
+            for kind in times["eager"]:
+                for arm in ("eager", "graph"):
+                    times[arm][kind].append(cuda_ms(arms[arm][kind], iters=1, warmup=0))
+        b = batch.shape[0]
+        t = {}
+        for arm in arms:
+            med = {k: float(np.median(v)) for k, v in times[arm].items()}
+            t[arm] = {**{f"ms_per_{k}_step": v for k, v in med.items()},
+                      **{f"ms_per_{k}_step_all": v for k, v in times[arm].items()},
+                      "patches_per_s_gan_step": b / (med["gan"] / 1e3),
+                      "patches_per_s_d_every_100":
+                          b / ((med["g"] + (med["gan"] - med["g"]) / 100) / 1e3)}
+        t["graph_over_eager_gan_step"] = (t["graph"]["ms_per_gan_step"]
+                                          / t["eager"]["ms_per_gan_step"])
+        graphs = arms["graph"]["graphs"]
+        t["capture_seconds"] = graphs.capture_seconds()
+        t["pool_bytes"] = graphs.pool_bytes()
+        t["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        name = f"{recipe}/{trunk}"
+        timed[name] = t
+        profiles[name] = {arm: profile_once(arms[arm]["gan"]) for arm in arms}
+        del arms, graphs
+        torch.cuda.empty_cache()
+    emit("time", graph="eager vs CUDA graph steps in turns, batch 16, 96x96 GT, x4, bf16",
+         **timed)
+    emit("profile", graph="one GAN step, eager and by replay", **profiles)
+    if bad:
+        raise AssertionError(f"graph phase: {bad}")
+    return {"replayed": replayed, "time": timed, "profiles": profiles, **rec}
+
+
 def _new_path_launches(name: str, data_rec: dict, dist_rec: dict) -> dict:
     """A kernel's launches on the paths of the data and dist phases: one
     train() run from the resident pack, and each rank of the LOCAL_BN run."""
@@ -2370,7 +2654,30 @@ def main() -> int:
         print("chip_smoke: srgan_st_tpu_torch is not the one beside this script",
               file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--only", "graph"]:
+        return run_graph_only(torch.device("cuda"))
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]} (none, or --only graph)",
+              file=sys.stderr)
+        return 2
     return run(torch.device("cuda"))
+
+
+def run_graph_only(dev) -> int:
+    """`--only graph`: the build and the graph phase alone (no result line),
+    for working on the captured steps."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    emit("env", torch=torch.__version__, cuda=torch.version.cuda,
+         device=torch.cuda.get_device_name(0), nvidia_smi=nvidia_smi())
+    phase_build()
+    rng = np.random.default_rng(0)
+    batch = torch.from_numpy(rng.integers(0, 256, (16, 96, 96, 3), dtype=np.uint8)).to(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_graph(dev, batch, write_vgg_npz(os.path.join(tmp, "vgg19.npz")))
+    return 0
 
 
 def run(dev) -> int:
@@ -2432,6 +2739,8 @@ def run(dev) -> int:
         run_counts = phase_run(dev, vgg)
         phase_check_run(dev, batch, vgg)
         phase_time_run(dev, batch, vgg)
+        torch.cuda.empty_cache()
+        graph_rec = phase_graph(dev, batch, vgg)
     torch.cuda.empty_cache()
     # serving's baseline and artifacts last: after a torch.export in the
     # process, torch.profiler misses one of K4's or K5's kernels in a call
@@ -2456,6 +2765,7 @@ def run(dev) -> int:
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "shape": rec["shape"], "f32_max_abs_err": rec["f32_max_abs_err"],
             "train_launches": train_counts[name], **_new_path_launches(name, data_rec, dist_rec),
+            **({"graph_launches": graph_rec["replayed"][name]} if name != "serving_tail" else {}),
         })
     for rec, name, tpu, replaces in (
         (rec_k4, "packed_trunk_fwd", "K4",
@@ -2473,6 +2783,7 @@ def run(dev) -> int:
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "launch_ms": rec["launch_ms"], "kernels_per_call": rec["profile"]["kernels"],
             "shape": rec["shape"], "n": rec["n"], **_new_path_launches(name, data_rec, dist_rec),
+            "graph_launches": graph_rec["replayed"][name],
         })
     kernels.append({
         "name": "fused_trunk", "tpu_kernel": "K6", "route": "cuda",
@@ -2490,6 +2801,7 @@ def run(dev) -> int:
         "grid_syncs_per_call": rec_k6["grid_syncs_per_call"], "grid_blocks": rec_k6["grid_blocks"],
         "bf16_equals_k4": all(all(r["bf16_equals_k4"].values()) for r in rec_k6["errors"]),
         "shape": rec_k6["shape"], "n": rec_k6["n"],
+        "graph_launches": graph_rec["replayed"]["fused_trunk"],
     })
     kernels.append({
         "name": "buddy_select", "tpu_kernel": "K7", "route": "cuda",
@@ -2502,7 +2814,7 @@ def run(dev) -> int:
         "library_device_ms": rec_k7["library_device_ms"],
         "plain_ms": rec_k7["plain_ms"], "bound_ms": rec_k7["bound_ms"],
         "bound_by": rec_k7["bound_by"], "library_ms": rec_k7["library_ms"],
-        "shape": rec_k7["shape"],
+        "shape": rec_k7["shape"], "graph_launches": graph_rec["replayed"]["buddy_select"],
     })
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -8,10 +8,11 @@ Usage:
     python -m srgan_st_tpu_torch validate ...   # PSNR/SSIM eval on a test set
     python -m srgan_st_tpu_torch export ...     # torch.export serving artifact
     python -m srgan_st_tpu_torch prepare-dataset ...  # tile HR images (+ --pack)
+    python -m srgan_st_tpu_torch doctor ...     # GPU health probe
 
 Each command forwards to its module's CLI (same flags as running the
-module directly) and is imported lazily. The JAX package's `bench`
-command waits for ROADMAP.md Queue A item 6.
+module directly) and is imported lazily. The JAX package's `curves`,
+`feature-maps` and `buddy-viz` figure commands are not ported yet.
 """
 
 from __future__ import annotations
@@ -47,6 +48,10 @@ _COMMANDS: dict[str, tuple[str, str, str]] = {
     "prepare-dataset": (
         "srgan_st_tpu_torch.data.prepare_dataset", "main",
         "tile HR images into training patches (--pack: patches.pack.npy)",
+    ),
+    "doctor": (
+        "srgan_st_tpu_torch.utils.cuda_health", "main",
+        "probe whether the CUDA device is usable (clean child processes)",
     ),
 }
 

@@ -5,8 +5,11 @@ The port's own copy of the JAX package's code-as-config `Config`
 training slices read, and its `--set GROUP.FIELD=value` CLI overrides. Key
 names and defaults are the same, so a config carries over unchanged:
 `TPU.*` names settings (compute dtype, trunk and tail modes, conv3 inner
-factoring, tiled eval, the data-parallel layout and LOCAL_BN), not
-hardware.
+factoring, tiled eval, the data-parallel layout and LOCAL_BN, chunking,
+CUDA graphs, the NaN guard, remat), not hardware. `TPU.DONATE` is no key
+of the port: its steps update the state in place, which is what donation
+buys in JAX. `TPU.SHARD_MAP` and `EXP.ORBAX_CHECKPOINTS` are not keys
+either.
 """
 
 from __future__ import annotations
@@ -171,6 +174,24 @@ class Config:
         self.TPU.TILED_EVAL = False
         # geometric x8 self-ensemble (eval/ensemble.py); composes with TILED_EVAL
         self.TPU.SELF_ENSEMBLE = False
+        # batches per chunk of the training loops: the D update and the log
+        # row happen at chunk starts only. None -> the natural interval
+        # (D_UPDATE_INTERVAL for GAN, LOG_TRAIN_PERIOD for warmup); 1 -> per
+        # batch. An override that does not divide the interval is cut to a
+        # divisor of it (train/utils.py resolve_chunk_steps)
+        self.TPU.CHUNK_STEPS = None
+        # on CUDA, each step kind (warmup, G, G + D) is captured once as a
+        # CUDA graph and replayed per batch (train/graphs.py); False keeps
+        # the eager step. gloo collectives cannot be captured: a gloo run on
+        # the GPU sets it False
+        self.TPU.CUDA_GRAPHS = True
+        # a device-side all-finite check of each chunk's metrics, read by
+        # the host a chunk later (no sync); prints a warning on NaN/Inf
+        self.TPU.NAN_GUARD = False
+        # torch.utils.checkpoint around each residual block of the unfused
+        # trunk: activations recomputed in the backward (the kernel trunks
+        # keep their saved residuals)
+        self.TPU.REMAT = False
 
     def add_g_criterion(self, name: str, spec: dict, weight: float = 1.0) -> None:
         """Add a generator criterion spec (reference config.py:122-131)."""

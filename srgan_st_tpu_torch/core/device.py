@@ -26,3 +26,25 @@ def compute_dtype(name: str) -> torch.dtype:
     if name not in dtypes:
         raise ValueError(f"unsupported compute dtype {name!r}")
     return dtypes[name]
+
+
+_CONSTANTS: dict = {}
+
+
+def device_constant(key, make, device, dtype=None) -> torch.Tensor:
+    """The array `make()` as a tensor on `device` (in `dtype`), made once
+    per (key, device, dtype) and kept. A copy from host memory in every call
+    would be a pageable copy inside each step, which a CUDA graph capture
+    refuses; a step's first (eager) call fills the cache before its capture.
+    The tensor is shared: callers must not write to it. It is made outside
+    inference mode (an inference tensor cannot enter a later autograd
+    step), and one that a tracer made (a fake or functional tensor of
+    torch.export) is not kept."""
+    k = (key, str(torch.device(device)), dtype)
+    t = _CONSTANTS.get(k)
+    if t is None:
+        with torch.inference_mode(False):
+            t = torch.as_tensor(make(), dtype=dtype, device=device)
+        if type(t) is torch.Tensor:
+            _CONSTANTS[k] = t
+    return t

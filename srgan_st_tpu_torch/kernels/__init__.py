@@ -8,33 +8,61 @@
 | fused_trunk.py  | csrc/fused_trunk.cu  | fused_trunk.py `_kernel` |
 | buddy_select.py | csrc/buddy_select.cu | buddy_select.py `_buddy_kernel` |
 
-Each wrapper counts its launches in a module-level integer. xpack_trunk.py
+Each wrapper counts its launches in a module-level integer; a replay of a
+captured CUDA graph adds the launches made while it was captured
+(`add_launch_counts`). xpack_trunk.py
 has no kernel: the JAX module it ports is plain XLA, so its eval trunk is
 plain torch, and its training trunk is packed_trunk.py's.
 """
 
 
-def reset_launch_counts() -> None:
-    from srgan_st_tpu_torch.kernels import (
-        buddy_select, coarse_conv, fused_trunk, packed_trunk, serving_tail,
-    )
+# Replays of captured CUDA graphs since import (train/graphs.py). A replay
+# updates parameters in place without bumping their `_version`, so the
+# weight-layout caches (coarse_conv.KernelWeights, serving_tail.TailWeights)
+# key on this generation too.
+generation = 0
 
-    coarse_conv.launches = 0
-    serving_tail.launches = 0
-    packed_trunk.fwd_launches = 0
-    packed_trunk.bwd_launches = 0
-    fused_trunk.launches = 0
-    buddy_select.launches = 0
+# launches made by graph replays, by `launch_counts` name: a replay adds the
+# launches its graph recorded at capture (they are in `launch_counts` too)
+_replayed: dict[str, int] = {}
+
+_COUNTERS = {"coarse_conv_s2d": ("coarse_conv", "launches"),
+             "serving_tail": ("serving_tail", "launches"),
+             "packed_trunk_fwd": ("packed_trunk", "fwd_launches"),
+             "packed_trunk_bwd": ("packed_trunk", "bwd_launches"),
+             "fused_trunk": ("fused_trunk", "launches"),
+             "buddy_select": ("buddy_select", "launches")}
+
+
+def _module(name: str):
+    import importlib
+
+    return importlib.import_module(f"srgan_st_tpu_torch.kernels.{name}")
+
+
+def reset_launch_counts() -> None:
+    for module, attr in _COUNTERS.values():
+        setattr(_module(module), attr, 0)
+    _replayed.clear()
 
 
 def launch_counts() -> dict[str, int]:
-    from srgan_st_tpu_torch.kernels import (
-        buddy_select, coarse_conv, fused_trunk, packed_trunk, serving_tail,
-    )
+    """Executed launches of each kernel: eager calls and graph replays."""
+    return {name: getattr(_module(module), attr) for name, (module, attr) in _COUNTERS.items()}
 
-    return {"coarse_conv_s2d": coarse_conv.launches,
-            "serving_tail": serving_tail.launches,
-            "packed_trunk_fwd": packed_trunk.fwd_launches,
-            "packed_trunk_bwd": packed_trunk.bwd_launches,
-            "fused_trunk": fused_trunk.launches,
-            "buddy_select": buddy_select.launches}
+
+def graph_launch_counts() -> dict[str, int]:
+    """The part of `launch_counts` that graph replays made."""
+    return {name: _replayed.get(name, 0) for name in _COUNTERS}
+
+
+def add_launch_counts(delta: dict[str, int], replayed: bool = False) -> None:
+    """Add `delta` to the counters: a graph's capture takes back the
+    launches its capture counted (nothing ran), each replay adds them
+    (`replayed`)."""
+    for name, n in delta.items():
+        module, attr = _COUNTERS[name]
+        mod = _module(module)
+        setattr(mod, attr, getattr(mod, attr) + n)
+        if replayed:
+            _replayed[name] = _replayed.get(name, 0) + n

@@ -78,23 +78,31 @@ def _layout(w2: torch.Tensor, device, dtype) -> torch.Tensor:
 
 class KernelWeights:
     """`_layout` of one conv's weight (an OIHW parameter of a 9x9 conv to
-    3 channels) in a compute dtype, made again only when the
-    weight's storage or version changes: once per parameter version, not
-    once per call."""
+    3 channels) in a compute dtype, made again only when the weight's
+    storage or version changes, or a CUDA graph was replayed (the
+    `kernels.generation` count: a replay updates parameters without
+    bumping their version): once per parameter version, not once per call.
+    Under a graph capture the layout is made inside the graph and not
+    kept."""
 
     def __init__(self) -> None:
         self._key = None
         self._wt = None
 
     def get(self, weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        key = (weight.data_ptr(), weight._version, weight.device, dtype)
-        if key != self._key:
-            from srgan_st_tpu_torch.ops.subpixel_conv import _coarse_kernel
+        from srgan_st_tpu_torch import kernels
+        from srgan_st_tpu_torch.ops.subpixel_conv import _coarse_kernel
 
+        capturing = weight.is_cuda and torch.cuda.is_current_stream_capturing()
+        key = (weight.data_ptr(), weight._version, weight.device, dtype, kernels.generation)
+        if capturing or key != self._key:
             with torch.no_grad():
                 w2 = _coarse_kernel(weight.detach().permute(2, 3, 1, 0).to(dtype), 2)
-                self._wt = _layout(w2, weight.device, dtype)
-            self._key = key
+                wt = _layout(w2, weight.device, dtype)
+            if capturing:
+                self._key = self._wt = None
+                return wt
+            self._key, self._wt = key, wt
         return self._wt
 
 

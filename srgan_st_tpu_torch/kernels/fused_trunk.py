@@ -143,7 +143,7 @@ def _recompute_h(a1, m1, v1, g1, b1, alpha, eps):
     """(PReLU input, conv2 input) from the residuals in the compute dtype,
     the inv a compute-dtype rsqrt of the compute-dtype v + eps (:219-227)."""
     cdt = a1.dtype
-    inv = torch.rsqrt(v1.to(cdt) + torch.tensor(eps, dtype=cdt, device=a1.device))
+    inv = torch.rsqrt(v1.to(cdt) + torch.full((), eps, dtype=cdt, device=a1.device))
     pre = (a1 - m1.to(cdt)) * inv
     pre = pre * g1.to(cdt) + b1.to(cdt)
     return pre, torch.where(pre >= 0, pre, alpha.to(cdt) * pre)

@@ -94,15 +94,23 @@ def _layouts(w_up, b_up, alpha, w3, dev, cdt) -> dict:
 
 class TailWeights:
     """`_layouts` of one generator's tail parameters in a compute dtype,
-    made again only when a parameter's storage or version changes."""
+    made again only when a parameter's storage or version changes, or a
+    CUDA graph was replayed (`kernels.generation`); under a graph capture
+    made inside the graph and not kept (as coarse_conv.KernelWeights)."""
 
     def __init__(self) -> None:
         self._key = None
         self._layouts = None
 
     def get(self, w_up, b_up, alpha, w3, dev, cdt) -> dict:
+        from srgan_st_tpu_torch import kernels
+
+        capturing = torch.device(dev).type == "cuda" and torch.cuda.is_current_stream_capturing()
         key = tuple((t.data_ptr(), t._version) if torch.is_tensor(t) else float(t)
-                    for t in (w_up, b_up, alpha, w3)) + (str(dev), cdt)
+                    for t in (w_up, b_up, alpha, w3)) + (str(dev), cdt, kernels.generation)
+        if capturing:
+            self._key = self._layouts = None
+            return _layouts(w_up, b_up, alpha, w3, dev, cdt)
         if key != self._key:
             self._layouts = _layouts(w_up, b_up, alpha, w3, dev, cdt)
             self._key = key

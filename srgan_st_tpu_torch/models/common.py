@@ -49,7 +49,10 @@ class BatchNorm(nn.BatchNorm2d):
     group = None
     stats_sync = "full"
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                update: bool = True) -> torch.Tensor:
+        """`update` False leaves the running statistics alone (a remat
+        recomputation of a train-mode forward)."""
         dt = x.dtype
         shape = (1, -1, 1, 1)
         if train:
@@ -68,7 +71,8 @@ class BatchNorm(nn.BatchNorm2d):
                 g_n = n * g.world_size
             var = torch.clamp(mean2 - mean * mean, min=0.0)
             g_var = var if g_mean is mean else torch.clamp(g_mean2 - g_mean * g_mean, min=0.0)
-            self.update_running(g_mean, g_var, g_n)
+            if update:
+                self.update_running(g_mean, g_var, g_n)
         else:
             mean, var = self.running_mean, self.running_var
         y = (x - mean.to(dt).view(shape)) * torch.rsqrt(

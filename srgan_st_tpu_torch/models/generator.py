@@ -28,7 +28,10 @@ each BatchNorm folded into its conv. The last upsample block's shuffle is elided
 reconstruction conv runs on its pre-shuffle activation
 (conv2d_subpixel_pre_shuffled), through the hand-written coarse conv kernel
 by default; TAIL_MODE="fused" runs the last up-conv, PReLU and conv3 as one
-kernel in eval (kernels/serving_tail.py).
+kernel in eval (kernels/serving_tail.py). With `remat` (TPU.REMAT) each
+residual block of the unfused trunk runs under torch.utils.checkpoint
+(`remat_block`), as the JAX package's `nn.remat`; the kernel trunks keep
+their saved residuals.
 """
 
 from __future__ import annotations
@@ -57,9 +60,28 @@ class ResidualConvBlock(nn.Module):
             BatchNorm(channels),
         )
 
-    def forward(self, x, train: bool = False):
+    def forward(self, x, train: bool = False, update_stats: bool = True):
         conv1, bn1, prelu, conv2, bn2 = self.rcb
-        return bn2(conv2(prelu(bn1(conv1(x), train))), train) + x
+        h = prelu(bn1(conv1(x), train, update_stats))
+        return bn2(conv2(h), train, update_stats) + x
+
+
+def remat_block(block: ResidualConvBlock, x: torch.Tensor, train: bool) -> torch.Tensor:
+    """`block(x, train)` under torch.utils.checkpoint (non-reentrant): its
+    activations are recomputed in the backward instead of saved, as the JAX
+    package's `nn.remat` of the block (generator.py:264-272). The
+    recomputation leaves the BatchNorm running statistics alone, so they
+    move once a step, as without remat."""
+    from torch.utils.checkpoint import checkpoint
+
+    calls = []
+
+    def run(h):
+        out = block(h, train, update_stats=not calls)
+        calls.append(1)
+        return out
+
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
 
 
 def stack_rcb_params(blocks) -> tuple:
@@ -114,8 +136,10 @@ class Generator(nn.Module):
                  trunk_mode: str | None = None, stem_mode: str | None = None,
                  conv3_mode: str | None = None,
                  conv3_inner: int | str | None = None,
-                 tail_mode: str | None = None, group=None, local_bn: bool = False):
+                 tail_mode: str | None = None, group=None, local_bn: bool = False,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.channels = channels
         self.out_channels = out_channels
         self.upscale = upscale
@@ -176,6 +200,7 @@ class Generator(nn.Module):
             tail_mode=config.TPU.get("TAIL_MODE"),
             group=group,
             local_bn=bool(config.TPU.get("LOCAL_BN")),
+            remat=bool(config.TPU.get("REMAT")),
         )
 
     def _up_factors(self):
@@ -270,8 +295,9 @@ class Generator(nn.Module):
         mode = self._trunk_mode(train, x)
         if mode == "unfused":
             h = x.permute(0, 3, 1, 2)
+            remat = self.remat and torch.is_grad_enabled()
             for blk in self.trunk:
-                h = blk(h, train)
+                h = remat_block(blk, h, train) if remat else blk(h, train)
             return h.permute(0, 2, 3, 1)
         from srgan_st_tpu_torch.kernels.fused_trunk import fused_trunk
         from srgan_st_tpu_torch.kernels.packed_trunk import hybrid_trunk, packed_trunk

@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from srgan_st_tpu_torch.core.device import device_constant
+
 # torchvision.transforms.Grayscale coefficients (rgb_to_grayscale)
 _GRAY_RGB = (0.2989, 0.587, 0.114)
 
@@ -27,8 +29,8 @@ def rgb_to_grayscale(x: torch.Tensor, channel_axis: int = -1) -> torch.Tensor:
 
 def imagenet_normalize(x: torch.Tensor) -> torch.Tensor:
     """(x - mean) / std per RGB channel, NHWC (reference loss.py:52,62-63)."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=x.dtype, device=x.device)
-    std = torch.tensor(IMAGENET_STD, dtype=x.dtype, device=x.device)
+    mean = device_constant("imagenet_mean", lambda: IMAGENET_MEAN, x.device, x.dtype)
+    std = device_constant("imagenet_std", lambda: IMAGENET_STD, x.device, x.dtype)
     return (x - mean) / std
 
 

@@ -20,6 +20,8 @@ import functools
 import numpy as np
 import torch
 
+from srgan_st_tpu_torch.core.device import device_constant
+
 
 def _cubic(x: np.ndarray, a: float) -> np.ndarray:
     """Keys cubic convolution kernel with parameter ``a``."""
@@ -118,11 +120,12 @@ def resize_bicubic(x: torch.Tensor, scale: float, method: str = "matlab",
         raise ValueError(f"expected NHWC input, got shape {tuple(x.shape)}")
     _, h, w, _ = x.shape
     out_h, out_w = int(h * scale), int(w * scale)
-    mh, mw = _resize_matrices(h, w, out_h, out_w, scale, method)
     if quantize is None:
         quantize = method == "matlab"
-    mh = torch.as_tensor(mh, dtype=x.dtype, device=x.device)
-    mw = torch.as_tensor(mw, dtype=x.dtype, device=x.device)
+    mh, mw = (device_constant(("resize", h, w, out_h, out_w, scale, method, i),
+                              lambda i=i: _resize_matrices(h, w, out_h, out_w, scale,
+                                                           method)[i],
+                              x.device, x.dtype) for i in (0, 1))
     # rows then cols, the reference's order (bicubic.py:94-104)
     with full_f32_matmul():
         out = torch.einsum("oh,bhwc->bowc", mh, x)

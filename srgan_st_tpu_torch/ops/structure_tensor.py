@@ -20,6 +20,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from srgan_st_tpu_torch.core.device import device_constant
+
 
 def gaussian_kernel(sigma: float, also_dg: bool = False, radius: int | None = None):
     """1-D Gaussian (and optionally its derivative) taps as numpy arrays
@@ -40,7 +42,8 @@ def _conv1d_same(x: torch.Tensor, taps: np.ndarray, axis: str) -> torch.Tensor:
     """SAME zero-padded 1-D cross-correlation of (B, 1, H, W) along H or W."""
     k = len(taps)
     shape = (1, 1, k, 1) if axis == "h" else (1, 1, 1, k)
-    kernel = torch.as_tensor(taps, dtype=x.dtype, device=x.device).reshape(shape)
+    kernel = device_constant(("taps", tuple(np.asarray(taps, np.float32).tolist())),
+                             lambda: taps, x.device, x.dtype).reshape(shape)
     return F.conv2d(x, kernel, padding="same")
 
 
@@ -74,8 +77,9 @@ def _banded_same_matrix(size: int, taps_key) -> np.ndarray:
 
 
 def _banded(size: int, taps: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    mat = _banded_same_matrix(size, tuple(np.asarray(taps, np.float32).tolist()))
-    return torch.as_tensor(mat, dtype=like.dtype, device=like.device)
+    key = tuple(np.asarray(taps, np.float32).tolist())
+    return device_constant(("banded", size, key), lambda: _banded_same_matrix(size, key),
+                           like.device, like.dtype)
 
 
 def structure_tensor_patches(patches: torch.Tensor, sigma: float = 0.5,

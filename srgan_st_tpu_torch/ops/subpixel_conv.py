@@ -23,6 +23,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from srgan_st_tpu_torch.core.device import device_constant
+
 
 def conv_nhwc(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None
               ) -> torch.Tensor:
@@ -76,8 +78,8 @@ def _coarse_kernel(w: torch.Tensor, f: int) -> torch.Tensor:
     """w: (k, k, C, N) -> W2: (kc, kc, C*f*f, N*f*f)."""
     k, _, c, n = w.shape
     dy, ok, kc = _repack_indices(k, f)
-    dyt = torch.as_tensor(dy, device=w.device)
-    okt = torch.as_tensor(ok, device=w.device).to(w.dtype)
+    dyt = device_constant(("coarse_dy", k, f), lambda: dy, w.device)
+    okt = device_constant(("coarse_ok", k, f), lambda: ok, w.device, w.dtype)
     # W2[qy, qx, c, ry, rx, n, py, px] = w[dy(qy,ry,py), dx(qx,rx,px), c, n] * valid
     wg = w[dyt[:, None, :, None, :, None], dyt[None, :, None, :, None, :]]
     # shape: (kcy, kcx, ry, rx, py, px, C, N)

@@ -69,6 +69,15 @@ class DataParallel:
         if self.active:
             dist.barrier()
 
+    def require_capturable(self, key: str) -> None:
+        """Raise unless a CUDA graph can hold this group's collectives:
+        NCCL's are captured, gloo's (staged through the host) cannot be.
+        One process makes none."""
+        if self.active and dist.get_backend() != "nccl":
+            raise ValueError(
+                f"{key}=true: a CUDA graph cannot capture {dist.get_backend()} "
+                f"collectives; run with --set {key}=false")
+
 
 class _PMean(torch.autograd.Function):
     @staticmethod

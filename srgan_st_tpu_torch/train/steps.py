@@ -15,9 +15,15 @@ loop only when it logs, so a step does not wait for the device.
     discriminator update on (gt, smoothed real) and (sr, fake), two
     sequential train-mode forwards whose statistics chain.
 
-warmup() and train() call them once per batch, as the reference's loop does
-(train.py:116-164): the JAX package's `lax.scan` chunking is a TPU
-dispatch device with no counterpart here.
+Each step is a device body (`_warmup_body`, `_gan_bodies`: no host sync,
+no host state) and a host part (the draws, the step counter). warmup() and
+train() run chunks of batches (`make_warmup_chunk_step`,
+`make_gan_chunk_step`), the JAX package's jitted `lax.scan` chunks: on
+CUDA each step kind is captured once as a CUDA graph (train/graphs.py) and
+replayed per batch, the counterpart of JAX's compiled chunk; the D update
+and the logged metrics belong to each chunk's batch 0, as in JAX.
+`make_warmup_step` and `make_gan_steps` are the same bodies run eagerly
+once per call.
 
 Data parallelism (`mesh`, a parallel/mesh.py DataParallel): each process
 runs the step on its share of the global batch, and the step averages the
@@ -64,35 +70,77 @@ def multistep_lr(base_lr: float, milestones_steps: list[int], gamma: float
 
 class Adam:
     """optax.adam (or optax.adamw with weight decay) with a step schedule:
-    `torch.optim.Adam` / `AdamW` stepped with the explicit lr of each update,
+    `torch.optim.Adam` / `AdamW` stepped with the lr of each update,
     lr_fn(k) for update k. Both put eps outside the square root, as optax
-    does: lr * mhat / (sqrt(vhat) + eps)."""
+    does: lr * mhat / (sqrt(vhat) + eps).
+
+    On CUDA the optimizer is capturable (a step can be captured in a CUDA
+    graph): the update count lives on the device, and the lr of each update
+    is picked there from a table of lr_fn's values on the pieces between
+    `bounds` (the counts where lr_fn changes), so a replay takes the lr of
+    its own update. The eager CUDA step runs the same code. On the CPU the
+    lr is a Python float set before each step."""
 
     def __init__(self, params, lr_fn: Callable[[int], float], beta1: float,
-                 beta2: float, eps: float, weight_decay: float):
+                 beta2: float, eps: float, weight_decay: float, bounds=()):
         self.params = [p for p in params if p.requires_grad]
-        cls = torch.optim.AdamW if weight_decay else torch.optim.Adam
-        self.opt = cls(self.params, lr=lr_fn(0), betas=(beta1, beta2), eps=eps,
-                       weight_decay=weight_decay)
         self.lr_fn = lr_fn
-        self.count = 0
+        self._capturable = bool(self.params) and self.params[0].is_cuda
+        cls = torch.optim.AdamW if weight_decay else torch.optim.Adam
+        if self._capturable:
+            dev = self.params[0].device
+            bounds = sorted(bounds)
+            self._bounds = torch.tensor(bounds, dtype=torch.int64).to(dev)
+            self._lrs = torch.tensor([lr_fn(b) for b in [0, *bounds]],
+                                     dtype=torch.float32).to(dev)
+            self._lr = self._lrs[:1].clone().reshape(())
+            self._count = torch.zeros((), dtype=torch.int64, device=dev)
+            self.opt = cls(self.params, lr=self._lr, betas=(beta1, beta2), eps=eps,
+                           weight_decay=weight_decay, capturable=True, foreach=True)
+        else:
+            self._count = 0
+            self.opt = cls(self.params, lr=lr_fn(0), betas=(beta1, beta2), eps=eps,
+                           weight_decay=weight_decay)
+
+    @property
+    def count(self) -> int:
+        """Updates applied (a host read of the device count on CUDA)."""
+        return int(self._count)
 
     def step(self, grads) -> None:
         """Apply one update with `grads` (one per parameter, in order)."""
         for p, g in zip(self.params, grads, strict=True):
             p.grad = g
-        for group in self.opt.param_groups:
-            group["lr"] = self.lr_fn(self.count)
+        if self._capturable:
+            piece = (self._count >= self._bounds).sum().reshape(1)
+            self._lr.copy_(self._lrs.index_select(0, piece).reshape(()))
+        else:
+            for group in self.opt.param_groups:
+                group["lr"] = self.lr_fn(self._count)
         self.opt.step()
         self.opt.zero_grad(set_to_none=True)
-        self.count += 1
+        self._count += 1
 
     def state_dict(self) -> dict:
-        return {"opt": self.opt.state_dict(), "count": self.count}
+        sd = self.opt.state_dict()
+        for group in sd["param_groups"]:  # the lr as a float, as on the CPU
+            group["lr"] = float(group["lr"])
+        return {"opt": sd, "count": self.count}
 
     def load_state_dict(self, state: dict) -> None:
         self.opt.load_state_dict(state["opt"])
-        self.count = int(state["count"])
+        if self._capturable:
+            self._count.fill_(int(state["count"]))
+            for group in self.opt.param_groups:
+                group["lr"], group["capturable"] = self._lr, True
+            for st in self.opt.state.values():  # capturable keeps its steps on the device
+                st["step"] = st["step"].to(device=self._count.device, dtype=torch.float32)
+        else:
+            self._count = int(state["count"])
+            for group in self.opt.param_groups:
+                group["capturable"] = False
+            for st in self.opt.state.values():
+                st["step"] = st["step"].to(device="cpu", dtype=torch.float32)
 
 
 def make_optimizer(params, base_lr, beta1, beta2, eps, weight_decay,
@@ -100,7 +148,7 @@ def make_optimizer(params, base_lr, beta1, beta2, eps, weight_decay,
     """Adam with the reference's hyperparameters — eps=1e-4, not torch's
     default (reference config.py:107,114)."""
     return Adam(params, multistep_lr(base_lr, milestones_steps, gamma), beta1, beta2,
-                eps, weight_decay)
+                eps, weight_decay, bounds=milestones_steps)
 
 
 def make_g_optimizer(config, params, steps_per_epoch: int, milestones: bool = True):
@@ -174,11 +222,9 @@ def _prepare_batch(gt, config, device, offsets=None, flip=None, rot=None
     return gt, resize_bicubic(gt, 1.0 / config.DATA.UPSCALE_FACTOR, method="matlab")
 
 
-def _step_batch(config, state, gt_u8, rank: int, augment: bool):
-    """_prepare_batch with this step's draws on this rank."""
-    draws = draw_augment(config, state.step, rank, gt_u8.shape[0],
-                         tuple(gt_u8.shape[1:3]), augment)
-    return _prepare_batch(gt_u8, config, _device(state), **draws)
+def _draws(config, step: int, gt_u8, rank: int, augment: bool) -> dict:
+    """draw_augment for the batch `gt_u8` at `step` on this rank."""
+    return draw_augment(config, step, rank, gt_u8.shape[0], tuple(gt_u8.shape[1:3]), augment)
 
 
 def _pmean_step(mesh, grads, total, values: dict):
@@ -208,32 +254,28 @@ def _criterion_sum(criterions, sr, gt, adversarial=None):
     return total, values
 
 
-def make_warmup_step(config, criterions, mesh=None):
-    """Generator-only pretraining step (reference warmup.py:74-96)."""
-    mesh = _no_mesh(mesh)
-    augment = bool(config.DATA.AUGMENT)
+def _warmup_body(config, criterions, mesh):
+    """The device work of a warmup step, given the batch and its draws:
+    no host sync and no host state, so that it can be captured."""
 
-    def warmup_step(state: GANTrainState, gt_u8):
-        gt, lr = _step_batch(config, state, gt_u8, mesh.rank, augment)
+    def body(state: GANTrainState, gt_u8, draws: dict) -> dict:
+        gt, lr = _prepare_batch(gt_u8, config, _device(state), **draws)
         sr = state.g_model(lr, train=True)
         total, values = _criterion_sum(criterions, sr, gt)
         grads = torch.autograd.grad(total, state.g_opt.params)
         grads, total, values = _pmean_step(mesh, grads, total, values)
         state.g_opt.step(grads)
-        state.step += 1
-        return state, dict(values, G_Loss=total)
+        return dict(values, G_Loss=total)
 
-    return warmup_step
+    return body
 
 
-def make_gan_steps(config, criterions, mesh=None):
-    """(g_step, d_step) for adversarial training (train.py:116-164)."""
-    mesh = _no_mesh(mesh)
-    augment = bool(config.DATA.AUGMENT)
+def _gan_bodies(config, criterions, mesh):
+    """(g_body, d_body), the device work of a G and of a D step."""
     real_label = 1.0 - config.EXP.LABEL_SMOOTHING
 
-    def g_step(state: GANTrainState, gt_u8):
-        gt, lr = _step_batch(config, state, gt_u8, mesh.rank, augment)
+    def g_body(state: GANTrainState, gt_u8, draws: dict):
+        gt, lr = _prepare_batch(gt_u8, config, _device(state), **draws)
         sr = state.g_model(lr, train=True)
 
         def adversarial(sr_):
@@ -244,13 +286,12 @@ def make_gan_steps(config, criterions, mesh=None):
         grads = torch.autograd.grad(total, state.g_opt.params)
         grads, total, values = _pmean_step(mesh, grads, total, values)
         state.g_opt.step(grads)
-        state.step += 1
-        return state, sr.detach(), dict(values, G_Loss=total)
+        return sr.detach(), dict(values, G_Loss=total)
 
-    def d_step(state: GANTrainState, gt_u8, sr):
+    def d_body(state: GANTrainState, gt_u8, sr, draws: dict) -> dict:
         # D sees unaugmented real patches: any crop of a real tile is a real
         # patch (its draws are those of the step after the G step's)
-        gt, _ = _step_batch(config, state, gt_u8, mesh.rank, False)
+        gt, _ = _prepare_batch(gt_u8, config, _device(state), **draws)
         sr = sr.detach()
         pred_gt = state.d_model(gt, train=True)
         pred_sr = state.d_model(sr, train=True)  # statistics chained after gt's
@@ -261,11 +302,120 @@ def make_gan_steps(config, criterions, mesh=None):
         *grads, d_loss, mean_gt, mean_sr = mesh.pmean(
             [*grads, d_loss.detach(), pred_gt.detach().mean(), pred_sr.detach().mean()])
         state.d_opt.step(grads)
-        metrics = {"D_Loss": d_loss, "D(GT)_Probability": torch.sigmoid(mean_gt),
-                   "D(SR)_Probability": torch.sigmoid(mean_sr)}
+        return {"D_Loss": d_loss, "D(GT)_Probability": torch.sigmoid(mean_gt),
+                "D(SR)_Probability": torch.sigmoid(mean_sr)}
+
+    return g_body, d_body
+
+
+def make_warmup_step(config, criterions, mesh=None):
+    """Generator-only pretraining step (reference warmup.py:74-96), eager."""
+    mesh = _no_mesh(mesh)
+    augment = bool(config.DATA.AUGMENT)
+    body = _warmup_body(config, criterions, mesh)
+
+    def warmup_step(state: GANTrainState, gt_u8):
+        metrics = body(state, gt_u8, _draws(config, state.step, gt_u8, mesh.rank, augment))
+        state.step += 1
         return state, metrics
 
+    return warmup_step
+
+
+def make_gan_steps(config, criterions, mesh=None):
+    """(g_step, d_step) for adversarial training (train.py:116-164), eager."""
+    mesh = _no_mesh(mesh)
+    augment = bool(config.DATA.AUGMENT)
+    g_body, d_body = _gan_bodies(config, criterions, mesh)
+
+    def g_step(state: GANTrainState, gt_u8):
+        sr, metrics = g_body(state, gt_u8,
+                             _draws(config, state.step, gt_u8, mesh.rank, augment))
+        state.step += 1
+        return state, sr, metrics
+
+    def d_step(state: GANTrainState, gt_u8, sr):
+        return state, d_body(state, gt_u8, sr,
+                             _draws(config, state.step, gt_u8, mesh.rank, False))
+
     return g_step, d_step
+
+
+# ---------------------------------------------------------------------------
+# Chunked steps (the JAX package's make_warmup_chunk_step and
+# make_gan_chunk_step, steps.py:310-390). JAX runs a chunk of batches as one
+# jitted lax.scan, because a dispatch costs more on the host than the step's
+# compute. Here each step kind (warmup, G, G + D) is captured once as a CUDA
+# graph (train/graphs.py) and replayed per batch: the host enqueues one
+# graph instead of thousands of kernels. The chunk keeps JAX's semantics:
+# the D update runs only at the chunk's batch 0 (with that batch's sr), and
+# the chunk returns batch 0's metrics, the ones the loops log. With
+# `graphs` None (the CPU, or TPU.CUDA_GRAPHS false) the steps run eagerly.
+
+def _run(graphs, kind: str, state, body, *args):
+    """body(state, *args) eagerly, or as a replay of its graph."""
+    if graphs is None:
+        return body(state, *args)
+    return graphs.run(kind, state, lambda *a: body(state, *a), *args)
+
+
+def _kept(graphs, metrics: dict) -> dict:
+    """Batch 0's metrics, cloned where they are a graph's static outputs
+    (the next replay overwrites them)."""
+    return metrics if graphs is None else {k: v.clone() for k, v in metrics.items()}
+
+
+def make_warmup_chunk_step(config, criterions, mesh=None, graphs=None):
+    """chunk_step(state, chunk) -> (state, metrics of batch 0): one warmup
+    step per batch of the chunk (a list of batches)."""
+    mesh = _no_mesh(mesh)
+    augment = bool(config.DATA.AUGMENT)
+    body = _warmup_body(config, criterions, mesh)
+
+    def chunk_step(state: GANTrainState, chunk):
+        metrics0 = None
+        for gt in chunk:
+            draws = _draws(config, state.step, gt, mesh.rank, augment)
+            metrics = _run(graphs, "warmup", state, body, gt, draws)
+            state.step += 1
+            if metrics0 is None:
+                metrics0 = _kept(graphs, metrics)
+        return state, metrics0
+
+    return chunk_step
+
+
+def make_gan_chunk_step(config, criterions, mesh=None, graphs=None):
+    """chunk_step(state, chunk, do_d_update) -> (state, metrics of batch 0):
+    K generator updates and, when do_d_update (the chunk starts on a
+    D_UPDATE_INTERVAL boundary), one discriminator update on batch 0 with
+    its sr (reference train.py:149-164)."""
+    mesh = _no_mesh(mesh)
+    augment = bool(config.DATA.AUGMENT)
+    g_body, d_body = _gan_bodies(config, criterions, mesh)
+
+    def g_only(state, gt, draws):
+        return g_body(state, gt, draws)[1]
+
+    def g_and_d(state, gt, g_draws, d_draws):
+        sr, g_metrics = g_body(state, gt, g_draws)
+        return {**g_metrics, **d_body(state, gt, sr, d_draws)}
+
+    def chunk_step(state: GANTrainState, chunk, do_d_update: bool = True):
+        metrics0 = None
+        for i, gt in enumerate(chunk):
+            draws = _draws(config, state.step, gt, mesh.rank, augment)
+            if i == 0 and do_d_update:
+                d_draws = _draws(config, state.step + 1, gt, mesh.rank, False)
+                metrics = _run(graphs, "gan", state, g_and_d, gt, draws, d_draws)
+            else:
+                metrics = _run(graphs, "g", state, g_only, gt, draws)
+            state.step += 1
+            if metrics0 is None:
+                metrics0 = _kept(graphs, metrics)
+        return state, metrics0
+
+    return chunk_step
 
 
 def _seeded(config, generator: torch.Generator | None) -> torch.Generator:

@@ -6,8 +6,11 @@ sided label smoothing, the criterion-sum generator update every batch, the
 discriminator update on batches with batch_num % D_UPDATE_INTERVAL == 0
 with that batch's sr, validation at each epoch end, the reference's scalar
 names, the warmup warm-start flags, and the g/d last/best/epoch
-checkpoints. One step per batch; runs on CUDA unless `device` says
-otherwise. With several processes (parallel/distributed.py) each runs on
+checkpoints. The epoch runs in chunks of D_UPDATE_INTERVAL batches
+(TPU.CHUNK_STEPS), the JAX package's loop: the D update and the log row
+only at chunk starts, on CUDA each step a replay of its captured graph
+(train/graphs.py, TPU.CUDA_GRAPHS); TPU.NAN_GUARD checks each chunk's
+metrics. Runs on CUDA unless `device` says otherwise. With several processes (parallel/distributed.py) each runs on
 its own GPU with its share of every batch, and only the coordinator
 validates and writes checkpoints, npz files and scalars while the others
 wait at a barrier.
@@ -31,9 +34,13 @@ from srgan_st_tpu_torch.train.checkpoint import (
     variables_from_generator_state_dict,
 )
 from srgan_st_tpu_torch.train.logging import ExperimentWriter
-from srgan_st_tpu_torch.train.steps import create_gan_state, make_gan_steps
+from srgan_st_tpu_torch.train.graphs import step_graphs
+from srgan_st_tpu_torch.train.steps import create_gan_state, make_gan_chunk_step
 from srgan_st_tpu_torch.parallel.distributed import is_coordinator
-from srgan_st_tpu_torch.train.utils import make_test_pairs, setup_run
+from srgan_st_tpu_torch.train.utils import (
+    iter_chunks, make_test_pairs, resolve_chunk_steps, setup_run,
+)
+from srgan_st_tpu_torch.utils.debugging import nan_guard
 from srgan_st_tpu_torch.train.warmup import resume, validate_epoch
 
 _D_KEYS = ("D_Loss", "D(GT)_Probability", "D(SR)_Probability")
@@ -52,7 +59,6 @@ def train(config, device=None):
     source = make_train_source(config, device=dev)
     steps_per_epoch = len(source)
     criterions = build_criterions(config)
-    g_step, d_step = make_gan_steps(config, criterions, mesh)
     state = create_gan_state(config, Generator.from_config(config, group=mesh),
                              Discriminator.from_config(config, group=mesh),
                              steps_per_epoch, dev)
@@ -72,24 +78,34 @@ def train(config, device=None):
     mesh.broadcast_module(state.g_model)
     mesh.broadcast_module(state.d_model)
 
+    # chunks of D_UPDATE_INTERVAL batches: the D update and the logged
+    # metrics land on each chunk's first batch, the reference's cadence
+    # (train.py:149,169)
+    chunk_size = resolve_chunk_steps(config, config.SOLVER.D_UPDATE_INTERVAL,
+                                     steps_per_epoch)
+    chunk_step = make_gan_chunk_step(config, criterions, mesh,
+                                     step_graphs(config, dev, mesh))
+    guard = nan_guard(chunk_step) if config.TPU.NAN_GUARD else None
     for epoch in range(start_epoch, config.EXP.N_EPOCHS):
         print(f"Beginning train epoch: {epoch+1}")
+        batch_num = 0
         d_vals = {}
-        for batch_num, gt in enumerate(source.epoch(epoch)):
-            state, sr, metrics = g_step(state, gt)
-            if batch_num % config.SOLVER.D_UPDATE_INTERVAL == 0:
-                state, d_metrics = d_step(state, gt, sr)
-                if batch_num % config.LOG_TRAIN_PERIOD == 0:
-                    d_vals = d_metrics
-            if batch_num % config.LOG_TRAIN_PERIOD != 0:
-                continue
-            batches_done = batch_num + epoch * steps_per_epoch
-            for name, val in {**d_vals, **metrics}.items():
-                writer.add_scalar(f"Train/{name}", val, batches_done)
-            print(f"[Epoch {epoch+1}/{config.EXP.N_EPOCHS}] "
-                  f"[Batch {batch_num}/{steps_per_epoch}] "
-                  f"[D loss: {float(d_vals.get('D_Loss', float('nan')))}] "
-                  f"[G loss: {float(metrics['G_Loss'])}]")
+        for chunk in iter_chunks(source, epoch, chunk_size):
+            do_d = batch_num % config.SOLVER.D_UPDATE_INTERVAL == 0
+            state, metrics = (guard or chunk_step)(state, chunk, do_d)
+            if batch_num % config.LOG_TRAIN_PERIOD == 0:
+                if "D_Loss" in metrics:
+                    d_vals = {k: metrics[k] for k in _D_KEYS}
+                batches_done = batch_num + epoch * steps_per_epoch
+                for name, val in {**d_vals, **metrics}.items():
+                    writer.add_scalar(f"Train/{name}", val, batches_done)
+                print(f"[Epoch {epoch+1}/{config.EXP.N_EPOCHS}] "
+                      f"[Batch {batch_num}/{steps_per_epoch}] "
+                      f"[D loss: {float(d_vals.get('D_Loss', float('nan')))}] "
+                      f"[G loss: {float(metrics['G_Loss'])}]")
+            batch_num += len(chunk)
+        if guard is not None:
+            guard.flush()
 
         if coord:
             psnr, ssim, g_variables = validate_epoch(config, state, test_pairs, writer,

@@ -6,6 +6,45 @@ import numpy as np
 import torch
 
 
+def iter_chunks(source, epoch_idx: int, chunk_size: int):
+    """An epoch's batches in lists of `chunk_size` (the last may be
+    shorter). Each batch stays the source's own (a host array, or a device
+    tensor gathered from the resident pack): a chunk step takes them one
+    by one, so nothing is stacked (the JAX package's `iter_chunks` stacks
+    a (K, B, ...) array for its scan)."""
+    chunk = []
+    for batch in source.epoch(epoch_idx):
+        chunk.append(batch)
+        if len(chunk) == chunk_size:
+            yield chunk
+            chunk = []
+    if chunk:
+        yield chunk
+
+
+def resolve_chunk_steps(config, interval: int, steps_per_epoch: int) -> int:
+    """Chunk size: TPU.CHUNK_STEPS, else the natural interval
+    (D_UPDATE_INTERVAL for GAN, LOG_TRAIN_PERIOD for warmup), capped to the
+    epoch length. An override is normalized to a divisor of the interval:
+    chunk boundaries are the only points where the D update and the log
+    check run, so a non-divisor would skip interval hits (e.g.
+    CHUNK_STEPS=64 with interval 100 lands on a multiple of 100 only every
+    1600 batches). The JAX package's rule and message
+    (srgan_st_tpu/train/utils.py:58-80)."""
+    import math
+
+    chunk = config.TPU.get("CHUNK_STEPS") or interval
+    chunk = max(1, min(chunk, steps_per_epoch))
+    # interval multiples can fall mid-chunk only when the epoch holds one
+    # beyond batch 0 (epoch starts are always chunk starts)
+    if steps_per_epoch > interval and (chunk > interval or interval % chunk):
+        normalized = math.gcd(min(chunk, interval), interval)
+        print(f"TPU.CHUNK_STEPS={chunk} does not divide the interval "
+              f"{interval}; using {normalized} to keep the update cadence")
+        chunk = normalized
+    return chunk
+
+
 def make_test_pairs(config):
     """Eval pairs: the configured paired test set, or — in synthetic mode —
     three seeded (gt, lr) pairs degraded with the training degradation, so

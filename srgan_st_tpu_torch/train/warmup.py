@@ -4,8 +4,12 @@ srgan_st_tpu/train/warmup.py).
 Mirrors reference warmup.py:14-148: Adam on G only (no LR schedule), the
 WARMUP_CRITERIONS set (default pixel MSE), validation at each epoch end,
 the reference's scalar names, and the g_last / g_best / g_epoch{N} npz
-checkpoints beside the full train state of `CheckpointPolicy`. One step
-per batch; runs on CUDA unless `device` says otherwise. With several
+checkpoints beside the full train state of `CheckpointPolicy`. The epoch
+runs in chunks of LOG_TRAIN_PERIOD batches (TPU.CHUNK_STEPS), the JAX
+package's loop: on CUDA each step a replay of its captured graph
+(train/graphs.py, TPU.CUDA_GRAPHS), the logged metrics those of each
+chunk's batch 0; TPU.NAN_GUARD checks them. Runs on CUDA unless `device`
+says otherwise. With several
 processes (parallel/distributed.py) each runs on its own GPU with its share
 of every batch, and only the coordinator validates and writes checkpoints,
 npz files and scalars while the others wait at a barrier.
@@ -25,9 +29,13 @@ from srgan_st_tpu_torch.train.checkpoint import (
     variables_from_generator_state_dict,
 )
 from srgan_st_tpu_torch.train.logging import ExperimentWriter
-from srgan_st_tpu_torch.train.steps import create_generator_state, make_warmup_step
+from srgan_st_tpu_torch.train.graphs import step_graphs
+from srgan_st_tpu_torch.train.steps import create_generator_state, make_warmup_chunk_step
 from srgan_st_tpu_torch.parallel.distributed import is_coordinator
-from srgan_st_tpu_torch.train.utils import make_test_pairs, setup_run
+from srgan_st_tpu_torch.train.utils import (
+    iter_chunks, make_test_pairs, resolve_chunk_steps, setup_run,
+)
+from srgan_st_tpu_torch.utils.debugging import nan_guard
 
 
 def resume(config, policy: CheckpointPolicy, state, steps_per_epoch: int,
@@ -74,7 +82,6 @@ def warmup(config, device=None):
     source = make_train_source(config, device=dev)
     steps_per_epoch = len(source)
     criterions = build_warmup_criterions(config)
-    step = make_warmup_step(config, criterions, mesh)
     state = create_generator_state(config, Generator.from_config(config, group=mesh),
                                    steps_per_epoch, dev, milestones=False)
 
@@ -85,20 +92,31 @@ def warmup(config, device=None):
     start_epoch = resume(config, policy, state, steps_per_epoch, mesh)
     mesh.broadcast_module(state.g_model)
 
+    # chunks of LOG_TRAIN_PERIOD batches; the metrics are the chunk's first
+    # batch's, the one the reference logs (warmup.py:101-110)
+    chunk_size = resolve_chunk_steps(config, config.LOG_TRAIN_PERIOD, steps_per_epoch)
+    chunk_step = make_warmup_chunk_step(config, criterions, mesh,
+                                        step_graphs(config, dev, mesh))
+    guard = nan_guard(chunk_step) if config.TPU.NAN_GUARD else None
     batches_done = start_epoch * steps_per_epoch
     for epoch in range(start_epoch, config.EXP.N_EPOCHS):
         print(f"Beginning train epoch: {epoch+1}")
-        for gt in source.epoch(epoch):
+        for chunk in iter_chunks(source, epoch, chunk_size):
             batch_num = batches_done % steps_per_epoch
-            batches_done += 1
-            state, metrics = step(state, gt)
+            # the reference logs batch 0 at batches_done after its
+            # increment (warmup.py:75,105)
+            log_step = batches_done + 1
+            batches_done += len(chunk)
+            state, metrics = (guard or chunk_step)(state, chunk)
             if batch_num % config.LOG_TRAIN_PERIOD != 0:
                 continue
             for name, val in metrics.items():
-                writer.add_scalar(f"Train/{name}", val, batches_done)
+                writer.add_scalar(f"Train/{name}", val, log_step)
             print(f"[Epoch {epoch+1}/{config.EXP.N_EPOCHS}] "
                   f"[Batch {batch_num}/{steps_per_epoch}] "
                   f"[G loss: {float(metrics['G_Loss'])}]")
+        if guard is not None:
+            guard.flush()
 
         if coord:
             psnr, ssim, g_variables = validate_epoch(config, state, test_pairs, writer,

@@ -858,3 +858,118 @@ def test_buddy_refine_picks_the_exact_argmin(dev, dtype):
     ref = bs.buddy_select_reference(p1.to(dev), p2.to(dev), bank.to(dev))
     assert torch.equal(ref.cpu().long(), best)
     assert torch.equal(bs.buddy_select_reference(p1, p2, bank).long(), best)
+
+
+# ---------------------------------------------------------------------------
+# the training steps as captured CUDA graphs (train/graphs.py)
+
+def _graph_config(trunk, channels):
+    from srgan_st_tpu_torch.core.config import Config, apply_overrides
+
+    return apply_overrides(Config(), [
+        "TPU.COMPUTE_DTYPE=bfloat16", f"TPU.TRUNK_MODE={trunk}", "DATA.BATCH_SIZE=2",
+        "MODEL.G_N_RCB=2", f"MODEL.G_N_CHANNEL={channels}", "MODEL.D_N_CHANNEL=4",
+        "SOLVER.D_UPDATE_INTERVAL=2", "DATA.SYNTHETIC=true"])
+
+
+def _graph_run(cfg, dev, batches, graphs, kind):
+    """4 steps of `kind` ("warmup", or "gan": chunks of 2 with D at each
+    chunk's batch 0) from the seeded state; returns every tensor the steps
+    update, the batch-0 metrics and the launch counts."""
+    from srgan_st_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from srgan_st_tpu_torch.losses.registry import build_criterions, build_warmup_criterions
+    from srgan_st_tpu_torch.models.discriminator import Discriminator
+    from srgan_st_tpu_torch.models.generator import Generator
+    from srgan_st_tpu_torch.train.steps import (
+        create_gan_state, create_generator_state, make_gan_chunk_step, make_warmup_chunk_step,
+    )
+
+    if kind == "warmup":
+        state = create_generator_state(cfg, Generator.from_config(cfg), 4, dev,
+                                       milestones=False)
+        chunk = make_warmup_chunk_step(cfg, build_warmup_criterions(cfg), graphs=graphs)
+        run = lambda b: chunk(state, b)  # noqa: E731
+    else:
+        state = create_gan_state(cfg, Generator.from_config(cfg),
+                                 Discriminator.from_config(cfg), 4, dev)
+        chunk = make_gan_chunk_step(cfg, build_criterions(cfg), graphs=graphs)
+        run = lambda b: chunk(state, b, True)  # noqa: E731
+    reset_launch_counts()
+    metrics = [run(batches[i:i + 2])[1] for i in (0, 2)]
+    torch.cuda.synchronize()
+    out = {}
+    for tag, model, opt in (("g", state.g_model, state.g_opt), ("d", state.d_model, state.d_opt)):
+        if model is not None:
+            out.update({f"{tag}/{k}": v.clone() for k, v in model.state_dict().items()})
+            for i, st in enumerate(opt.opt.state.values()):
+                out.update({f"{tag}/adam{i}/{k}": v.clone() for k, v in st.items()})
+    for i, m in enumerate(metrics):
+        out.update({f"metric{i}/{k}": v for k, v in m.items()})
+    return out, launch_counts(), state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trunk,channels", [("packed", 64), ("unfused", 16)])
+@pytest.mark.parametrize("kind", ["warmup", "gan"])
+def test_graph_steps_equal_eager_steps(dev, trunk, channels, kind):
+    """Warmup, G and G + D steps replayed from their graphs give the eager
+    steps' parameters, running statistics, Adam moments and metrics bit for
+    bit (cuDNN on deterministic algorithms), with the same launch counts:
+    of 4 steps, the first of each kind runs eagerly, then it is captured
+    and replayed."""
+    from srgan_st_tpu_torch.kernels import graph_launch_counts
+    from srgan_st_tpu_torch.train.graphs import StepGraphs
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg = _graph_config(trunk, channels)
+        rng = np.random.default_rng(5)
+        batches = [torch.from_numpy(rng.integers(0, 256, (2, 96, 96, 3), dtype=np.uint8)).to(dev)
+                   for _ in range(4)]
+        eager, e_counts, _ = _graph_run(cfg, dev, batches, None, kind)
+        graphs = StepGraphs(dev)
+        graph, g_counts, _ = _graph_run(cfg, dev, batches, graphs, kind)
+        replayed = graph_launch_counts()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert eager.keys() == graph.keys()
+    differ = [k for k in eager if not torch.equal(eager[k], graph[k])]
+    assert not differ, differ[:5]
+    assert g_counts == e_counts
+    per_step = {k: n // 4 for k, n in e_counts.items()}
+    replays = 3 if kind == "warmup" else 2  # warmup: 1 eager + 3; gan: "gan" and "g" 1 + 1
+    assert replayed == {k: n * replays for k, n in per_step.items()}
+    assert e_counts["coarse_conv_s2d"] == 4
+    if trunk == "packed":
+        assert e_counts["packed_trunk_fwd"] == e_counts["packed_trunk_bwd"] == 4
+    assert set(graphs.capture_seconds()) == ({"warmup"} if kind == "warmup" else {"gan", "g"})
+
+
+@pytest.mark.cuda
+def test_layout_cache_follows_graph_replays(dev):
+    """Kernel A's weight layout, cached by an eval forward, is made again
+    after graph replays moved the weights (a replay bumps no `_version`):
+    the eval after replays equals a fresh model's on the same weights."""
+    from srgan_st_tpu_torch.models.generator import Generator
+    from srgan_st_tpu_torch.train.graphs import StepGraphs
+
+    cfg = _graph_config("packed", 64)
+    rng = np.random.default_rng(6)
+    batches = [torch.from_numpy(rng.integers(0, 256, (2, 96, 96, 3), dtype=np.uint8)).to(dev)
+               for _ in range(4)]
+    x = torch.from_numpy(rng.random((1, 16, 16, 3), np.float32)).to(dev)
+    graphs = StepGraphs(dev)
+    _, _, state = _graph_run(cfg, dev, batches, graphs, "gan")
+    with torch.no_grad():
+        before = state.g_model(x)  # caches the layout
+    # two replays of the captured G step (its batch and its empty draws)
+    # move the weights in place
+    for _ in range(2):
+        graphs.run("g", state, None, batches[2], {})
+    torch.cuda.synchronize()
+    fresh = Generator.from_config(cfg).to(dev)
+    fresh.load_state_dict(state.g_model.state_dict())
+    with torch.no_grad():
+        after, want = state.g_model(x), fresh(x)
+    assert not torch.equal(before, after)
+    assert torch.equal(after, want)

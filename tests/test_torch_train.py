@@ -642,10 +642,13 @@ def test_cli_parses_overrides():
 
 def test_unported_training_options_raise(tmp_path):
     """content_vgg, ported, raises only for its missing weights; the data
-    options of Queue A item 4 (DATA.AUGMENT, DATA.TILE_SIZE), ported, build.
+    options of Queue A item 4 (DATA.AUGMENT, DATA.TILE_SIZE), ported, build;
+    so do TPU.CHUNK_STEPS, TPU.NAN_GUARD and TPU.REMAT (Queue A item 6).
     What the port leaves out raises: TPU.SHARD_MAP is no key of the port
-    (torch has no GSPMD, so its step is always the explicit form), and any
-    mesh but the 1-D ('data',) layout over the processes is refused
+    (torch has no GSPMD, so its step is always the explicit form), nor
+    TPU.DONATE (the port's steps update the state in place, which is what
+    donation buys in JAX) nor EXP.ORBAX_CHECKPOINTS (not ported yet), and
+    any mesh but the 1-D ('data',) layout over the processes is refused
     (ROADMAP.md Queue C)."""
     from srgan_st_tpu_torch.core.config import Config, apply_overrides
     from srgan_st_tpu_torch.data.pipeline import SyntheticPatchSource, make_train_source
@@ -662,8 +665,14 @@ def test_unported_training_options_raise(tmp_path):
                                      "DATA.SYNTHETIC=true"])
     assert callable(make_warmup_step(cfg, {}))
     assert isinstance(make_train_source(cfg), SyntheticPatchSource)
-    with pytest.raises(SystemExit):
-        apply_overrides(Config(), ["TPU.SHARD_MAP=true"])
+    cfg = apply_overrides(Config(), ["TPU.CHUNK_STEPS=50", "TPU.NAN_GUARD=true",
+                                     "TPU.REMAT=true", "TPU.CUDA_GRAPHS=false",
+                                     "DATA.SYNTHETIC=true"])
+    assert (cfg.TPU.CHUNK_STEPS, cfg.TPU.NAN_GUARD, cfg.TPU.REMAT) == (50, True, True)
+    assert callable(make_warmup_step(cfg, {}))
+    for key in ("TPU.SHARD_MAP=true", "TPU.DONATE=true", "EXP.ORBAX_CHECKPOINTS=true"):
+        with pytest.raises(SystemExit):
+            apply_overrides(Config(), [key])
     assert make_mesh(Config()).world_size == 1
     for shape, axes in (((1, 1), ("data", "model")), ((2,), ("data",)), (None, ("model",))):
         cfg = Config()
