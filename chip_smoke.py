@@ -12,7 +12,8 @@ toolkit. In order, each phase printing one JSON line:
            kernels' shared memory (A, B, and K4/K5's conv and wgrad tiles);
            a spill in any instantiation of those fails the run;
   kernel   kernels A and B against their plain PyTorch versions on the
-           same inputs, at the serving path's shapes, kernel A at its
+           same inputs, at the serving path's shapes (the viz phase's
+           frame among them), kernel A at its
            training-scale shape, and an edge shape each whose quarter
            grid divides no tile, in f32 (TF32 off) and in bf16; a second
            launch must give the same bits;
@@ -41,7 +42,25 @@ toolkit. In order, each phase printing one JSON line:
            after warm-up);
   profile  device time by kernel over one 4K frame in each tail mode and
            with the xpack trunk (torch.profiler), and the device's idle
-           share.
+           share;
+  viz      the figure tools (viz/) at full width: the comparison figure
+           (comparison_crops) of a seeded 256x256 LR frame and its
+           1024x1024 GT for gt, bicubic, nearest and two experiments (the
+           seeded generator's g_best.npz, bf16), with the composed and with
+           the fused tail, launch counts reset before and read after each
+           figure (kernel A, or B, once per experiment): each experiment
+           crop bit for bit the same crop of a direct make_generator_apply
+           call, whose whole frame lies within 2x the bf16 envelope (the
+           plain bf16 network, no kernel, against the plain f32 one); the
+           feature maps of vgg (a seeded random VGG19 npz, 512x512) and disc
+           (96x96, 512x512), f32, each tap within 1e-4 of max|act| of the
+           same model on the CPU and each grid within one uint8 level; the
+           best-buddy scores of a seeded 765x765 image (2,601 patches
+           against a 3,370-patch bank, d = 675) on the card and on the CPU,
+           5 targets ranked (k = 6) on the host: equal bank indices, or at
+           each rank that differs f64 scores within 1e-6 relative (a near
+           tie); every figure's PNGs written with zlib alone, their count and
+           bytes.
 
 Then the training slice, bf16 with TRUNK_MODE="packed" unless named:
 
@@ -109,7 +128,14 @@ Then the training slice, bf16 with TRUNK_MODE="packed" unless named:
            parameters bit-identical across the ranks; (c) a one-rank NCCL
            group through train's command-line entry; (d) the tiled eval of a
            960x540 frame over the two ranks, bit for bit the one-rank output;
-           per-rank GAN step ms, noted as two ranks sharing one card.
+           per-rank GAN step ms, noted as two ranks sharing one card; (e)
+           the LOCAL_BN run and the NCCL run with EXP.ORBAX_CHECKPOINTS
+           (torch.distributed.checkpoint train states): both gloo ranks save
+           collectively (rank 1 with NaN metrics) and see is_best, and
+           train()'s `last/` and a save_epoch directory restore into fresh
+           states bit for bit (parameters, running statistics, Adam moments
+           and counts, step), the NCCL run's also equal to its npz weights;
+           the save and restore seconds.
 
 Then the structure-tensor loss study (`run`, job 1: Adversarial +
 PatchwiseST + ContentDiscriminator), bf16:
@@ -210,22 +236,24 @@ BF16_FLOPS = 989e12
 LR_4K = (540, 960)                  # LR frame of a 3840x2160 output
 LR_ODD = (383, 541)                 # padded to 384x542 by upscale_image
 LR_ENSEMBLE = (47, 61)              # the x8 ensemble's odd frame (both orientations)
+VIZ_LR = (256, 256)  # the comparison figure's LR frame (its GT is 1024x1024)
 # Kernel A's inputs: the training scale, then the serving path's
 # pre-shuffle activations (whole 4K frame; a tile batch of TILED_EVAL's
-# 144-px windows; the padded odd frame). The first serving shape is the
-# one that is timed.
+# 144-px windows; the padded odd frame; the viz phase's frame). The first
+# serving shape is the one that is timed.
 SHAPE_A_TRAIN = (16, 48, 48, 256)
 SHAPE_A_4K = (1, 1080, 1920, 256)
 # an edge shape: a 13 x 70 quarter grid divides neither of the bf16 kernel's
 # 8 x 64 tile sides (nor the f32 kernel's 2 x 64)
 SHAPES_A = (SHAPE_A_TRAIN, SHAPE_A_4K, (16, 288, 288, 256), (1, 768, 1084, 256),
-            (1, 26, 140, 256))
+            (1, 2 * VIZ_LR[0], 2 * VIZ_LR[1], 256), (1, 26, 140, 256))
 # Kernel B's inputs (the last upsample block's input): 4K, the odd frame,
-# whose 542 quarter-resolution columns end in a partial tile, and an edge
-# shape whose 5 x 31 quarter grid divides neither side of the bf16 kernel's
-# 4 x 30 tile (nor the f32 kernel's 2 x 16)
+# whose 542 quarter-resolution columns end in a partial tile, the viz
+# phase's frame, and an edge shape whose 5 x 31 quarter grid divides neither
+# side of the bf16 kernel's 4 x 30 tile (nor the f32 kernel's 2 x 16)
 SHAPE_B_4K = (1, 1080, 1920, 64)
-SHAPES_B = (SHAPE_B_4K, (1, 768, 1084, 64), (1, 10, 62, 64))
+SHAPES_B = (SHAPE_B_4K, (1, 768, 1084, 64), (1, 2 * VIZ_LR[0], 2 * VIZ_LR[1], 64),
+            (1, 10, 62, 64))
 
 
 # The trunk kernels' inputs: the training shape, then an edge shape whose
@@ -676,6 +704,216 @@ def phase_time(fns, rng, dev) -> dict:
                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     emit("time", frame="960x540 -> 3840x2160", **rec)
     return rec
+
+
+VIZ_BUDDY = 765  # the notebook's 15 * 51 crop: 2,601 targets, a 3,370-patch bank
+VIZ_TARGETS = 5  # buddy targets ranked on the card and on the CPU
+VIZ_K = 6
+
+
+def _viz_crops(dev, work: str) -> dict:
+    """The comparison figure (viz/save_image_patch.py comparison_crops) of
+    the seeded frame: gt, bicubic, nearest and two experiments, whose
+    g_best.npz are the full-width generator's seeded weights; bf16 with the
+    composed and with the fused tail, launch counts reset before and read
+    after each figure. Each experiment crop equals the same crop of a
+    direct make_generator_apply call, and that call's whole frame lies
+    within 2x the bf16 envelope: the plain bf16 network (plain versions,
+    no kernel) against the plain f32 network on the same frame."""
+    import torch
+
+    from srgan_st_tpu_torch.core.config import Config
+    from srgan_st_tpu_torch.eval.export import plain_eval_generator
+    from srgan_st_tpu_torch.eval.validate import make_generator_apply
+    from srgan_st_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from srgan_st_tpu_torch.models.generator import random_variables
+    from srgan_st_tpu_torch.ops.resize import resize_bicubic
+    from srgan_st_tpu_torch.train.checkpoint import load_params_npz, save_variables_npz
+    from srgan_st_tpu_torch.viz.save_image_patch import comparison_crops, write_rgb_png
+
+    exps = ["smoke-viz-a", "smoke-viz-b"]
+    root = os.path.join(work, "results")
+    for seed, name in enumerate(exps):
+        save_variables_npz(os.path.join(root, name, "g_best.npz"), random_variables(seed))
+    rng = np.random.default_rng(11)
+    gt = rng.integers(0, 256, (4 * VIZ_LR[0], 4 * VIZ_LR[1], 3), np.uint8)
+    lr = resize_bicubic(torch.from_numpy(gt[None].astype(np.float32) / 255), 0.25)[0].numpy()
+    y, x, size = VIZ_LR[0], 2 * VIZ_LR[1], 96  # HR pixels; inside the frame
+    names = ["gt", "bicubic", "nearest", *exps]
+
+    def sr_of(cfg, name):
+        fn = make_generator_apply(cfg, load_params_npz(os.path.join(root, name, "g_best.npz")),
+                                  device=dev)
+        return fn(lr[None])[0].float().cpu().numpy()
+
+    def plain_sr(dtype, name):
+        cfg = Config()
+        cfg.TPU.COMPUTE_DTYPE = dtype
+        net = plain_eval_generator(cfg, load_params_npz(os.path.join(root, name, "g_best.npz")),
+                                   True, dev)
+        with torch.inference_mode():
+            return net(torch.from_numpy(lr[None]).to(dev))[0].float().cpu().numpy()
+
+    reset_launch_counts()
+    refs = {name: plain_sr("float32", name) for name in exps}
+    envs = {name: float(np.abs(plain_sr("bfloat16", name) - refs[name]).max()) for name in exps}
+    plain_launches = launch_counts()
+    rec, bad, files = {"figures": {}, "bf16_envelope": envs}, [], []
+    if any(plain_launches.values()):
+        bad.append(f"the plain networks launched a kernel: {plain_launches}")
+    for tail in ("composed", "fused"):
+        cfg = Config()
+        cfg.TPU.COMPUTE_DTYPE = "bfloat16"
+        cfg.TPU.TAIL_MODE = "fused" if tail == "fused" else None
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        boxed, crops = comparison_crops(cfg, names, gt, lr, y, x, size, root, dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()
+        fig = {"seconds": seconds, "launches": launches, "experiments": {}}
+        kernel = "serving_tail" if tail == "fused" else "coarse_conv_s2d"
+        if launches[kernel] != len(exps):
+            bad.append(f"{tail}: {kernel} launched {launches[kernel]} times, not once "
+                       f"per experiment ({len(exps)})")
+        for name in exps:
+            direct = sr_of(cfg, name)
+            want = np.clip(np.round(direct * 255), 0, 255).astype(np.uint8)[y:y + size,
+                                                                            x:x + size]
+            diff = np.abs(direct - refs[name])
+            e = {"equals_direct_call": bool(np.array_equal(crops[name], want)),
+                 "frame_vs_f32": float(diff.max()),
+                 "crop_vs_f32": float(diff[y:y + size, x:x + size].max())}
+            fig["experiments"][name] = e
+            if not (e["equals_direct_call"] and envs[name] > 0
+                    and e["frame_vs_f32"] <= 2 * envs[name]):
+                bad.append(f"{tail} {name}: {e}, envelope {envs[name]}")
+        if not (np.array_equal(crops["gt"], gt[y:y + size, x:x + size])
+                and all(c.shape == (size, size, 3) for c in crops.values())
+                and (boxed[y:y + size, x:x + 3] == (255, 0, 0)).all()):
+            bad.append(f"{tail}: the gt crop, a crop's shape or the box")
+        for name, img in (("gt_box", boxed), *crops.items()):
+            files.append(os.path.join(work, f"crops_{tail}_{name}.png"))
+            write_rgb_png(files[-1], img)
+        rec["figures"][tail] = fig
+    rec["launches"] = {k: sum(f["launches"][k] for f in rec["figures"].values())
+                       for k in rec["figures"]["composed"]["launches"]}
+    return {"rec": rec, "bad": bad, "files": files}
+
+
+def _viz_features(dev, work: str) -> dict:
+    """viz/feature_maps.py on the card (f32, TF32 off) against the same
+    models on the CPU: vgg (the seeded random VGG19 npz, a 512x512 image)
+    and disc (96x96 and 512x512): each tap within 1e-4 of max|act|, each
+    grid within one uint8 level."""
+    import torch
+
+    from srgan_st_tpu_torch.core.config import Config
+    from srgan_st_tpu_torch.viz.feature_maps import activation_grids, feature_maps
+    from srgan_st_tpu_torch.viz.save_image_patch import write_rgb_png
+
+    cfg = Config()
+    cfg.MODEL.G_LOSS.VGG19_WEIGHTS = write_vgg_npz(os.path.join(work, "vgg19.npz"))
+    rng = np.random.default_rng(12)
+    rec, bad, files = {}, [], []
+    for extractor, size in (("vgg", 512), ("disc", 96), ("disc", 512)):
+        img = rng.random((size, size, 3), np.float32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = feature_maps(cfg, img, extractor, device=dev)
+        grids = activation_grids(got)
+        seconds = time.perf_counter() - t0
+        want = feature_maps(cfg, img, extractor, device="cpu")
+        want_grids = activation_grids(want)
+        taps = {}
+        for tap, w in want.items():
+            scale = float(w.abs().max())
+            err = float((got[tap].cpu() - w).abs().max())
+            level = int(np.abs(grids[tap].astype(int) - want_grids[tap].astype(int)).max())
+            taps[tap] = {"shape": list(w.shape), "max_abs_err": err, "max_abs": scale,
+                         "grid_levels": level}
+            if not (err <= 1e-4 * scale and level <= 1 and got[tap].is_cuda):
+                bad.append(f"{extractor} {size} {tap}: {taps[tap]}")
+            files.append(os.path.join(work, f"fm_{extractor}{size}_{tap.replace('.', '_')}.png"))
+            write_rgb_png(files[-1], grids[tap])
+        rec[f"{extractor}_{size}"] = {"seconds": seconds, "taps": taps}
+    return {"rec": rec, "bad": bad, "files": files}
+
+
+def _viz_buddies(dev, work: str) -> dict:
+    """viz/buddy_illustration.py's cores on a seeded 765x765 image: the
+    bank and the scores on the card and on the CPU, VIZ_TARGETS targets
+    ranked (k = VIZ_K) on the host from each; gate: the bank indices equal
+    the CPU's, or at each rank where they differ the f64 score of the
+    card's index lies within 1e-6 relative of the f64 score of the CPU's
+    (the near-tie rule of kernels/_checks.py); then one illustration's
+    images."""
+    import torch
+
+    from srgan_st_tpu_torch.viz.buddy_illustration import (
+        buddy_bank, buddy_scores, illustrate, rank_buddies,
+    )
+    from srgan_st_tpu_torch.viz.save_image_patch import write_rgb_png
+
+    img = np.random.default_rng(13).random((VIZ_BUDDY, VIZ_BUDDY, 3), np.float32)
+    img = np.round(img * 255) / 255  # a decoded 8-bit image
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bank = buddy_bank(img, 15, dev)
+    score = buddy_scores(bank)
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t0
+    cpu_bank = buddy_bank(img, 15, "cpu")
+    cpu_score = buddy_scores(cpu_bank)
+    n, m = cpu_score.shape
+    p64 = cpu_bank["patches"][0].double().numpy()
+    b64 = cpu_bank["bank"][0].double().numpy()
+    targets = np.random.default_rng(14).choice(n, VIZ_TARGETS, replace=False)
+    rec = {"patches": n, "bank": m, "d": int(p64.shape[1]),
+           "parts": [list(p) for p in bank["parts"]], "score_seconds": score_s, "targets": {}}
+    bad = []
+    for t in targets.tolist():
+        got, _ = rank_buddies(score[t].cpu().numpy(), t, VIZ_K)
+        want, _ = rank_buddies(cpu_score[t].numpy(), t, VIZ_K)
+        f64 = 2.0 * ((b64 - p64[t]) ** 2).sum(1)
+        ties = [(r, int(g), int(w)) for r, (g, w) in enumerate(zip(got, want)) if g != w]
+        ok = all(abs(f64[g] - f64[w]) <= 1e-6 * abs(f64[w]) for _, g, w in ties)
+        rec["targets"][str(t)] = {"card": got.tolist(), "cpu": want.tolist(),
+                                  "near_ties": ties}
+        if not ok:
+            bad.append(f"target {t}: {rec['targets'][str(t)]}")
+    t0 = time.perf_counter()
+    meta = illustrate(img, int(targets[0]), VIZ_K, device=dev)
+    rec["illustration_seconds"] = time.perf_counter() - t0
+    files = []
+    for suffix, image in meta["images"].items():
+        files.append(os.path.join(work, f"buddy_{suffix}.png"))
+        write_rgb_png(files[-1], image)
+    if [b["bank_index"] for b in meta["buddies"]] != rec["targets"][str(targets[0])]["card"]:
+        bad.append("the illustration's buddies are not the ranked ones")
+    return {"rec": rec, "bad": bad, "files": files}
+
+
+def phase_viz(dev) -> dict:
+    """The figure tools (viz/) at full width on the card: the comparison
+    crops of two experiments through the serving path (kernels A and B),
+    the content losses' feature maps, the best-buddy ranking; every figure's
+    PNGs written with zlib alone to a temporary directory."""
+    rec, bad, files = {}, [], []
+    with tempfile.TemporaryDirectory() as work:
+        for part, fn in (("crops", _viz_crops), ("feature_maps", _viz_features),
+                         ("buddies", _viz_buddies)):
+            t0 = time.perf_counter()
+            r = fn(dev, work)
+            rec[part] = {**r["rec"], "part_seconds": time.perf_counter() - t0}
+            bad += r["bad"]
+            files += r["files"]
+        rec["pngs"] = {"count": len(files), "bytes": sum(os.path.getsize(f) for f in files)}
+    emit("viz", **rec)
+    if bad:
+        raise AssertionError(f"viz phase: {bad}")
+    return rec["crops"]
 
 
 def phase_baseline(dev) -> dict:
@@ -1538,13 +1776,71 @@ DIST_STEPS = 3  # batches per epoch of warmup() and train() in the dist phase
 DIST_TIMED = 5  # GAN steps timed per rank
 
 
-def _dist_sets(dtype: str, local_bn: bool, name: str, graphs: bool = False) -> list[str]:
-    """The dist runs' overrides: one batch a chunk (a log line a batch), and
-    CUDA graphs off (gloo collectives cannot be captured) unless `graphs`."""
+def _dist_sets(dtype: str, local_bn: bool, name: str, graphs: bool = False,
+               dcp: bool = False) -> list[str]:
+    """The dist runs' overrides: one batch a chunk (a log line a batch),
+    CUDA graphs off (gloo collectives cannot be captured) unless `graphs`,
+    and with `dcp` the train states as DCP directories
+    (EXP.ORBAX_CHECKPOINTS)."""
     return [f"TPU.COMPUTE_DTYPE={dtype}", f"TPU.LOCAL_BN={local_bn}", "DATA.SYNTHETIC=true",
             f"DATA.SYNTHETIC_N_BATCHES={DIST_STEPS}", "EXP.N_EPOCHS=1",
             "SOLVER.D_UPDATE_INTERVAL=2", "LOG_TRAIN_PERIOD=1", f"EXP.NAME={name}",
-            "TPU.CHUNK_STEPS=1", f"TPU.CUDA_GRAPHS={graphs}"]
+            "TPU.CHUNK_STEPS=1", f"TPU.CUDA_GRAPHS={graphs}", f"EXP.ORBAX_CHECKPOINTS={dcp}"]
+
+
+def _fresh_gan_state(cfg, dev, mesh):
+    """A GAN state of `cfg` from another seed than the runs' (DATA.SEED)."""
+    import torch
+
+    from srgan_st_tpu_torch.models.discriminator import Discriminator
+    from srgan_st_tpu_torch.models.generator import Generator
+    from srgan_st_tpu_torch.train.steps import create_gan_state
+
+    return create_gan_state(cfg, Generator.from_config(cfg, group=mesh),
+                            Discriminator.from_config(cfg, group=mesh), DIST_STEPS, dev,
+                            generator=torch.Generator().manual_seed(99))
+
+
+def _ckpt_case(cfg, state, dev, mesh) -> dict:
+    """EXP.ORBAX_CHECKPOINTS on the card, called by every rank: (a) the DCP
+    `last/` that train() saved at its epoch's end, restored into a fresh
+    state, against `state` (what it saved); (b) save_epoch of `state` into
+    a new directory, rank 0 with metrics and the others with NaN (is_best
+    on every rank: the metrics are broadcast), restored into another fresh
+    state. Bit for bit: every parameter, running statistic, Adam moment and
+    step count, update count and `step`."""
+    import torch
+
+    from srgan_st_tpu_torch.parallel.distributed import process_info
+    from srgan_st_tpu_torch.train.checkpoint import CheckpointPolicy, train_state_arrays
+
+    saved = train_state_arrays(state)
+    rank = process_info()[0]
+    rec = {"tensors": len(saved), "bytes": int(sum(v.nbytes for v in saved.values()))}
+    for case, results in (("train_last", f"results/{cfg.EXP.NAME}"),
+                          ("save_epoch", f"results/{cfg.EXP.NAME}-dcp")):
+        policy = CheckpointPolicy(results, use_orbax=True)
+        if case == "save_epoch":
+            metrics = (28.0, 0.8) if rank == 0 else (float("nan"), float("nan"))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rec["is_best"] = policy.save_epoch(state, 1, *metrics)
+            rec["save_seconds"] = time.perf_counter() - t0
+        fresh = _fresh_gan_state(cfg, dev, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored = policy.restore_latest(fresh)
+        torch.cuda.synchronize()
+        got = train_state_arrays(fresh)
+        rec[case] = {"collective": policy.collective, "restored": restored,
+                     "restore_seconds": time.perf_counter() - t0,
+                     "bit_identical": got.keys() == saved.keys() and all(
+                         np.array_equal(got[k], saved[k]) for k in saved),
+                     "moments": sum(".moments." in k for k in got)}
+    rec["ok"] = bool(rec["is_best"] and all(
+        rec[c]["restored"] and rec[c]["bit_identical"] and rec[c]["moments"] > 0
+        for c in ("train_last", "save_epoch")))
+    return rec
 
 
 def _dist_run(sets: list[str], dev) -> dict:
@@ -1581,6 +1877,7 @@ def _dist_run(sets: list[str], dev) -> dict:
               for k, v in m.state_dict().items() if not k.endswith("num_batches_tracked")}
     cfg = apply_overrides(Config(), sets)
     mesh = make_mesh(cfg)
+    ckpt = _ckpt_case(cfg, t, dev, mesh) if cfg.EXP.ORBAX_CHECKPOINTS else None
     g_step, d_step = make_gan_steps(cfg, build_criterions(cfg), mesh)
     batch = torch.from_numpy(np.random.default_rng(9).integers(
         0, 256, (16, 96, 96, 3), np.uint8)[mesh.batch_slice(16)]).to(dev)
@@ -1597,7 +1894,39 @@ def _dist_run(sets: list[str], dev) -> dict:
         gan()
     torch.cuda.synchronize()
     gan_ms = (time.perf_counter() - t0) * 1e3 / DIST_TIMED
-    return {"losses": losses, "states": states, "launches": counts, "ms_per_gan_step": gan_ms}
+    return {"losses": losses, "states": states, "launches": counts, "ms_per_gan_step": gan_ms,
+            "ckpt": ckpt}
+
+
+def _nccl_ckpt(argv: list[str]) -> None:
+    """After train's command-line run in the one-rank NCCL group (argv its
+    arguments): its DCP `last/` restored into a fresh state holds the G and
+    D weights of its g_last.npz / d_last.npz bit for bit, then
+    `_ckpt_case` on that state; prints one "CKPT {...}" line."""
+    import torch
+
+    from srgan_st_tpu_torch.core.config import parse_driver_cli
+    from srgan_st_tpu_torch.parallel.mesh import make_mesh
+    from srgan_st_tpu_torch.train.checkpoint import (
+        CheckpointPolicy, _flatten, load_params_npz, variables_from_discriminator_state_dict,
+        variables_from_generator_state_dict,
+    )
+
+    cfg, device = parse_driver_cli(argv, "")
+    dev, mesh = torch.device(device), make_mesh(cfg)
+    results = f"results/{cfg.EXP.NAME}"
+    state = _fresh_gan_state(cfg, dev, mesh)
+    restored = CheckpointPolicy(results, use_orbax=True).restore_latest(state)
+    same = True
+    for key, to_vars in (("g", variables_from_generator_state_dict),
+                         ("d", variables_from_discriminator_state_dict)):
+        want = _flatten(load_params_npz(os.path.join(results, f"{key}_last.npz")))
+        got = _flatten(to_vars(getattr(state, f"{key}_model").state_dict()))
+        same &= got.keys() == want.keys() and all(np.array_equal(got[k], want[k]) for k in want)
+    rec = _ckpt_case(cfg, state, dev, mesh)
+    rec.update(restored_train_last=restored, equals_npz_weights=bool(same),
+               ok=bool(rec["ok"] and restored and same))
+    print("CKPT " + json.dumps(rec), flush=True)
 
 
 def _dist_child(work: str, device: str) -> int:
@@ -1621,7 +1950,7 @@ def _dist_child(work: str, device: str) -> int:
     rank = process_info()[0]
     out = {}
     for case, sets in (("sync", _dist_sets("float32", False, "smoke-dist-sync")),
-                       ("local", _dist_sets("bfloat16", True, "smoke-dist-local"))):
+                       ("local", _dist_sets("bfloat16", True, "smoke-dist-local", dcp=True))):
         r = _dist_run(sets, dev)
         out.update({f"{case}/{k}": v for k, v in r.pop("states").items()})
         out[f"{case}/record"] = json.dumps(r)
@@ -1715,9 +2044,10 @@ def phase_dist(dev) -> dict:
                          shared))
         code = ("import sys; from srgan_st_tpu_torch.train.train import cli; "
                 "cli(sys.argv[1:]); import torch.distributed as d; "
-                "print('BACKEND', d.get_backend(), d.get_world_size())")
+                "print('BACKEND', d.get_backend(), d.get_world_size()); "
+                "import chip_smoke; chip_smoke._nccl_ckpt(sys.argv[1:])")
         argv = ["-c", code, "--device", "cuda"]
-        for item in _dist_sets("bfloat16", False, "smoke-nccl", graphs=True):
+        for item in _dist_sets("bfloat16", False, "smoke-nccl", graphs=True, dcp=True):
             argv += ["--set", item]
         nccl_dir = tempfile.mkdtemp(dir=work)
         cmds.append((argv, {"SRGAN_ST_COORDINATOR": f"127.0.0.1:{_free_port()}",
@@ -1727,8 +2057,10 @@ def phase_dist(dev) -> dict:
         results = _run_procs(cmds, 600)
         rec["processes_seconds"] = time.perf_counter() - t0
         rc, out, err = results[2] if len(results) > 2 else (None, "", "")
+        ckpt_lines = [ln for ln in out.splitlines() if ln.startswith("CKPT ")]
         nccl = {"rc": rc, "backend_line": [ln for ln in out.splitlines()
                                            if ln.startswith("BACKEND")],
+                "ckpt": json.loads(ckpt_lines[0][5:]) if ckpt_lines else None,
                 "results_files": sorted(os.listdir(os.path.join(nccl_dir, "results",
                                                                 "smoke-nccl")))
                 if rc == 0 else [], "stderr": err[-2000:] if rc else ""}
@@ -1738,7 +2070,7 @@ def phase_dist(dev) -> dict:
         # the one-rank runs of the same steps, in this process
         one = {}
         for case, sets in (("sync", _dist_sets("float32", False, "smoke-dist-sync")),
-                           ("local", _dist_sets("bfloat16", True, "smoke-dist-local"))):
+                           ("local", _dist_sets("bfloat16", True, "smoke-dist-local", dcp=True))):
             cwd = os.getcwd()
             os.chdir(tempfile.mkdtemp(dir=work))
             try:
@@ -1796,6 +2128,12 @@ def phase_dist(dev) -> dict:
     if not (b["launches_per_rank"] == want and b["running_bit_identical"]
             and b["params_bit_identical"] and b["finite"]):
         bad.append(f"LOCAL_BN {b}")
+    # (e) EXP.ORBAX_CHECKPOINTS in the LOCAL_BN run: collective DCP saves and
+    # restores on both gloo ranks, a single-process one in the one-rank run
+    e = {"per_rank": [s["ckpt"] for s in local], "one_rank": one["local"]["ckpt"]}
+    if not (all(c["ok"] and c["train_last"]["collective"] for c in e["per_rank"])
+            and e["one_rank"]["ok"] and not e["one_rank"]["train_last"]["collective"]):
+        bad.append(f"DCP checkpoints {e}")
     # (d) tiled eval
     d = {"shape": list(tiled1.shape), "rank_outputs_equal_one_rank": [
         bool(np.array_equal(r["tiled"], tiled1)) for r in ranks],
@@ -1803,10 +2141,11 @@ def phase_dist(dev) -> dict:
     if not all(d["rank_outputs_equal_one_rank"]):
         bad.append(f"tiled {d}")
     if not (rc == 0 and nccl["backend_line"] == ["BACKEND nccl 1"]
-            and "g_last.npz" in nccl["results_files"]):
+            and "g_last.npz" in nccl["results_files"] and "last" in nccl["results_files"]
+            and nccl["ckpt"] is not None and nccl["ckpt"]["ok"]):
         bad.append(f"nccl {nccl}")
     rec.update(note="two ranks share one card: no scaling number", sync_bn=a,
-               local_bn=b, nccl_one_rank=nccl, tiled=d)
+               local_bn=b, nccl_one_rank=nccl, tiled=d, dcp_checkpoints=e)
     emit("dist", **rec)
     if bad:
         raise AssertionError(f"dist phase: {bad}")
@@ -2716,6 +3055,8 @@ def run(dev) -> int:
     phase_profile(fns, rng, dev)
     del fns, outs
     torch.cuda.empty_cache()
+    viz_rec = phase_viz(dev)
+    torch.cuda.empty_cache()
 
     rec_k4, rec_k5 = phase_kernel_trunk(gen, dev)
     phase_hybrid_sweep(dev)
@@ -2766,6 +3107,7 @@ def run(dev) -> int:
             "shape": rec["shape"], "f32_max_abs_err": rec["f32_max_abs_err"],
             "train_launches": train_counts[name], **_new_path_launches(name, data_rec, dist_rec),
             **({"graph_launches": graph_rec["replayed"][name]} if name != "serving_tail" else {}),
+            "viz_launches": viz_rec["launches"][name],
         })
     for rec, name, tpu, replaces in (
         (rec_k4, "packed_trunk_fwd", "K4",

@@ -8,11 +8,14 @@ Usage:
     python -m srgan_st_tpu_torch validate ...   # PSNR/SSIM eval on a test set
     python -m srgan_st_tpu_torch export ...     # torch.export serving artifact
     python -m srgan_st_tpu_torch prepare-dataset ...  # tile HR images (+ --pack)
+    python -m srgan_st_tpu_torch curves ...     # PSNR/SSIM curves (host only)
+    python -m srgan_st_tpu_torch feature-maps ...  # content-loss feature maps
+    python -m srgan_st_tpu_torch buddy-viz ...  # best-buddy illustration
     python -m srgan_st_tpu_torch doctor ...     # GPU health probe
 
 Each command forwards to its module's CLI (same flags as running the
-module directly) and is imported lazily. The JAX package's `curves`,
-`feature-maps` and `buddy-viz` figure commands are not ported yet.
+module directly) and is imported lazily. Every command that computes on a
+device takes `--device` (default cuda).
 """
 
 from __future__ import annotations
@@ -48,6 +51,18 @@ _COMMANDS: dict[str, tuple[str, str, str]] = {
     "prepare-dataset": (
         "srgan_st_tpu_torch.data.prepare_dataset", "main",
         "tile HR images into training patches (--pack: patches.pack.npy)",
+    ),
+    "curves": (
+        "srgan_st_tpu_torch.viz.training_curves", "main",
+        "plot training curves from TB events / JSONL scalars",
+    ),
+    "feature-maps": (
+        "srgan_st_tpu_torch.viz.feature_maps", "main",
+        "visualize content-loss feature maps for an image pair",
+    ),
+    "buddy-viz": (
+        "srgan_st_tpu_torch.viz.buddy_illustration", "main",
+        "mark a patch and its best-buddy candidates on an image",
     ),
     "doctor": (
         "srgan_st_tpu_torch.utils.cuda_health", "main",

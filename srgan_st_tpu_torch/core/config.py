@@ -8,8 +8,9 @@ names and defaults are the same, so a config carries over unchanged:
 factoring, tiled eval, the data-parallel layout and LOCAL_BN, chunking,
 CUDA graphs, the NaN guard, remat), not hardware. `TPU.DONATE` is no key
 of the port: its steps update the state in place, which is what donation
-buys in JAX. `TPU.SHARD_MAP` and `EXP.ORBAX_CHECKPOINTS` are not keys
-either.
+buys in JAX. `TPU.SHARD_MAP` is not a key either. `EXP.ORBAX_CHECKPOINTS`
+keeps its name and writes `torch.distributed.checkpoint` directories
+(train/checkpoint.py), not orbax ones.
 """
 
 from __future__ import annotations
@@ -42,6 +43,10 @@ class Config:
         self.EXP.START_EPOCH = 0            # resume epoch (0 = fresh start)
         # restore results/<NAME>/last when present, even with START_EPOCH=0
         self.EXP.AUTO_RESUME = True
+        # full train states as torch.distributed.checkpoint directories
+        # (results/<NAME>/last/ ...), saved and restored collectively by
+        # every process, instead of the coordinator's last.state.pt files
+        self.EXP.ORBAX_CHECKPOINTS = False
         self.EXP.N_EPOCHS = 40              # number of training epochs
         self.EXP.LABEL_SMOOTHING = 0.1      # one-sided label smoothing: real label = 1 - s
 

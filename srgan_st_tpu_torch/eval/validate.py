@@ -88,14 +88,16 @@ def validate(
 
 
 def _write_png(path: str, bgr_img: np.ndarray) -> None:
-    """An 8-bit RGB PNG of a uint8 BGR HWC image, written with zlib alone
-    (no imaging library needed)."""
+    """An 8-bit PNG written with zlib alone (no imaging library needed): RGB
+    (colour type 2) of a uint8 BGR HWC image, or grey (colour type 0) of a
+    uint8 HW one."""
     import struct
     import zlib
 
-    rgb = np.ascontiguousarray(bgr_img[..., ::-1], dtype=np.uint8)
-    h, w, _ = rgb.shape
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, 3 * w)], axis=1)
+    grey = bgr_img.ndim == 2
+    pixels = np.ascontiguousarray(bgr_img if grey else bgr_img[..., ::-1], dtype=np.uint8)
+    h, w = pixels.shape[:2]
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), pixels.reshape(h, -1)], axis=1)
 
     def chunk(tag: bytes, data: bytes) -> bytes:
         return (struct.pack(">I", len(data)) + tag + data
@@ -103,7 +105,7 @@ def _write_png(path: str, bgr_img: np.ndarray) -> None:
 
     with open(path, "wb") as f:
         f.write(b"\x89PNG\r\n\x1a\n"
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0 if grey else 2, 0, 0, 0))
                 + chunk(b"IDAT", zlib.compress(raw.tobytes()))
                 + chunk(b"IEND", b""))
 

@@ -7,8 +7,13 @@
   scalar PReLU slopes, BN scale/bias + mean/var, D's (H, W, C) flatten)
   and the port's torch state_dicts (OIHW, (1,) slopes, BatchNorm2d keys,
   (C, H, W) flatten) — the mapping of tools/import_torch_checkpoint.py.
-* full train states (models, optimizers, step) saved with `torch.save`,
-  and the last / best / epoch{N} policy over them (`CheckpointPolicy`).
+* full train states (models, optimizers, step) saved with `torch.save`
+  (`.state.pt`, the default), or as `torch.distributed.checkpoint`
+  directories loaded in place (EXP.ORBAX_CHECKPOINTS, collective over the
+  processes), and the last / best / epoch{N} policy over them
+  (`CheckpointPolicy`). Neither is the JAX package's train-state format
+  (`.state.npz` or orbax): train states do not cross between the packages;
+  weights cross through the npz files.
 """
 
 from __future__ import annotations
@@ -58,20 +63,18 @@ def load_params_npz(path: str, target: Any | None = None) -> dict:
         raise FileNotFoundError(path)
     with np.load(path) as data:
         loaded = _unflatten({k: data[k] for k in data.files})
-    if target is None:
-        return loaded
+    return loaded if target is None else merge_tolerant(target, loaded)
 
-    def merge(tgt, src):
-        if not isinstance(tgt, dict):
-            if isinstance(src, dict):
-                return tgt
-            return src if np.shape(src) == np.shape(tgt) else tgt
-        return {
-            k: (merge(v, src[k]) if isinstance(src, dict) and k in src else v)
-            for k, v in tgt.items()
-        }
 
-    return merge(target, loaded)
+def merge_tolerant(target: Any, loaded: Any) -> Any:
+    """`target` with each leaf replaced by `loaded`'s leaf at the same path
+    when that has the same shape (the rule of `load_params_npz`)."""
+    if not isinstance(target, dict):
+        if isinstance(loaded, dict):
+            return target
+        return loaded if np.shape(loaded) == np.shape(target) else target
+    return {k: (merge_tolerant(v, loaded[k]) if isinstance(loaded, dict) and k in loaded
+                else v) for k, v in target.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -260,15 +263,182 @@ def load_train_state(path: str, state):
     return state
 
 
+def _trainable(model) -> list[str]:
+    return [n for n, p in model.named_parameters() if p.requires_grad]
+
+
+def _opt_moments(model, opt, keep: set[str] | None = None) -> dict:
+    """{parameter name: {"step", "exp_avg", "exp_avg_sq"}}: the optimizer's
+    live state tensors, of the parameters that have them. For a load,
+    `keep` names the parameters whose moments the checkpoint holds: those
+    with no state yet get zeros laid out as torch.optim.Adam's lazy
+    initialization lays them out (what its first step would make, with no
+    step taken), and the others lose theirs, as Optimizer.load_state_dict
+    drops them."""
+    out = {}
+    for name, p in zip(_trainable(model), opt.params, strict=True):
+        if keep is not None and name not in keep:
+            opt.opt.state.pop(p, None)
+            continue
+        st = opt.opt.state.get(p)
+        if not st:
+            if keep is None:
+                continue
+            st = opt.opt.state[p]
+            st["step"] = torch.zeros((), dtype=torch.float32,
+                                     device=p.device if opt._capturable else "cpu")
+            st["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+            st["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+        out[name] = {k: st[k] for k in ("step", "exp_avg", "exp_avg_sq")}
+    return out
+
+
+def _dcp_tree(state, keep: dict[str, set[str]] | None = None) -> tuple[dict, dict]:
+    """The train state as a DCP state dict of live tensors (the models'
+    parameters and buffers, the optimizers' moments, step counts and update
+    counts), so that a load writes into them in place; and the host-side
+    scalars (the train step, and on the CPU each optimizer's update count)
+    as tensors to read back after a load. `keep`: {"g" / "d": the
+    parameters whose moments a load restores} (`_opt_moments`)."""
+    scalars = {"step": torch.tensor(state.step, dtype=torch.int64)}
+    tree = {"step": scalars["step"]}
+    for key in ("g", "d"):
+        model, opt = getattr(state, f"{key}_model"), getattr(state, f"{key}_opt")
+        if model is None:
+            continue
+        count = opt._count
+        if not isinstance(count, torch.Tensor):
+            count = scalars[f"{key}_count"] = torch.tensor(count, dtype=torch.int64)
+        tree[f"{key}_model"] = model.state_dict()
+        tree[f"{key}_opt"] = {"count": count, "moments": _opt_moments(
+            model, opt, None if keep is None else keep[key])}
+    return tree, scalars
+
+
+def _flat(tree: dict, prefix: str = "") -> dict[str, torch.Tensor]:
+    """DCP's flattened keys ('.'-joined paths) -> tensors."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+_MOMENTS = ("step", "exp_avg", "exp_avg_sq")
+
+
+def _dcp_layout(state) -> tuple[dict[str, tuple], dict[str, dict[str, list[str]]]]:
+    """{key: (shape, dtype)} of every value a checkpoint of `state` may
+    hold (the moments of every trainable parameter, whether or not its
+    optimizer has stepped), and {"g" / "d": {parameter: its moments' keys}}."""
+    layout = {k: (tuple(v.shape), v.dtype) for k, v in _flat(_dcp_tree(state)[0]).items()
+              if ".moments." not in k}
+    moments = {}
+    for key in ("g", "d"):
+        model = getattr(state, f"{key}_model")
+        if model is None:
+            continue
+        params = dict(model.named_parameters())
+        moments[key] = {}
+        for name in _trainable(model):
+            keys = moments[key][name] = [f"{key}_opt.moments.{name}.{m}" for m in _MOMENTS]
+            p = params[name]
+            layout.update({keys[0]: ((), torch.float32), keys[1]: (tuple(p.shape), p.dtype),
+                           keys[2]: (tuple(p.shape), p.dtype)})
+    return layout, moments
+
+
+def _dcp_call(fn, tree: dict, path: str, collective: bool, **storage) -> None:
+    """fn (dcp.save or dcp.load) on `tree` at `path`. Two notices DCP gives
+    are expected here and filtered: that a call with no_dist (a single
+    process) assumes one process, and that a save overwrites the last one
+    (`last` is overwritten every epoch, as orbax's save with force=True)."""
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="torch.distributed is disabled")
+        warnings.filterwarnings("ignore", message="Detected an existing checkpoint")
+        fn(tree, checkpoint_id=path, no_dist=not collective, **storage)
+
+
+def train_state_arrays(state) -> dict[str, np.ndarray]:
+    """Host copies of every value a DCP checkpoint of `state` holds, by
+    DCP's flattened key (optimizer moments where they exist): what two
+    train states are compared by, bit for bit."""
+    return {k: v.detach().cpu().numpy().copy() for k, v in _flat(_dcp_tree(state)[0]).items()}
+
+
+def save_train_state_dcp(path: str, state, collective: bool = False) -> None:
+    """The train state as a `torch.distributed.checkpoint` directory, as it
+    is (an optimizer that has not stepped saves no moments). With
+    `collective`, every rank of the process group calls it and DCP splits
+    the writes of the (replicated) tensors over the ranks; else one process
+    writes it alone, with or without a process group."""
+    import torch.distributed.checkpoint as dcp
+
+    _dcp_call(dcp.save, _dcp_tree(state)[0], path, collective,
+              storage_writer=dcp.FileSystemWriter(path, overwrite=True))
+
+
+def load_train_state_dcp(path: str, state, collective: bool = False):
+    """Restore a `save_train_state_dcp` directory into `state` in place:
+    every parameter, buffer and optimizer moment keeps its storage (a
+    captured CUDA graph that updates them stays valid); moments the
+    checkpoint holds and the optimizer has not made yet are made first,
+    with no step. Raises KeyError or ValueError, before changing anything,
+    when it does not fit (another phase, other shapes)."""
+    import torch.distributed.checkpoint as dcp
+
+    if not os.path.exists(os.path.join(path, ".metadata")):  # e.g. an orbax directory
+        raise KeyError(f"{path}: not a torch.distributed.checkpoint directory")
+    saved = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+    layout, moments = _dcp_layout(state)
+    required = {k for k in layout if ".moments." not in k}
+    missing, extra = sorted(required - set(saved)), sorted(set(saved) - set(layout))
+    if missing or extra:
+        raise KeyError(f"{path}: not this train state (missing {missing[:3]}, "
+                       f"unexpected {extra[:3]})")
+    keep = {}
+    for key, params in moments.items():
+        keep[key] = {name for name, keys in params.items() if keys[0] in saved}
+        partial = [name for name, keys in params.items()
+                   if len({k in saved for k in keys}) > 1]
+        if partial:
+            raise KeyError(f"{path}: moments of {partial[:3]} are incomplete")
+    for key in saved:
+        shape, dtype = layout[key]
+        got = saved[key]
+        if tuple(got.size) != shape or got.properties.dtype != dtype:
+            raise ValueError(f"{path}: {key} has shape {tuple(got.size)} "
+                             f"{got.properties.dtype}, the state {shape} {dtype}")
+    tree, scalars = _dcp_tree(state, keep)
+    _dcp_call(dcp.load, tree, path, collective)
+    state.step = int(scalars["step"])
+    for key in ("g", "d"):
+        if f"{key}_count" in scalars:
+            getattr(state, f"{key}_opt")._count = int(scalars[f"{key}_count"])
+    return state
+
+
 class CheckpointPolicy:
     """last / best / periodic train-state policy (reference
     train.py:207-226): `last` every epoch; `best` when PSNR AND SSIM both
     improve; `epoch{N}` every `interval` epochs for epoch > 0. The best
-    metrics persist in `_policy.json`, so a resumed run keeps them."""
+    metrics persist in `_policy.json`, so a resumed run keeps them.
 
-    def __init__(self, results_dir: str, interval: int = 100):
+    Two formats: `{name}.state.pt` files (`torch.save`, written by the
+    coordinator alone; the default), or with `use_orbax`
+    (EXP.ORBAX_CHECKPOINTS) `{name}/` directories of
+    `torch.distributed.checkpoint`, the counterpart of the JAX package's
+    orbax directories, whose saves are collective over a process group of
+    more than one rank (`collective`)."""
+
+    def __init__(self, results_dir: str, interval: int = 100, use_orbax: bool = False):
         self.results_dir = os.path.abspath(results_dir)
         self.interval = interval
+        self.use_orbax = use_orbax
         self.best_psnr = self.best_ssim = 0.0
         os.makedirs(self.results_dir, exist_ok=True)
         self._meta_path = os.path.join(self.results_dir, "_policy.json")
@@ -278,31 +448,74 @@ class CheckpointPolicy:
             self.best_psnr = float(meta.get("best_psnr", 0.0))
             self.best_ssim = float(meta.get("best_ssim", 0.0))
 
+    @property
+    def collective(self) -> bool:
+        """True when every process must call `save_epoch` (and
+        `restore_latest`): DCP saves and loads with a process group of more
+        than one rank. `.state.pt` files are the coordinator's alone."""
+        import torch.distributed as dist
+
+        return self.use_orbax and dist.is_initialized() and dist.get_world_size() > 1
+
     def _path(self, name: str) -> str:
-        return os.path.join(self.results_dir, f"{name}.state.pt")
+        return os.path.join(self.results_dir, name if self.use_orbax else f"{name}.state.pt")
+
+    def _save(self, name: str, state) -> None:
+        if self.use_orbax:
+            save_train_state_dcp(self._path(name), state, self.collective)
+        else:
+            save_train_state(self._path(name), state)
 
     def save_epoch(self, state, epoch: int, psnr: float, ssim: float) -> bool:
-        """Apply the policy for a finished epoch; returns is_best."""
-        save_train_state(self._path("last"), state)
+        """Apply the policy for a finished epoch; returns is_best. When
+        `collective`, every rank calls it: only the coordinator validates
+        (the others pass NaN), so (psnr, ssim) are broadcast from rank 0
+        first and every rank takes the same branch."""
+        if self.collective:
+            import torch.distributed as dist
+
+            dev = next(state.g_model.parameters()).device
+            metrics = torch.tensor([psnr, ssim], dtype=torch.float32, device=dev)
+            dist.broadcast(metrics, src=0)
+            psnr, ssim = (float(v) for v in metrics.cpu())
+        self._save("last", state)
         is_best = self.best_psnr < psnr and self.best_ssim < ssim
         if is_best:
-            save_train_state(self._path("best"), state)
+            self._save("best", state)
             self.best_psnr, self.best_ssim = psnr, ssim
-            with open(self._meta_path, "w") as f:
-                json.dump({"best_psnr": psnr, "best_ssim": ssim, "epoch": epoch}, f)
+            from srgan_st_tpu_torch.parallel.distributed import is_coordinator
+
+            if is_coordinator():
+                with open(self._meta_path, "w") as f:
+                    json.dump({"best_psnr": psnr, "best_ssim": ssim, "epoch": epoch}, f)
         if 0 < epoch and epoch % self.interval == 0:
-            save_train_state(self._path(f"epoch{epoch}"), state)
+            self._save(f"epoch{epoch}", state)
         return is_best
 
     def restore_latest(self, state) -> bool:
-        """Restore `last` into `state` if present. One that does not fit
-        (e.g. a warmup state found by a GAN run sharing the directory) is
-        skipped with a warning. Returns whether a state was restored."""
+        """Restore `last` (in this policy's format) into `state` if present.
+        One that does not fit (e.g. a warmup state found by a GAN run
+        sharing the directory) is skipped with a warning. Returns whether a
+        state was restored."""
         path = self._path("last")
-        if not os.path.exists(path):
+        found = os.path.exists(path)
+        if self.collective:  # a DCP load is collective: every rank or none
+            import torch.distributed as dist
+
+            dev = next(state.g_model.parameters()).device
+            seen = torch.tensor([float(found)], device=dev)
+            dist.all_reduce(seen)
+            if float(seen) not in (0.0, float(dist.get_world_size())):
+                raise RuntimeError(f"{path} is seen by {int(float(seen))} of the "
+                                   f"{dist.get_world_size()} ranks: the processes must "
+                                   "share the results directory")
+        if not found:
             return False
         try:
-            load_train_state(path, state)
+            if self.use_orbax:
+                load_train_state_dcp(path, state, self.collective)
+            else:
+                load_train_state(path, state)
         except (KeyError, ValueError) as e:
             print(f"skipping incompatible 'last' checkpoint in {self.results_dir}: {e}")
             return False

@@ -27,6 +27,7 @@ back to eager steps.
 
 from __future__ import annotations
 
+import gc
 import time
 import traceback
 
@@ -116,6 +117,13 @@ class _CapturedStep:
         t0 = time.perf_counter()
         before = kernels.launch_counts()
         graph = torch.cuda.CUDAGraph()
+        # A graph of an earlier run (warmup's, when train() captures) that
+        # the cyclic collector frees inside this capture destroys its
+        # executable there, which invalidates the capture: collect first,
+        # and not during the capture.
+        collecting = gc.isenabled()
+        gc.collect()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, pool=self.graphs.pool, stream=stream,
                                   capture_error_mode="thread_local"):
@@ -123,6 +131,9 @@ class _CapturedStep:
         except Exception as e:  # noqa: BLE001 — re-raised with the op's place
             raise RuntimeError(f"CUDA graph capture of the {self.kind} step failed at "
                                f"{_where(e)}: {type(e).__name__}: {e}") from e
+        finally:
+            if collecting:
+                gc.enable()
         after = kernels.launch_counts()
         self.launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
         kernels.add_launch_counts({k: -n for k, n in self.launches.items()})

@@ -12,8 +12,9 @@ only at chunk starts, on CUDA each step a replay of its captured graph
 (train/graphs.py, TPU.CUDA_GRAPHS); TPU.NAN_GUARD checks each chunk's
 metrics. Runs on CUDA unless `device` says otherwise. With several processes (parallel/distributed.py) each runs on
 its own GPU with its share of every batch, and only the coordinator
-validates and writes checkpoints, npz files and scalars while the others
-wait at a barrier.
+validates and writes npz files, scalars and `.state.pt` train states while
+the others wait at a barrier; with EXP.ORBAX_CHECKPOINTS every process
+takes part in the train-state save.
 """
 
 from __future__ import annotations
@@ -72,7 +73,8 @@ def train(config, device=None):
 
     writer = ExperimentWriter(config)
     results_dir = f"results/{config.EXP.NAME}"
-    policy = CheckpointPolicy(results_dir, config.G_CHECKPOINT_INTERVAL)
+    policy = CheckpointPolicy(results_dir, config.G_CHECKPOINT_INTERVAL,
+                              use_orbax=config.EXP.ORBAX_CHECKPOINTS)
     test_pairs = make_test_pairs(config)
     start_epoch = resume(config, policy, state, steps_per_epoch, mesh)
     mesh.broadcast_module(state.g_model)
@@ -107,13 +109,19 @@ def train(config, device=None):
         if guard is not None:
             guard.flush()
 
+        psnr = ssim = float("nan")
         if coord:
             psnr, ssim, g_variables = validate_epoch(config, state, test_pairs, writer,
                                                      epoch, dev)
             d_variables = variables_from_discriminator_state_dict(state.d_model.state_dict())
             save_variables_npz(os.path.join(results_dir, "g_last.npz"), g_variables)
             save_variables_npz(os.path.join(results_dir, "d_last.npz"), d_variables)
-            if policy.save_epoch(state, epoch, psnr, ssim):
+        # the npz files are the coordinator's; a collective (DCP) train-state
+        # save is every process's, with the coordinator's metrics
+        is_best = (policy.save_epoch(state, epoch, psnr, ssim)
+                   if coord or policy.collective else False)
+        if coord:
+            if is_best:
                 save_variables_npz(os.path.join(results_dir, "g_best.npz"), g_variables)
                 save_variables_npz(os.path.join(results_dir, "d_best.npz"), d_variables)
             if 0 < epoch and epoch % config.G_CHECKPOINT_INTERVAL == 0:

@@ -11,8 +11,10 @@ package's loop: on CUDA each step a replay of its captured graph
 chunk's batch 0; TPU.NAN_GUARD checks them. Runs on CUDA unless `device`
 says otherwise. With several
 processes (parallel/distributed.py) each runs on its own GPU with its share
-of every batch, and only the coordinator validates and writes checkpoints,
-npz files and scalars while the others wait at a barrier.
+of every batch, and only the coordinator validates and writes npz files,
+scalars and `.state.pt` train states while the others wait at a barrier;
+with EXP.ORBAX_CHECKPOINTS every process takes part in the train-state
+save and restore.
 """
 
 from __future__ import annotations
@@ -43,8 +45,9 @@ def resume(config, policy: CheckpointPolicy, state, steps_per_epoch: int,
     """The epoch to start from: from the restored `last` state's step
     when one fits (EXP.AUTO_RESUME, or START_EPOCH > 0), else START_EPOCH.
     Every process restores from the results directory the coordinator
-    writes, so the processes of a run must share it: ranks that would start
-    at different epochs raise."""
+    writes (every process, under EXP.ORBAX_CHECKPOINTS), so the processes
+    of a run must share it: ranks that would start at different epochs
+    raise."""
     start_epoch = config.EXP.START_EPOCH
     if (start_epoch > 0 or config.EXP.AUTO_RESUME) and policy.restore_latest(state):
         start_epoch = state.step // steps_per_epoch
@@ -87,7 +90,8 @@ def warmup(config, device=None):
 
     writer = ExperimentWriter(config)
     results_dir = f"results/{config.EXP.NAME}"
-    policy = CheckpointPolicy(results_dir, config.G_CHECKPOINT_INTERVAL)
+    policy = CheckpointPolicy(results_dir, config.G_CHECKPOINT_INTERVAL,
+                              use_orbax=config.EXP.ORBAX_CHECKPOINTS)
     test_pairs = make_test_pairs(config)
     start_epoch = resume(config, policy, state, steps_per_epoch, mesh)
     mesh.broadcast_module(state.g_model)
@@ -118,11 +122,17 @@ def warmup(config, device=None):
         if guard is not None:
             guard.flush()
 
+        psnr = ssim = float("nan")
         if coord:
             psnr, ssim, g_variables = validate_epoch(config, state, test_pairs, writer,
                                                      epoch, dev)
             save_variables_npz(os.path.join(results_dir, "g_last.npz"), g_variables)
-            if policy.save_epoch(state, epoch, psnr, ssim):
+        # the npz files are the coordinator's; a collective (DCP) train-state
+        # save is every process's, with the coordinator's metrics
+        is_best = (policy.save_epoch(state, epoch, psnr, ssim)
+                   if coord or policy.collective else False)
+        if coord:
+            if is_best:
                 save_variables_npz(os.path.join(results_dir, "g_best.npz"), g_variables)
             if 0 < epoch and epoch % config.G_CHECKPOINT_INTERVAL == 0:
                 save_variables_npz(os.path.join(results_dir, f"g_epoch{epoch}.npz"),

@@ -973,3 +973,123 @@ def test_layout_cache_follows_graph_replays(dev):
         after, want = state.g_model(x), fresh(x)
     assert not torch.equal(before, after)
     assert torch.equal(after, want)
+
+
+@pytest.mark.cuda
+def test_capture_survives_an_earlier_graph_collected(dev):
+    """The graphs of an earlier run (warmup()'s, when train() captures) sit
+    in reference cycles (a StepGraphs and its steps hold each other). Here
+    they are young garbage just as a new capture starts, and the cyclic
+    collector is due at the next allocation: a collection inside the
+    capture would destroy their executables there and invalidate it. The
+    capture collects first and holds the collector off, so it succeeds and
+    replays."""
+    import gc
+
+    from srgan_st_tpu_torch.train.graphs import StepGraphs
+
+    x = torch.ones(64, device=dev)
+    thresholds = gc.get_threshold()
+    gc.set_threshold(0)  # no automatic collection: what is made stays young
+    try:
+        old = StepGraphs(dev)
+        old.run("k", old, lambda t: [t * 2], x)
+        assert old.launches_per_replay().keys() == {"k"}
+        holder, calls = {"old": old}, []
+        del old
+
+        def fn(t):
+            calls.append(len(calls))
+            if len(calls) == 2:  # the capture: the earlier graphs become garbage
+                holder.clear()
+                gc.set_threshold(1)
+            return [t + i for i in range(300)]
+
+        new = StepGraphs(dev)
+        new.run("k", new, fn, x)
+        out = new.run("k", new, None, x + 1)
+    finally:
+        gc.set_threshold(*thresholds)
+    torch.cuda.synchronize()
+    assert calls == [0, 1] and not holder
+    assert torch.equal(out[299], x + 300)
+
+
+@pytest.mark.cuda
+def test_dcp_restore_keeps_the_graphs_storage(dev, tmp_path):
+    """EXP.ORBAX_CHECKPOINTS on the card: a GAN state whose steps were
+    captured and replayed is saved as a DCP directory after one more
+    replay of the G step; a further replay moves it, and restore_latest
+    writes the saved values back into the same storage (the data_ptr of
+    every parameter, buffer, Adam moment and count unchanged), bit for bit;
+    the next replay then repeats the replay that followed the save, bit
+    for bit (cuDNN on deterministic algorithms). Then what a resumed run
+    does: the checkpoint restored into a fresh state, whose capturable Adam
+    has no state yet (the restore makes it, in place), and G steps on it
+    through a new set of graphs (the first captures, the second replays)
+    equal, bit for bit, the same steps replayed on the saved state."""
+    from srgan_st_tpu_torch.losses.registry import build_criterions
+    from srgan_st_tpu_torch.models.discriminator import Discriminator
+    from srgan_st_tpu_torch.models.generator import Generator
+    from srgan_st_tpu_torch.train.checkpoint import (
+        CheckpointPolicy, _dcp_tree, _flat, train_state_arrays,
+    )
+    from srgan_st_tpu_torch.train.graphs import StepGraphs
+    from srgan_st_tpu_torch.train.steps import create_gan_state, make_gan_chunk_step
+
+    def ptrs(state):
+        return [t.data_ptr() for t in _flat(_dcp_tree(state)[0]).values()
+                if t.device.type == "cuda"]
+
+    def same(a, b):
+        return a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg = _graph_config("packed", 64)
+        rng = np.random.default_rng(7)
+        batches = [torch.from_numpy(rng.integers(0, 256, (2, 96, 96, 3), dtype=np.uint8)).to(dev)
+                   for _ in range(5)]
+        graphs = StepGraphs(dev)
+        _, _, state = _graph_run(cfg, dev, batches, graphs, "gan")
+        graphs.run("g", state, None, batches[4], {})
+        torch.cuda.synchronize()
+        policy = CheckpointPolicy(str(tmp_path), use_orbax=True)
+        policy.save_epoch(state, 0, 1.0, 1.0)
+        saved, before = train_state_arrays(state), ptrs(state)
+        assert before and saved["g_opt.count"] == 5
+        graphs.run("g", state, None, batches[0], {})
+        torch.cuda.synchronize()
+        after_save = train_state_arrays(state)
+        assert not same(after_save, saved)
+        assert policy.restore_latest(state)
+        assert ptrs(state) == before
+        assert same(train_state_arrays(state), saved)
+        graphs.run("g", state, None, batches[0], {})
+        torch.cuda.synchronize()
+        assert same(train_state_arrays(state), after_save)
+
+        # resume into a fresh state, then capture: G steps without D
+        assert policy.restore_latest(state)
+        crit = build_criterions(cfg)
+        fresh = create_gan_state(cfg, Generator.from_config(cfg), Discriminator.from_config(cfg),
+                                 4, dev, generator=torch.Generator().manual_seed(99))
+        assert not fresh.g_opt.opt.state and fresh.g_opt._capturable
+        model_ptrs = [t.data_ptr() for m in (fresh.g_model, fresh.d_model)
+                      for t in m.state_dict().values()]
+        assert policy.restore_latest(fresh)
+        assert [t.data_ptr() for m in (fresh.g_model, fresh.d_model)
+                for t in m.state_dict().values()] == model_ptrs
+        assert same(train_state_arrays(fresh), saved)
+        assert all(st["step"].is_cuda for st in fresh.g_opt.opt.state.values())
+        resumed = StepGraphs(dev)
+        steps = {id(state): make_gan_chunk_step(cfg, crit, graphs=graphs),
+                 id(fresh): make_gan_chunk_step(cfg, crit, graphs=resumed)}
+        for b in (batches[1], batches[2]):
+            got = [train_state_arrays(steps[id(s)](s, [b], False)[0]) for s in (state, fresh)]
+            torch.cuda.synchronize()
+            differ = [k for k in got[0] if not np.array_equal(got[0][k], got[1][k])]
+            assert not differ, differ[:5]
+        assert resumed.launches_per_replay().keys() == {"g"}
+    finally:
+        torch.backends.cudnn.deterministic = False

@@ -108,6 +108,33 @@ _CHILD = textwrap.dedent('''
             for k, v in m.state_dict().items():
                 out[f"{case}/{name}/{k}"] = v.detach().float().numpy()
 
+    # EXP.ORBAX_CHECKPOINTS: the collective DCP save of the last case's GAN
+    # state from both ranks into one directory (rank 1 passes NaN metrics,
+    # as it does not validate), then both restore `last` into a fresh state
+    from srgan_st_tpu_torch.core.config import Config, apply_overrides
+    from srgan_st_tpu_torch.models.common import init_weights
+    from srgan_st_tpu_torch.models.discriminator import Discriminator
+    from srgan_st_tpu_torch.models.generator import Generator
+    from srgan_st_tpu_torch.train.checkpoint import CheckpointPolicy, train_state_arrays
+    from srgan_st_tpu_torch.train.steps import (
+        GANTrainState, make_d_optimizer, make_g_optimizer)
+
+    state.step = 3
+    policy = CheckpointPolicy(os.path.join(work, "ckpt"), use_orbax=True)
+    assert policy.collective
+    psnr, ssim = (20.0, 0.5) if rank == 0 else (float("nan"), float("nan"))
+    out["ckpt/is_best"] = np.array(policy.save_epoch(state, 0, psnr, ssim))
+    cfg = apply_overrides(Config(), sets)
+    g, d = Generator.from_config(cfg, group=group), Discriminator.from_config(cfg, group=group)
+    init_weights(g, torch.Generator().manual_seed(11))
+    init_weights(d, torch.Generator().manual_seed(12))
+    fresh = GANTrainState(g, make_g_optimizer(cfg, g.parameters(), 10), d,
+                          make_d_optimizer(cfg, d.parameters(), 10))
+    out["ckpt/restored"] = np.array(policy.restore_latest(fresh))
+    saved, got = train_state_arrays(state), train_state_arrays(fresh)
+    out.update({"ckpt/saved/" + k: v for k, v in saved.items()})
+    out.update({"ckpt/got/" + k: v for k, v in got.items()})
+
     # LOCAL_BN with the packed trunk (bf16, 64 channels): K4/K5's wrapper
     # runs per rank (its plain version on the CPU), the EMA takes the
     # global moments
@@ -434,6 +461,28 @@ def test_local_bn_runs_the_packed_trunk_per_rank(two_ranks):
         with pytest.raises(ValueError, match="LOCAL_BN"):
             Generator(channels=64, num_rcb=1, dtype=torch.bfloat16, group=two,
                       trunk_mode=mode)._trunk_mode(True, x)
+
+
+def test_collective_dcp_checkpoint_over_two_ranks(two_ranks):
+    """EXP.ORBAX_CHECKPOINTS over two ranks (the JAX child's orbax case,
+    tests/test_distributed.py:159-181): both ranks call save_epoch into one
+    directory, rank 1 with NaN metrics, and both see is_best (the metrics
+    are broadcast from rank 0); both restore `last` into a fresh state and
+    hold, bit for bit, every parameter, running statistic, Adam moment and
+    step count, update count and `step` that was saved, the same bits on
+    both ranks."""
+    _, _, ranks = two_ranks
+    for r in ranks:
+        assert bool(r["ckpt/is_best"]) and bool(r["ckpt/restored"])
+        saved = {k[len("ckpt/saved/"):]: v for k, v in r.items() if k.startswith("ckpt/saved/")}
+        got = {k[len("ckpt/got/"):]: v for k, v in r.items() if k.startswith("ckpt/got/")}
+        assert got.keys() == saved.keys() and len(saved) > 100
+        assert sum(".moments." in k for k in saved) > 0 and int(saved["step"]) == 3
+        for k in saved:
+            np.testing.assert_array_equal(got[k], saved[k], err_msg=k)
+    for k in ranks[0]:
+        if k.startswith("ckpt/got/"):
+            np.testing.assert_array_equal(ranks[0][k], ranks[1][k], err_msg=k)
 
 
 def test_tiled_eval_over_two_ranks(two_ranks):

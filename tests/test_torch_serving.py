@@ -476,15 +476,21 @@ def _port_sources():
 
 
 # the data and multi-GPU modules, which keep their own copies of the JAX
-# package's pure-Python ones (data/volumes.py, data/prepare_dataset.py)
+# package's pure-Python ones (data/volumes.py, data/prepare_dataset.py),
+# and the figure tools (viz/training_curves.py is one such copy)
 NEW_MODULES = ("srgan_st_tpu_torch.parallel.distributed", "srgan_st_tpu_torch.parallel.mesh",
-               "srgan_st_tpu_torch.data.prepare_dataset", "srgan_st_tpu_torch.data.volumes")
+               "srgan_st_tpu_torch.data.prepare_dataset", "srgan_st_tpu_torch.data.volumes",
+               "srgan_st_tpu_torch.viz.save_image_patch", "srgan_st_tpu_torch.viz.feature_maps",
+               "srgan_st_tpu_torch.viz.buddy_illustration",
+               "srgan_st_tpu_torch.viz.training_curves")
 
 
 def test_port_imports_no_jax():
-    """No module of the port, and not chip_smoke.py, imports JAX, flax or
-    the JAX package: every import statement, lazy ones included, and
-    every module actually imported in a fresh interpreter."""
+    """No module of the port (viz/ included), and not chip_smoke.py,
+    imports JAX, flax or the JAX package: every import statement, lazy ones
+    included, and every module actually imported in a fresh interpreter,
+    where importing them all imports no PIL, matplotlib or TensorBoard
+    either (the card machine has none)."""
     for path in _port_sources():
         tree = ast.parse(open(path).read(), path)
         for node in ast.walk(tree):
@@ -504,7 +510,7 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
-        "assert 'PIL' not in sys.modules\n"
+        "assert not [m for m in ('PIL', 'matplotlib', 'tensorboard') if m in sys.modules]\n"
         "print(len([m for m in sys.modules if m.startswith('srgan_st_tpu_torch')]))\n"
         "print(all(m in sys.modules for m in " + repr(NEW_MODULES) + "))\n"
     )

@@ -643,13 +643,13 @@ def test_cli_parses_overrides():
 def test_unported_training_options_raise(tmp_path):
     """content_vgg, ported, raises only for its missing weights; the data
     options of Queue A item 4 (DATA.AUGMENT, DATA.TILE_SIZE), ported, build;
-    so do TPU.CHUNK_STEPS, TPU.NAN_GUARD and TPU.REMAT (Queue A item 6).
+    so do TPU.CHUNK_STEPS, TPU.NAN_GUARD and TPU.REMAT (Queue A item 6),
+    and EXP.ORBAX_CHECKPOINTS (DCP train states, tests/test_torch_ckpt.py).
     What the port leaves out raises: TPU.SHARD_MAP is no key of the port
     (torch has no GSPMD, so its step is always the explicit form), nor
     TPU.DONATE (the port's steps update the state in place, which is what
-    donation buys in JAX) nor EXP.ORBAX_CHECKPOINTS (not ported yet), and
-    any mesh but the 1-D ('data',) layout over the processes is refused
-    (ROADMAP.md Queue C)."""
+    donation buys in JAX), and any mesh but the 1-D ('data',) layout over
+    the processes is refused (ROADMAP.md Queue C)."""
     from srgan_st_tpu_torch.core.config import Config, apply_overrides
     from srgan_st_tpu_torch.data.pipeline import SyntheticPatchSource, make_train_source
     from srgan_st_tpu_torch.losses.registry import build_criterions
@@ -670,7 +670,8 @@ def test_unported_training_options_raise(tmp_path):
                                      "DATA.SYNTHETIC=true"])
     assert (cfg.TPU.CHUNK_STEPS, cfg.TPU.NAN_GUARD, cfg.TPU.REMAT) == (50, True, True)
     assert callable(make_warmup_step(cfg, {}))
-    for key in ("TPU.SHARD_MAP=true", "TPU.DONATE=true", "EXP.ORBAX_CHECKPOINTS=true"):
+    assert apply_overrides(Config(), ["EXP.ORBAX_CHECKPOINTS=true"]).EXP.ORBAX_CHECKPOINTS
+    for key in ("TPU.SHARD_MAP=true", "TPU.DONATE=true"):
         with pytest.raises(SystemExit):
             apply_overrides(Config(), [key])
     assert make_mesh(Config()).world_size == 1
