@@ -135,7 +135,27 @@ Then the training slice, bf16 with TRUNK_MODE="packed" unless named:
            train()'s `last/` and a save_epoch directory restore into fresh
            states bit for bit (parameters, running statistics, Adam moments
            and counts, step), the NCCL run's also equal to its npz weights;
-           the save and restore seconds.
+           the save and restore seconds; then a save of another state into
+           the save_epoch directory whose DCP writer raises partway on rank
+           1 (rank 0 in the one-rank runs): every rank sees DCP's
+           CheckpointException, the old `last/` stays, and a fresh state
+           restores it bit for bit;
+  soak     srgan_st_tpu_torch.tools.soak at a cut size (1,600 patches, 2
+           warmup and 4 GAN epochs, full width, bf16, packed, graph steps):
+           warmup() and the GAN phase (Adversarial + Pixel + PatchwiseST +
+           ContentDiscriminator) as subprocesses from a seeded pack, the
+           uninterrupted run beside a `.state.pt` run SIGKILLed after 3 log
+           lines of epoch 3 and a DCP run SIGKILLed while a data file of
+           `last` is written (seen on disk), each relaunched: the resume
+           epoch, Test/PSNR for every epoch, a best PSNR that never fell, a
+           whole checkpoint set, final g_last / d_last bit for bit the
+           uninterrupted run's; A, K4 and K5 in every training child, K7
+           in every GAN child; the phase's seconds;
+  loss_study  tools/loss_study.py's table (4 perturbations x 5 losses x 6
+           strengths of a 96x96 patch) on the card against the CPU: within
+           1e-4 of each curve's largest value, or a buddy loss whose picks
+           differ from the CPU's only at f64 near ties; K7 once per buddy
+           loss call.
 
 Then the structure-tensor loss study (`run`, job 1: Adversarial +
 PatchwiseST + ContentDiscriminator), bf16:
@@ -1808,7 +1828,8 @@ def _ckpt_case(cfg, state, dev, mesh) -> dict:
     a new directory, rank 0 with metrics and the others with NaN (is_best
     on every rank: the metrics are broadcast), restored into another fresh
     state. Bit for bit: every parameter, running statistic, Adam moment and
-    step count, update count and `step`."""
+    step count, update count and `step`. Then (c) `_torn_save`: a save that
+    fails partway leaves (b)'s `last/`."""
     import torch
 
     from srgan_st_tpu_torch.parallel.distributed import process_info
@@ -1837,10 +1858,55 @@ def _ckpt_case(cfg, state, dev, mesh) -> dict:
                      "bit_identical": got.keys() == saved.keys() and all(
                          np.array_equal(got[k], saved[k]) for k in saved),
                      "moments": sum(".moments." in k for k in got)}
+    rec["torn"] = _torn_save(cfg, state, saved, dev, mesh, rank)
     rec["ok"] = bool(rec["is_best"] and all(
         rec[c]["restored"] and rec[c]["bit_identical"] and rec[c]["moments"] > 0
-        for c in ("train_last", "save_epoch")))
+        for c in ("train_last", "save_epoch")) and rec["torn"]["ok"])
     return rec
+
+
+def _torn_save(cfg, state, saved: dict, dev, mesh, rank: int) -> dict:
+    """After `_ckpt_case`'s save_epoch: a save_epoch of another state (fresh
+    weights, one step on) into the same directory that fails partway on
+    rank 1 (on rank 0 without a group): DCP's file writer raises at that
+    rank's third item, as a crash would stop it. Every rank must see DCP's
+    CheckpointException (a BaseException), the old `last/` must stay, and a
+    fresh state must restore it: `saved` bit for bit."""
+    import torch
+    import torch.distributed.checkpoint.filesystem as fs
+
+    from srgan_st_tpu_torch.train.checkpoint import CheckpointPolicy, train_state_arrays
+
+    results = f"results/{cfg.EXP.NAME}-dcp"
+    policy = CheckpointPolicy(results, use_orbax=True)
+    failing = 1 if policy.collective else 0
+    other = _fresh_gan_state(cfg, dev, mesh)
+    other.step = state.step + 1
+    real, calls = fs._write_item, [0]
+
+    def write_item(*args, **kwargs):
+        calls[0] += 1
+        if rank == failing and calls[0] > 2:
+            raise OSError("the disk was lost mid-save")
+        return real(*args, **kwargs)
+
+    raised = None
+    fs._write_item = write_item
+    try:
+        policy.save_epoch(other, 2, 27.0 if rank == 0 else float("nan"), float("nan"))
+    except BaseException as e:  # noqa: BLE001 - DCP's CheckpointException is no Exception
+        raised = type(e).__name__
+    finally:
+        fs._write_item = real
+    left = sorted(os.listdir(results))
+    fresh = _fresh_gan_state(cfg, dev, mesh)
+    restored = policy.restore_latest(fresh)
+    torch.cuda.synchronize()
+    got = train_state_arrays(fresh)
+    same = got.keys() == saved.keys() and all(np.array_equal(got[k], saved[k]) for k in saved)
+    return {"failing_rank": failing, "raised": raised, "left": left, "restored": restored,
+            "bit_identical": same, "ok": bool(raised == "CheckpointException" and restored
+                                              and same and "last" in left)}
 
 
 def _dist_run(sets: list[str], dev) -> dict:
@@ -2149,6 +2215,126 @@ def phase_dist(dev) -> dict:
     emit("dist", **rec)
     if bad:
         raise AssertionError(f"dist phase: {bad}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# crash safety: the kill/resume soak, and the loss-sensitivity study
+
+# the soak at a cut size (tools/soak.py's full size: 12,800 patches, 10 + 10
+# epochs, the kills in epoch 5); the width is never cut
+SOAK = {"patches": 1600, "warmup_epochs": 2, "epochs": 4, "kill_epoch": 3}
+
+
+def phase_soak() -> dict:
+    """srgan_st_tpu_torch.tools.soak at SOAK's size: warmup(), the
+    uninterrupted GAN run, the `.state.pt` run SIGKILLed mid-epoch and the
+    DCP run SIGKILLed mid-save of `last`, each relaunched (tools/soak.py
+    names the checks). Each child is its own process, reusing the kernels
+    the build phase made. Fails unless every check held."""
+    import torch
+
+    from srgan_st_tpu_torch.tools.soak import run_soak
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        rep = run_soak(root, **SOAK, device="cuda", child_timeout=600)
+
+    def child(c):
+        return {k: c[k] for k in ("rc", "killed", "seconds", "seconds_to_first_epoch",
+                                  "resumed_at", "epoch_started", "launches")}
+
+    rec = {**SOAK, "seconds": rep["seconds"],
+           "failures": rep["failures"], "warmup": child(rep["warmup"])}
+    if "reference" in rep:
+        rec["reference"] = child(rep["reference"]["child"])
+    for case in ("state_pt", "dcp"):
+        if case in rep:
+            c = rep[case]
+            rec[case] = {k: c.get(k) for k in (
+                "killed_in_epoch", "mid_epoch", "attempts", "resumed_at",
+                "expected_resume_epoch", "psnr_epochs", "best_psnr", "final_max_abs_diff",
+                "seconds_to_resume", "resumed_patches_per_s")}
+            rec[case]["children"] = [child(x) for x in c.get("children", [])]
+    children = [rec["warmup"]] + [x for case in ("reference", "state_pt", "dcp")
+                                  for x in ([rec[case]] if case == "reference"
+                                            else rec.get(case, {}).get("children", []))]
+    rec["launches_per_child"] = [x["launches"] for x in children]
+    emit("soak", **rec)
+    if rep["failures"]:
+        raise AssertionError(f"soak phase: {rep['failures']}")
+    return rec
+
+
+def phase_loss_study(dev) -> dict:
+    """tools/loss_study.py's table (4 perturbations x 5 losses x 6 strengths
+    of the synthetic 96x96 patch) on the card and on the CPU, every buddy
+    selection's picks recorded. Gate: each value within 1e-4 of its curve's
+    largest value (the figure normalizes each curve) of the CPU's, 2e-4 for
+    PatchwiseST (its det-normalized structure tensors amplify f32 rounding:
+    the parity rule of tests/test_torch_losses.py against JAX), or a buddy
+    loss whose picks differ from the CPU's only at near ties (both rows
+    within 1e-6 of the f64 minimum on the CPU's features); K7 once per
+    buddy loss call on the card. The calls whose picks differ are listed."""
+    from srgan_st_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from srgan_st_tpu_torch.kernels._checks import f64_scores, near_tie_agrees
+    from srgan_st_tpu_torch.losses import functions as F
+    from srgan_st_tpu_torch.tools import loss_study as L
+
+    real, picks = F.buddy_select_index, {}
+
+    def recorder(dest):
+        def select(p1, p2, bank, alpha=1.0, beta=1.0, dist_norm="l2"):
+            idx = real(p1, p2, bank, alpha, beta, dist_norm)
+            dest.append((p1.cpu(), p2.cpu(), bank.cpu(), idx.cpu(), alpha, beta, dist_norm))
+            return idx
+        return select
+
+    gt = L.synthetic_patch()
+    tables = {}
+    try:
+        for name, device in (("cpu", "cpu"), ("cuda", dev)):
+            picks[name] = []
+            F.buddy_select_index = recorder(picks[name])
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            tables[name] = L.loss_table(gt, L.STRENGTHS, np.random.default_rng(0), device)
+            seconds = time.perf_counter() - t0
+            counts = launch_counts()
+    finally:
+        F.buddy_select_index = real
+    ties, bad, worst, differ = [], [], {}, []
+    calls = iter(zip(picks["cpu"], picks["cuda"]))
+    for pname, rows in tables["cpu"].items():
+        for lname, values in rows.items():
+            scale = max(abs(v) for v in values)
+            tol = 2e-4 if lname == "PatchwiseST" else 1e-4
+            for i, v in enumerate(values):
+                pair = next(calls) if lname in ("BestBuddy", "Gram", "PatchwiseST") else None
+                rows_differ = 0
+                if pair is not None:
+                    (p1, p2, bank, idx, alpha, beta, norm), gpu = pair
+                    rows_differ = int((idx != gpu[3]).sum())
+                    if rows_differ:
+                        differ.append((pname, lname, L.STRENGTHS[i], rows_differ))
+                err = abs(tables["cuda"][pname][lname][i] - v) / max(scale, 1e-30)
+                worst[lname] = max(worst.get(lname, 0.0), err)
+                if err <= tol:
+                    continue
+                tie = False
+                if rows_differ:
+                    f64 = f64_scores(p1, p2, bank, alpha, beta, norm)
+                    tie = bool(near_tie_agrees(gpu[3], idx, f64).all()
+                               and near_tie_agrees(idx, gpu[3], f64).all())
+                (ties if tie else bad).append((pname, lname, L.STRENGTHS[i], err))
+    buddy_calls = len(picks["cuda"])
+    rec = {"entries": sum(len(v) for r in tables["cpu"].values() for v in r.values()),
+           "max_err_of_curve_scale": worst, "near_ties": ties, "outside": bad,
+           "calls_whose_picks_differ": differ, "buddy_calls": buddy_calls,
+           "launches": counts, "cuda_seconds": seconds}
+    emit("loss_study", **rec)
+    if bad or counts["buddy_select"] != buddy_calls or buddy_calls != 72:
+        raise AssertionError(f"loss_study phase: {rec}")
     return rec
 
 
@@ -2967,12 +3153,15 @@ def phase_graph(dev, batch, vgg: str) -> dict:
     return {"replayed": replayed, "time": timed, "profiles": profiles, **rec}
 
 
-def _new_path_launches(name: str, data_rec: dict, dist_rec: dict) -> dict:
-    """A kernel's launches on the paths of the data and dist phases: one
-    train() run from the resident pack, and each rank of the LOCAL_BN run."""
+def _new_path_launches(name: str, data_rec: dict, dist_rec: dict, soak_rec: dict) -> dict:
+    """A kernel's launches on the paths of the data, dist and soak phases: one
+    train() run from the resident pack, each rank of the LOCAL_BN run, and
+    each training process of the soak (warmup, reference, then the killed
+    cases' runs; a killed run's counts as of its last epoch start)."""
     return {"data_train_launches": data_rec["train"]["device_cache"]["true"][0]["launches"][name],
             "local_bn_launches_per_rank": [c[name] for c in
-                                           dist_rec["local_bn"]["launches_per_rank"]]}
+                                           dist_rec["local_bn"]["launches_per_rank"]],
+            "soak_launches_per_child": [c[name] for c in soak_rec["launches_per_child"]]}
 
 
 def main() -> int:
@@ -2995,8 +3184,10 @@ def main() -> int:
         return 1
     if sys.argv[1:] == ["--only", "graph"]:
         return run_graph_only(torch.device("cuda"))
+    if sys.argv[1:] == ["--only", "soak"]:
+        return run_soak_only(torch.device("cuda"))
     if sys.argv[1:]:
-        print(f"chip_smoke: unknown arguments {sys.argv[1:]} (none, or --only graph)",
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]} (none, or --only graph|soak)",
               file=sys.stderr)
         return 2
     return run(torch.device("cuda"))
@@ -3016,6 +3207,21 @@ def run_graph_only(dev) -> int:
     batch = torch.from_numpy(rng.integers(0, 256, (16, 96, 96, 3), dtype=np.uint8)).to(dev)
     with tempfile.TemporaryDirectory() as tmp:
         phase_graph(dev, batch, write_vgg_npz(os.path.join(tmp, "vgg19.npz")))
+    return 0
+
+
+def run_soak_only(dev) -> int:
+    """`--only soak`: the build, the soak and the loss study alone (no
+    result line), for working on crash safety."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    emit("env", torch=torch.__version__, cuda=torch.version.cuda,
+         device=torch.cuda.get_device_name(0), nvidia_smi=nvidia_smi())
+    phase_build()
+    phase_soak()
+    phase_loss_study(dev)
     return 0
 
 
@@ -3070,6 +3276,9 @@ def run(dev) -> int:
     torch.cuda.empty_cache()
     dist_rec = phase_dist(dev)
     torch.cuda.empty_cache()
+    soak_rec = phase_soak()
+    loss_rec = phase_loss_study(dev)
+    torch.cuda.empty_cache()
 
     rec_k7 = phase_kernel_buddy(dev, batch)
     torch.cuda.empty_cache()
@@ -3105,7 +3314,8 @@ def run(dev) -> int:
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "shape": rec["shape"], "f32_max_abs_err": rec["f32_max_abs_err"],
-            "train_launches": train_counts[name], **_new_path_launches(name, data_rec, dist_rec),
+            "train_launches": train_counts[name],
+            **_new_path_launches(name, data_rec, dist_rec, soak_rec),
             **({"graph_launches": graph_rec["replayed"][name]} if name != "serving_tail" else {}),
             "viz_launches": viz_rec["launches"][name],
         })
@@ -3124,7 +3334,8 @@ def run(dev) -> int:
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "launch_ms": rec["launch_ms"], "kernels_per_call": rec["profile"]["kernels"],
-            "shape": rec["shape"], "n": rec["n"], **_new_path_launches(name, data_rec, dist_rec),
+            "shape": rec["shape"], "n": rec["n"],
+            **_new_path_launches(name, data_rec, dist_rec, soak_rec),
             "graph_launches": graph_rec["replayed"][name],
         })
     kernels.append({
@@ -3157,6 +3368,8 @@ def run(dev) -> int:
         "plain_ms": rec_k7["plain_ms"], "bound_ms": rec_k7["bound_ms"],
         "bound_by": rec_k7["bound_by"], "library_ms": rec_k7["library_ms"],
         "shape": rec_k7["shape"], "graph_launches": graph_rec["replayed"]["buddy_select"],
+        "soak_launches_per_child": [c["buddy_select"] for c in soak_rec["launches_per_child"]],
+        "loss_study_launches": loss_rec["launches"]["buddy_select"],
     })
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

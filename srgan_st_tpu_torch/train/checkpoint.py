@@ -351,15 +351,13 @@ def _dcp_layout(state) -> tuple[dict[str, tuple], dict[str, dict[str, list[str]]
 
 
 def _dcp_call(fn, tree: dict, path: str, collective: bool, **storage) -> None:
-    """fn (dcp.save or dcp.load) on `tree` at `path`. Two notices DCP gives
-    are expected here and filtered: that a call with no_dist (a single
-    process) assumes one process, and that a save overwrites the last one
-    (`last` is overwritten every epoch, as orbax's save with force=True)."""
+    """fn (dcp.save or dcp.load) on `tree` at `path`. DCP's notice that a
+    call with no_dist (a single process) assumes one process is expected
+    here and filtered."""
     import warnings
 
     with warnings.catch_warnings():
         warnings.filterwarnings("ignore", message="torch.distributed is disabled")
-        warnings.filterwarnings("ignore", message="Detected an existing checkpoint")
         fn(tree, checkpoint_id=path, no_dist=not collective, **storage)
 
 
@@ -370,16 +368,70 @@ def train_state_arrays(state) -> dict[str, np.ndarray]:
     return {k: v.detach().cpu().numpy().copy() for k, v in _flat(_dcp_tree(state)[0]).items()}
 
 
+_TMP, _OLD = ".tmp-", ".old"
+
+
+def _dcp_barrier(collective: bool) -> None:
+    if collective:
+        import torch.distributed as dist
+
+        dist.barrier()
+
+
 def save_train_state_dcp(path: str, state, collective: bool = False) -> None:
     """The train state as a `torch.distributed.checkpoint` directory, as it
     is (an optimizer that has not stepped saves no moments). With
     `collective`, every rank of the process group calls it and DCP splits
     the writes of the (replicated) tensors over the ranks; else one process
-    writes it alone, with or without a process group."""
+    writes it alone, with or without a process group.
+
+    A crash at any instant leaves a whole state at `path` or, between the
+    two renames, at `path + ".old"` (`resolve_dcp_dir`): the state is
+    written into a fresh sibling `path + ".tmp-<step>"` (one name on every
+    rank), and only after `dcp.save` has returned on every rank, so that
+    `.metadata` is written, does the coordinator move the old directory
+    aside, rename the new one into place and remove the old one. Temporary
+    directories a crashed save left are removed first."""
+    import shutil
+
     import torch.distributed.checkpoint as dcp
 
-    _dcp_call(dcp.save, _dcp_tree(state)[0], path, collective,
-              storage_writer=dcp.FileSystemWriter(path, overwrite=True))
+    coordinator = True
+    if collective:
+        import torch.distributed as dist
+
+        coordinator = dist.get_rank() == 0
+    parent, base = os.path.split(path)
+    tmp = f"{path}{_TMP}{state.step}"
+    if coordinator:
+        os.makedirs(parent or ".", exist_ok=True)
+        for name in os.listdir(parent or "."):
+            if name.startswith(base + _TMP):
+                shutil.rmtree(os.path.join(parent, name))
+    _dcp_barrier(collective)
+    _dcp_call(dcp.save, _dcp_tree(state)[0], tmp, collective,
+              storage_writer=dcp.FileSystemWriter(tmp, overwrite=False))
+    _dcp_barrier(collective)
+    if coordinator:
+        old = path + _OLD
+        if os.path.exists(path):
+            if os.path.exists(old):  # a whole `last/` is in place: the aside one is stale
+                shutil.rmtree(old)
+            os.rename(path, old)
+        os.rename(tmp, path)
+        shutil.rmtree(old, ignore_errors=True)
+    _dcp_barrier(collective)
+
+
+def resolve_dcp_dir(path: str) -> str | None:
+    """The whole DCP directory a `save_train_state_dcp` to `path` left: `path`
+    itself, or the old one it moved aside if a crash fell between its two
+    renames; None if neither exists. Temporary directories are never
+    taken."""
+    for candidate in (path, path + _OLD):
+        if os.path.isdir(candidate):
+            return candidate
+    return None
 
 
 def load_train_state_dcp(path: str, state, collective: bool = False):
@@ -388,7 +440,10 @@ def load_train_state_dcp(path: str, state, collective: bool = False):
     captured CUDA graph that updates them stays valid); moments the
     checkpoint holds and the optimizer has not made yet are made first,
     with no step. Raises KeyError or ValueError, before changing anything,
-    when it does not fit (another phase, other shapes)."""
+    when it does not fit (another phase, other shapes) or its files cannot
+    be read (DCP's CheckpointException: a directory torn by a crash
+    mid-save): DCP loads into host staging tensors, copied into the state
+    only once the load succeeded."""
     import torch.distributed.checkpoint as dcp
 
     if not os.path.exists(os.path.join(path, ".metadata")):  # e.g. an orbax directory
@@ -413,8 +468,17 @@ def load_train_state_dcp(path: str, state, collective: bool = False):
         if tuple(got.size) != shape or got.properties.dtype != dtype:
             raise ValueError(f"{path}: {key} has shape {tuple(got.size)} "
                              f"{got.properties.dtype}, the state {shape} {dtype}")
+    from torch.distributed.checkpoint.api import CheckpointException
+
+    staged = {key: torch.empty(layout[key][0], dtype=layout[key][1]) for key in saved}
+    try:
+        _dcp_call(dcp.load, staged, path, collective)
+    except CheckpointException as e:  # a BaseException, not an Exception
+        raise ValueError(f"{path}: its files cannot be read ({e})") from e
     tree, scalars = _dcp_tree(state, keep)
-    _dcp_call(dcp.load, tree, path, collective)
+    with torch.no_grad():
+        for key, live in _flat(tree).items():
+            live.copy_(staged[key])
     state.step = int(scalars["step"])
     for key in ("g", "d"):
         if f"{key}_count" in scalars:
@@ -493,11 +557,16 @@ class CheckpointPolicy:
         return is_best
 
     def restore_latest(self, state) -> bool:
-        """Restore `last` (in this policy's format) into `state` if present.
-        One that does not fit (e.g. a warmup state found by a GAN run
-        sharing the directory) is skipped with a warning. Returns whether a
-        state was restored."""
+        """Restore `last` (in this policy's format) into `state` if present;
+        a DCP `last/` that a crash between a save's two renames left moved
+        aside is taken in its place (`resolve_dcp_dir`). One that does not
+        fit (e.g. a warmup state found by a GAN run sharing the directory),
+        or a DCP directory whose files cannot be read (torn by a crash
+        during an in-place save), is skipped with a warning and changes
+        nothing. Returns whether a state was restored."""
         path = self._path("last")
+        if self.use_orbax:
+            path = resolve_dcp_dir(path) or path
         found = os.path.exists(path)
         if self.collective:  # a DCP load is collective: every rank or none
             import torch.distributed as dist

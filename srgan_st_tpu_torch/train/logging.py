@@ -4,8 +4,9 @@ A TensorBoard writer per experiment at `tensorboard/{EXP.NAME}` with the
 reference's scalar names (Train/G_Loss, Train/G_{criterion}, Train/D_Loss,
 Train/D(GT)_Probability, Train/D(SR)_Probability, Test/PSNR, Test/SSIM)
 and the config text under Config/Params. Without tensorboardX the scalars
-go to `scalars.jsonl` in the same directory. With several processes only
-the coordinator writes.
+go to `scalars.jsonl` in the same directory, a line at a time (the JAX
+package's file is block-buffered). With several processes only the
+coordinator writes.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ class ExperimentWriter:
         try:
             from tensorboardX import SummaryWriter
         except ImportError:
-            self._jsonl = open(os.path.join(self.log_dir, "scalars.jsonl"), "a")
+            # line-buffered: a run killed mid-epoch keeps every row it logged
+            self._jsonl = open(os.path.join(self.log_dir, "scalars.jsonl"), "a", buffering=1)
         else:
             self._tb = SummaryWriter(self.log_dir)
             self._tb.add_text("Config/Params", config.get_all_params())

@@ -281,3 +281,261 @@ def test_dcp_save_changes_nothing_and_restores_as_saved(tmp_path):
     assert all(np.array_equal(got[k], saved[k]) for k in saved)
     assert not state.g_opt.opt.state and not state.d_opt.opt.state
     assert (state.step, state.g_opt.count, state.d_opt.count) == (0, 0, 0)
+
+
+# ---------------------------------------------------------------------------
+# crash safety of the DCP saves: a save that fails partway, a crash between
+# the swap's two renames, leftovers of crashed saves, a `last/` torn by an
+# in-place save (the layout before the swap)
+
+def _fail_writes_after(monkeypatch, k: int) -> None:
+    """DCP's file writer raises at its (k+1)-th item from now on, as a crash
+    partway through a save would stop it (DCP truncates a data file when it
+    opens it and writes `.metadata` last)."""
+    import torch.distributed.checkpoint.filesystem as fs
+
+    real, calls = fs._write_item, [0]
+
+    def write_item(*args, **kwargs):
+        calls[0] += 1
+        if calls[0] > k:
+            raise OSError("disk lost mid-save")
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(fs, "_write_item", write_item)
+
+
+def _items_per_save(tmp_path, state) -> int:
+    """The items DCP writes for one save of `state`."""
+    import torch.distributed.checkpoint.filesystem as fs
+
+    from srgan_st_tpu_torch.train.checkpoint import save_train_state_dcp
+
+    real, calls = fs._write_item, [0]
+
+    def count(*args, **kwargs):
+        calls[0] += 1
+        return real(*args, **kwargs)
+
+    fs._write_item = count
+    try:
+        save_train_state_dcp(str(tmp_path / "count"), state)
+    finally:
+        fs._write_item = real
+    return calls[0]
+
+
+def _equal(got: dict, want: dict) -> list:
+    assert got.keys() == want.keys()
+    return [k for k in want if not np.array_equal(got[k], want[k])]
+
+
+@pytest.mark.parametrize("name", ["last", "best"])
+def test_dcp_save_failing_partway_keeps_the_previous_state(tmp_path, monkeypatch, name):
+    """A save of `last` (or of `best`) that fails after 3 items raises DCP's
+    CheckpointException and leaves the previous directory whole: it
+    restores bit for bit (`last` through restore_latest, `best` by a direct
+    load), and `_policy.json` keeps the previous best."""
+    from torch.distributed.checkpoint.api import CheckpointException
+
+    from srgan_st_tpu_torch.train.checkpoint import (
+        CheckpointPolicy, load_train_state_dcp, resolve_dcp_dir, train_state_arrays,
+    )
+
+    _, old = _stepped_gan_state(0)
+    old.step = 10
+    want = train_state_arrays(old)
+    policy = CheckpointPolicy(str(tmp_path / "res"), use_orbax=True)
+    assert policy.save_epoch(old, 0, 20.0, 0.5)
+    _, new = _stepped_gan_state(1)
+    new.step = 20
+    n = _items_per_save(tmp_path, new)
+    _fail_writes_after(monkeypatch, 3 if name == "last" else n + 3)
+    with pytest.raises(CheckpointException):
+        policy.save_epoch(new, 1, 21.0, 0.6)
+    monkeypatch.undo()
+    listing = os.listdir(tmp_path / "res")
+    assert f"{name}.tmp-20" in listing and ".metadata" not in os.listdir(
+        tmp_path / "res" / f"{name}.tmp-20")
+    _, fresh = _gan_state(5)
+    if name == "last":
+        assert CheckpointPolicy(str(tmp_path / "res"), use_orbax=True).restore_latest(fresh)
+    else:
+        load_train_state_dcp(resolve_dcp_dir(str(tmp_path / "res" / "best")), fresh)
+        assert CheckpointPolicy(str(tmp_path / "res"), use_orbax=True).best_psnr == 20.0
+    assert not _equal(train_state_arrays(fresh), want)
+    assert fresh.step == 10
+
+
+def test_dcp_crash_between_the_renames_is_recovered(tmp_path, monkeypatch):
+    """A crash after the old `last/` was moved aside and before the new one
+    was renamed into place leaves no `last/`: restore_latest takes the
+    moved-aside directory, whole, bit for bit. The next save puts a `last/`
+    in place and removes both leftovers."""
+    from srgan_st_tpu_torch.train.checkpoint import CheckpointPolicy, train_state_arrays
+
+    res = tmp_path / "res"
+    _, old = _stepped_gan_state(0)
+    old.step = 10
+    want = train_state_arrays(old)
+    policy = CheckpointPolicy(str(res), use_orbax=True)
+    policy.save_epoch(old, 0, 20.0, 0.5)
+    real = os.rename
+
+    def rename(src, dst, *args, **kwargs):
+        if os.fspath(dst) == str(res / "last"):
+            raise OSError("killed between the renames")
+        return real(src, dst, *args, **kwargs)
+
+    monkeypatch.setattr(os, "rename", rename)
+    _, new = _stepped_gan_state(1)
+    new.step = 20
+    with pytest.raises(OSError, match="between the renames"):
+        policy.save_epoch(new, 1, 19.0, 0.4)
+    monkeypatch.undo()
+    assert not (res / "last").exists() and (res / "last.old" / ".metadata").exists()
+    _, fresh = _gan_state(5)
+    assert CheckpointPolicy(str(res), use_orbax=True).restore_latest(fresh)
+    assert not _equal(train_state_arrays(fresh), want)
+
+    _, third = _stepped_gan_state(2)
+    third.step = 30
+    policy.save_epoch(third, 2, 19.0, 0.4)
+    assert sorted(os.listdir(res)) == ["_policy.json", "best", "last"]
+    _, fresh = _gan_state(6)
+    assert policy.restore_latest(fresh) and fresh.step == 30
+    assert not _equal(train_state_arrays(fresh), train_state_arrays(third))
+
+
+def test_dcp_leftover_temporary_directories_are_ignored_then_removed(tmp_path, capsys):
+    """Temporary directories of crashed saves are never restored, even a
+    whole one, and the next save of each name removes its own."""
+    import shutil
+
+    from srgan_st_tpu_torch.train.checkpoint import CheckpointPolicy, train_state_arrays
+
+    res = tmp_path / "res"
+    _, old = _stepped_gan_state(0)
+    old.step = 10
+    policy = CheckpointPolicy(str(res), use_orbax=True)
+    policy.save_epoch(old, 0, 20.0, 0.5)
+    shutil.copytree(res / "last", res / "last.tmp-99")  # whole, but never taken
+    os.makedirs(res / "best.tmp-7")
+    (res / "best.tmp-7" / "__0_0.distcp").write_bytes(b"\0" * 100)
+    _, fresh = _gan_state(5)
+    assert policy.restore_latest(fresh) and fresh.step == 10
+    assert not _equal(train_state_arrays(fresh), train_state_arrays(old))
+
+    alone = tmp_path / "alone"
+    os.makedirs(alone)
+    shutil.copytree(res / "last", alone / "last.tmp-10")
+    _, fresh = _gan_state(6)
+    assert CheckpointPolicy(str(alone), use_orbax=True).restore_latest(fresh) is False
+    assert fresh.step == 0 and not fresh.g_opt.opt.state
+
+    _, new = _stepped_gan_state(1)
+    new.step = 20
+    assert policy.save_epoch(new, 1, 21.0, 0.6)
+    assert sorted(os.listdir(res)) == ["_policy.json", "best", "last"]
+    assert "skipping" not in capsys.readouterr().out
+
+
+def _in_place_dcp_save(path: str, state) -> None:
+    """A DCP save over `path` in place: the layout of the saves before the
+    write-then-swap (FileSystemWriter with overwrite=True)."""
+    import warnings
+
+    import torch.distributed.checkpoint as dcp
+
+    from srgan_st_tpu_torch.train.checkpoint import _dcp_tree
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        dcp.save(_dcp_tree(state)[0], checkpoint_id=path, no_dist=True,
+                 storage_writer=dcp.FileSystemWriter(path, overwrite=True))
+
+
+@pytest.mark.parametrize("target", ["stepped", "fresh"])
+def test_dcp_torn_in_place_last_is_skipped_and_changes_nothing(tmp_path, monkeypatch, capsys,
+                                                               target):
+    """A `last/` torn by an in-place save that failed partway (the old
+    `.metadata` over a truncated data file) passes the key and shape check,
+    then DCP's load raises CheckpointException, a BaseException: restore_latest
+    skips it with the warning and returns False, and no tensor of the state
+    changes, nor its storage, nor its optimizers' state."""
+    from torch.distributed.checkpoint.api import CheckpointException
+
+    from srgan_st_tpu_torch.train.checkpoint import CheckpointPolicy, train_state_arrays
+
+    last = str(tmp_path / "last")
+    _, old = _stepped_gan_state(0)
+    _in_place_dcp_save(last, old)
+    data = os.path.join(last, "__0_0.distcp")
+    whole = os.path.getsize(data)
+    _, new = _stepped_gan_state(1)
+    _fail_writes_after(monkeypatch, 3)
+    with pytest.raises(CheckpointException):
+        _in_place_dcp_save(last, new)
+    monkeypatch.undo()
+    assert os.path.getsize(data) < whole and os.path.exists(os.path.join(last, ".metadata"))
+
+    _, state = _stepped_gan_state(3) if target == "stepped" else _gan_state(3)
+    before, ptrs = train_state_arrays(state), _ptrs(state)
+    opt_keys = [len(o.opt.state) for o in (state.g_opt, state.d_opt)]
+    assert CheckpointPolicy(str(tmp_path), use_orbax=True).restore_latest(state) is False
+    assert "skipping incompatible 'last' checkpoint" in capsys.readouterr().out
+    assert not _equal(train_state_arrays(state), before)
+    assert _ptrs(state) == ptrs
+    assert [len(o.opt.state) for o in (state.g_opt, state.d_opt)] == opt_keys
+
+
+def test_a_crashed_save_resumes_one_epoch_back_where_jax_starts_fresh(tmp_path, monkeypatch):
+    """Pinned divergence (ROADMAP.md Queue C): a crash while epoch 1's `last`
+    is saved. The JAX package's orbax save (force=True) has removed `last`
+    before it writes, so its run starts fresh at epoch 0; the port's keeps
+    the old `last/` until the new one is whole, so it resumes at epoch 1,
+    one epoch back."""
+    pytest.importorskip("orbax.checkpoint")
+    from torch.distributed.checkpoint.api import CheckpointException
+
+    from srgan_st_tpu.core.config import Config as JaxConfig
+    from srgan_st_tpu.models.generator import Generator as JaxG
+    from srgan_st_tpu.train import checkpoint as jck
+    from srgan_st_tpu.train import steps as S
+    from srgan_st_tpu_torch.train.checkpoint import CheckpointPolicy
+    from srgan_st_tpu_torch.train.warmup import resume
+
+    steps_per_epoch = 5
+    jcfg = JaxConfig()
+    jcfg.MODEL.G_N_RCB, jcfg.MODEL.G_N_CHANNEL = 2, 16
+    jstate = S.create_generator_state(jcfg, JaxG.from_config(jcfg), S.make_g_optimizer(jcfg, 4))
+    jpol = jck.CheckpointPolicy(str(tmp_path / "jax"), interval=100, use_orbax=True)
+    jpol.save_epoch(jstate, 0, 20.0, 0.5)
+
+    async def crash(*args, **kwargs):
+        raise OSError("killed mid-save")
+
+    monkeypatch.setattr(jpol._ckpt._handler, "async_save", crash)
+    try:
+        with pytest.raises(OSError, match="killed mid-save"):
+            jpol.save_epoch(jstate, 1, 19.0, 0.4)
+    finally:
+        monkeypatch.undo()
+        jpol._ckpt.close()
+    assert not (tmp_path / "jax" / "last").exists()
+    assert jck.CheckpointPolicy(str(tmp_path / "jax"), interval=100,
+                                use_orbax=True).restore_latest(jstate) is None
+
+    cfg, state = _stepped_gan_state(0)
+    policy = CheckpointPolicy(str(tmp_path / "port"), use_orbax=True)
+    state.step = steps_per_epoch
+    policy.save_epoch(state, 0, 20.0, 0.5)
+    state.step = 2 * steps_per_epoch
+    _fail_writes_after(monkeypatch, 3)
+    with pytest.raises(CheckpointException):
+        policy.save_epoch(state, 1, 19.0, 0.4)
+    monkeypatch.undo()
+    cfg.EXP.AUTO_RESUME = True
+    _, fresh = _gan_state(5)
+    assert resume(cfg, CheckpointPolicy(str(tmp_path / "port"), use_orbax=True), fresh,
+                  steps_per_epoch) == 1

@@ -135,6 +135,32 @@ _CHILD = textwrap.dedent('''
     out.update({"ckpt/saved/" + k: v for k, v in saved.items()})
     out.update({"ckpt/got/" + k: v for k, v in got.items()})
 
+    # a collective save of a changed state that fails partway on rank 1 (its
+    # DCP writer raises at its third item): both ranks see the exception, the
+    # old `last/` stays in place, and both restore it bit for bit
+    import torch.distributed.checkpoint.filesystem as fs
+
+    real_write, calls = fs._write_item, [0]
+
+    def failing_write(*args, **kwargs):
+        calls[0] += 1
+        if rank == 1 and calls[0] > 2:
+            raise OSError("rank 1 lost its disk mid-save")
+        return real_write(*args, **kwargs)
+
+    init_weights(g, torch.Generator().manual_seed(13))  # `fresh` now differs from `last`
+    fresh.step = 4
+    fs._write_item = failing_write
+    try:
+        policy.save_epoch(fresh, 1, 10.0 if rank == 0 else float("nan"), float("nan"))
+        out["torn/raised"] = np.array("")
+    except BaseException as e:  # DCP's CheckpointException is no Exception
+        out["torn/raised"] = np.array(type(e).__name__)
+    fs._write_item = real_write
+    out["torn/listing"] = np.array(sorted(os.listdir(os.path.join(work, "ckpt"))))
+    out["torn/restored"] = np.array(policy.restore_latest(fresh))
+    out.update({"torn/got/" + k: v for k, v in train_state_arrays(fresh).items()})
+
     # LOCAL_BN with the packed trunk (bf16, 64 channels): K4/K5's wrapper
     # runs per rank (its plain version on the CPU), the EMA takes the
     # global moments
@@ -483,6 +509,24 @@ def test_collective_dcp_checkpoint_over_two_ranks(two_ranks):
     for k in ranks[0]:
         if k.startswith("ckpt/got/"):
             np.testing.assert_array_equal(ranks[0][k], ranks[1][k], err_msg=k)
+
+
+def test_collective_dcp_save_failing_on_rank_1_keeps_last(two_ranks):
+    """A collective save of `last` that fails partway on rank 1 (its DCP
+    writer raises at its third item) raises DCP's CheckpointException on
+    both ranks and leaves the previous `last/` in place, beside the torn
+    temporary directory; both ranks restore the previous state bit for
+    bit."""
+    _, _, ranks = two_ranks
+    for r in ranks:
+        assert str(r["torn/raised"]) == "CheckpointException"
+        assert list(r["torn/listing"]) == ["_policy.json", "best", "last", "last.tmp-4"]
+        assert bool(r["torn/restored"])
+        saved = {k[len("ckpt/saved/"):]: v for k, v in r.items() if k.startswith("ckpt/saved/")}
+        got = {k[len("torn/got/"):]: v for k, v in r.items() if k.startswith("torn/got/")}
+        assert got.keys() == saved.keys() and int(got["step"]) == 3
+        for k in saved:
+            np.testing.assert_array_equal(got[k], saved[k], err_msg=k)
 
 
 def test_tiled_eval_over_two_ranks(two_ranks):

@@ -477,12 +477,14 @@ def _port_sources():
 
 # the data and multi-GPU modules, which keep their own copies of the JAX
 # package's pure-Python ones (data/volumes.py, data/prepare_dataset.py),
-# and the figure tools (viz/training_curves.py is one such copy)
+# the figure tools (viz/training_curves.py is one such copy), and the soak
+# and the loss study (tools/)
 NEW_MODULES = ("srgan_st_tpu_torch.parallel.distributed", "srgan_st_tpu_torch.parallel.mesh",
                "srgan_st_tpu_torch.data.prepare_dataset", "srgan_st_tpu_torch.data.volumes",
                "srgan_st_tpu_torch.viz.save_image_patch", "srgan_st_tpu_torch.viz.feature_maps",
                "srgan_st_tpu_torch.viz.buddy_illustration",
-               "srgan_st_tpu_torch.viz.training_curves")
+               "srgan_st_tpu_torch.viz.training_curves", "srgan_st_tpu_torch.tools.soak",
+               "srgan_st_tpu_torch.tools.loss_study")
 
 
 def test_port_imports_no_jax():
