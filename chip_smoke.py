@@ -212,6 +212,21 @@ PatchwiseST + ContentDiscriminator), bf16:
            job 0's device time (its forward and sr backward on the step's
            batch, over the packed GAN step's busy time).
 
+Then the bench (bench_torch.py, srgan_st_tpu_torch/tools/bench.py), with
+torch's default TF32 switches, as a user runs it:
+
+  bench    its seven rows through their own functions at a cut (one
+           warm-up and one measured chunk of 100 batches a training row,
+           bench.py: 2 and 5; one timed epoch of the seeded 12,800-patch
+           pack an e2e row, bench.py: 2; infer-4k in full, 12 + 20 frames):
+           each record (patches/s or HR MP/s, the card and its power limit,
+           peak memory) with its launch counts, reset just before the row
+           and read just after: kernel A once a G step and once a frame, K4
+           = K5 = 1 per G step (the packed auto trunk), K7 = 1 per G step in
+           flagship-st and gram-vgg and none in flagship-st-xla (the plain
+           selection); then tools/profile_step.py's profile of one replayed
+           headline chunk of 8 (A, K4, K5 8 times each).
+
 Then the rest of serving, last (after a torch.export in the process,
 torch.profiler misses a kernel of K4 or K5, which the trunk profiles gate):
 
@@ -248,6 +263,11 @@ import tempfile
 import time
 
 import numpy as np
+
+try:  # the port's timers and one-call profile; main() reports a missing port
+    from srgan_st_tpu_torch.utils.profiling import cuda_ms, device_ms, profile_once
+except ImportError:
+    pass
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM data sheet: HBM3 bandwidth and dense bf16 tensor-core rate
@@ -293,25 +313,6 @@ def emit(phase: str, **fields) -> None:
     """One JSON line of a phase, with the seconds since the script started."""
     print(json.dumps({"phase": phase, "elapsed_s": round(time.perf_counter() - _T0, 1),
                       **fields}), flush=True)
-
-
-def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Median milliseconds of fn() over `iters` runs, each between two
-    CUDA events, after `warmup` runs."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
 
 
 def host_ms(fn, iters: int = 10) -> float:
@@ -1005,74 +1006,6 @@ def phase_artifact(rng, dev) -> dict:
     if not all(all(r["bit_exact"].values()) for r in rec.values()):
         raise AssertionError(f"an artifact differs from the live plain path: {rec}")
     return rec
-
-
-def profile_once(fn, top: int = 10) -> dict:
-    """Device activity over one fn() (torch.profiler, after one warm-up
-    call). The device is busy over the union of the operations' spans:
-    under programmatic dependent launch a kernel starts before the one it
-    waits for ends, so spans overlap and their sum overstates the work.
-    By name, the `top` largest as [name, span ms, start-to-start ms, count]:
-    start-to-start runs from an operation's start to the next one's (to its
-    own end for the last), so those times share out the window without
-    overlap. `kernels` counts the kernels, `copies` the copies and memsets;
-    the idle share is of the window from the first start to the last end."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    # user-annotation ranges on the device timeline (the optimizer's
-    # "Optimizer.step#...") span kernels counted on their own
-    ops = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                 if e.device_type == DeviceType.CUDA
-                 and not getattr(e, "is_user_annotation", False))
-    span, s2s, count = {}, {}, {}
-    busy, run_end = 0.0, None
-    for i, (start, end, name) in enumerate(ops):
-        nxt = ops[i + 1][0] if i + 1 < len(ops) else end
-        span[name] = span.get(name, 0.0) + (end - start) / 1e3
-        s2s[name] = s2s.get(name, 0.0) + (nxt - start) / 1e3
-        count[name] = count.get(name, 0) + 1
-        lo = start if run_end is None else max(start, run_end)
-        busy += max(end - lo, 0) / 1e3
-        run_end = end if run_end is None else max(run_end, end)
-    window = (run_end - ops[0][0]) / 1e3 if ops else 0.0
-    copies = sum(n for name, n in count.items() if name.startswith(("Memcpy", "Memset")))
-    ranked = sorted(span, key=lambda name: -span[name])[:top]
-    return {"device_busy_ms": busy, "device_window_ms": window,
-            "idle_share": 1 - busy / window if window else None,
-            "kernels": len(ops) - copies, "copies": copies,
-            "top_ms": [[name[:100], span[name], s2s[name], count[name]] for name in ranked]}
-
-
-def device_ms(fn, calls: int = 20, reps: int = 3) -> float:
-    """The device's milliseconds per fn(): median over `reps` of CUDA
-    events around `calls` calls queued behind ~10 ms of device sleep, so
-    that the host has enqueued every call before the device reaches the
-    first and the device runs them back to back. A call that is shorter on
-    the device than on the host (one small kernel behind a Python wrapper)
-    is timed by its device work, where `cuda_ms` times the host."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(20_000_000)
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return float(np.median(times))
 
 
 def phase_profile(fns, rng, dev) -> dict:
@@ -3153,6 +3086,104 @@ def phase_graph(dev, batch, vgg: str) -> dict:
     return {"replayed": replayed, "time": timed, "profiles": profiles, **rec}
 
 
+# the bench's rows at a cut: one warm-up and one measured chunk of 100
+# batches a training row (bench.py: 2 and 5), one timed epoch of the
+# 12,800-patch pack an e2e row (bench.py: 2); infer-4k in full (12 + 20
+# frames)
+BENCH_CUT = {"warmup": 1, "iters": 1, "epochs": 1}
+BENCH_K7_ROWS = ("flagship-st", "gram-vgg")
+
+
+def _bench_expected(name: str, k: int) -> dict:
+    """A row's launches of each hand-written kernel: kernel A once a G step
+    (the reconstruction conv's forward) and once a frame, K4 and K5 once a
+    G step (the packed auto trunk of bf16 training), K7 once a G step where
+    the row's loss selects buddies on the kernel; nothing else. An e2e
+    epoch is the 12,800-patch pack in batches of 16."""
+    from srgan_st_tpu_torch.tools import bench
+
+    if name == "infer-4k":
+        steps, counts = bench.INFER_WARMUP + bench.INFER_ITERS, {"coarse_conv_s2d"}
+    else:
+        chunks = (BENCH_CUT["warmup"] + BENCH_CUT["iters"] if name in bench.TRAIN_ROWS
+                  else BENCH_CUT["warmup"] + BENCH_CUT["epochs"] * 12_800 // 16 // k)
+        steps = chunks * k
+        counts = {"coarse_conv_s2d", "packed_trunk_fwd", "packed_trunk_bwd"}
+        if name in BENCH_K7_ROWS:
+            counts.add("buddy_select")
+    return {n: steps if n in counts else 0 for n in
+            ("coarse_conv_s2d", "serving_tail", "packed_trunk_fwd", "packed_trunk_bwd",
+             "fused_trunk", "buddy_select")}
+
+
+def phase_bench(dev, work: str) -> dict:
+    """bench_torch.py's seven rows (srgan_st_tpu_torch/tools/bench.py) through
+    their own functions at BENCH_CUT, the bf16 defaults (packed auto trunk,
+    graph steps), the e2e pack made by `ensure_pack` in `work`; the launch
+    counts reset just before each row and read just after, held to
+    `_bench_expected`; each record's keys, card and power limit; then
+    tools/profile_step.py's profile of one replayed headline chunk (k = 8).
+    Runs with torch's default TF32 switches (cuDNN on, matmul off), as
+    bench_torch.py does, and restores the smoke's."""
+    import gc
+
+    import torch
+
+    from srgan_st_tpu_torch import kernels
+    from srgan_st_tpu_torch.tools import bench
+    from srgan_st_tpu_torch.tools.profile_step import run_and_trace
+
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    try:
+        pack = os.path.join(work, "patches.pack.npy")
+        t0 = time.perf_counter()
+        bench.ensure_pack(pack)
+        rec = {"cut": BENCH_CUT, "pack_seconds": time.perf_counter() - t0, "rows": {},
+               "launches": {}}
+        card = torch.cuda.get_device_name(0)
+        bad = []
+        for name in bench.SUITE:
+            gc.collect()
+            torch.cuda.empty_cache()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            if name in bench.TRAIN_ROWS:
+                row = bench.measure(name, device=dev, warmup=BENCH_CUT["warmup"],
+                                    iters=BENCH_CUT["iters"])
+            elif name == "infer-4k":
+                row = bench.measure_infer(device=dev)
+            else:
+                row = bench.measure_e2e(stream=name == "e2e-stream", device=dev,
+                                        warmup=BENCH_CUT["warmup"],
+                                        epochs=BENCH_CUT["epochs"], pack=pack)
+            counts = kernels.launch_counts()
+            row["seconds"] = time.perf_counter() - t0
+            rec["rows"][name], rec["launches"][name] = row, counts
+            want = _bench_expected(name, 100)
+            if counts != want:
+                bad.append(f"{name}: launches {counts} != {want}")
+            if not (row["value"] > 0 and row["config"] == name
+                    and row["device"]["name"] == card and row["device"]["power_limit_w"]):
+                bad.append(f"{name}: record {row}")
+            emit("bench", **row, launches=counts)
+        gc.collect()
+        torch.cuda.empty_cache()
+        prof = run_and_trace("headline", k=8, top=10, device=dev)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    rec["profile_step"] = {k: prof[k] for k in ("k", "profile", "ms_per_step", "launches")}
+    want = {n: (8 if n in ("coarse_conv_s2d", "packed_trunk_fwd", "packed_trunk_bwd") else 0)
+            for n in prof["launches"]}
+    if prof["launches"] != want or not prof["profile"]["kernels"]:
+        bad.append(f"profile_step: launches {prof['launches']} != {want}, "
+                   f"kernels {prof['profile']['kernels']}")
+    emit("bench", profile_step="headline, one replayed chunk of 8", **rec["profile_step"])
+    if bad:
+        raise AssertionError(f"bench phase: {bad}")
+    return rec
+
+
 def _new_path_launches(name: str, data_rec: dict, dist_rec: dict, soak_rec: dict) -> dict:
     """A kernel's launches on the paths of the data, dist and soak phases: one
     train() run from the resident pack, each rank of the LOCAL_BN run, and
@@ -3162,6 +3193,11 @@ def _new_path_launches(name: str, data_rec: dict, dist_rec: dict, soak_rec: dict
             "local_bn_launches_per_rank": [c[name] for c in
                                            dist_rec["local_bn"]["launches_per_rank"]],
             "soak_launches_per_child": [c[name] for c in soak_rec["launches_per_child"]]}
+
+
+def _bench_launches(name: str, bench_rec: dict) -> dict:
+    """A kernel's launches in each bench row of the bench phase (its cut)."""
+    return {row: counts[name] for row, counts in bench_rec["launches"].items()}
 
 
 def main() -> int:
@@ -3186,9 +3222,11 @@ def main() -> int:
         return run_graph_only(torch.device("cuda"))
     if sys.argv[1:] == ["--only", "soak"]:
         return run_soak_only(torch.device("cuda"))
+    if sys.argv[1:] == ["--only", "bench"]:
+        return run_bench_only(torch.device("cuda"))
     if sys.argv[1:]:
-        print(f"chip_smoke: unknown arguments {sys.argv[1:]} (none, or --only graph|soak)",
-              file=sys.stderr)
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]} (none, or --only "
+              "graph|soak|bench)", file=sys.stderr)
         return 2
     return run(torch.device("cuda"))
 
@@ -3222,6 +3260,19 @@ def run_soak_only(dev) -> int:
     phase_build()
     phase_soak()
     phase_loss_study(dev)
+    return 0
+
+
+def run_bench_only(dev) -> int:
+    """`--only bench`: the build and the bench phase alone (no result
+    line), for working on the bench."""
+    import torch
+
+    emit("env", torch=torch.__version__, cuda=torch.version.cuda,
+         device=torch.cuda.get_device_name(0), nvidia_smi=nvidia_smi())
+    phase_build()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_bench(dev, tmp)
     return 0
 
 
@@ -3292,6 +3343,9 @@ def run(dev) -> int:
         torch.cuda.empty_cache()
         graph_rec = phase_graph(dev, batch, vgg)
     torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        bench_rec = phase_bench(dev, tmp)
+    torch.cuda.empty_cache()
     # serving's baseline and artifacts last: after a torch.export in the
     # process, torch.profiler misses one of K4's or K5's kernels in a call
     # (measured on the H100), which the trunk profiles above gate on
@@ -3318,6 +3372,7 @@ def run(dev) -> int:
             **_new_path_launches(name, data_rec, dist_rec, soak_rec),
             **({"graph_launches": graph_rec["replayed"][name]} if name != "serving_tail" else {}),
             "viz_launches": viz_rec["launches"][name],
+            "bench_launches": _bench_launches(name, bench_rec),
         })
     for rec, name, tpu, replaces in (
         (rec_k4, "packed_trunk_fwd", "K4",
@@ -3337,6 +3392,7 @@ def run(dev) -> int:
             "shape": rec["shape"], "n": rec["n"],
             **_new_path_launches(name, data_rec, dist_rec, soak_rec),
             "graph_launches": graph_rec["replayed"][name],
+            "bench_launches": _bench_launches(name, bench_rec),
         })
     kernels.append({
         "name": "fused_trunk", "tpu_kernel": "K6", "route": "cuda",
@@ -3355,6 +3411,7 @@ def run(dev) -> int:
         "bf16_equals_k4": all(all(r["bf16_equals_k4"].values()) for r in rec_k6["errors"]),
         "shape": rec_k6["shape"], "n": rec_k6["n"],
         "graph_launches": graph_rec["replayed"]["fused_trunk"],
+        "bench_launches": _bench_launches("fused_trunk", bench_rec),
     })
     kernels.append({
         "name": "buddy_select", "tpu_kernel": "K7", "route": "cuda",
@@ -3370,6 +3427,7 @@ def run(dev) -> int:
         "shape": rec_k7["shape"], "graph_launches": graph_rec["replayed"]["buddy_select"],
         "soak_launches_per_child": [c["buddy_select"] for c in soak_rec["launches_per_child"]],
         "loss_study_launches": loss_rec["launches"]["buddy_select"],
+        "bench_launches": _bench_launches("buddy_select", bench_rec),
     })
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

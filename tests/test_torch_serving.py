@@ -473,26 +473,28 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "bench_torch.py")
 
 
 # the data and multi-GPU modules, which keep their own copies of the JAX
 # package's pure-Python ones (data/volumes.py, data/prepare_dataset.py),
-# the figure tools (viz/training_curves.py is one such copy), and the soak
-# and the loss study (tools/)
+# the figure tools (viz/training_curves.py is one such copy), and the soak,
+# the loss study, the bench and its per-op profile (tools/)
 NEW_MODULES = ("srgan_st_tpu_torch.parallel.distributed", "srgan_st_tpu_torch.parallel.mesh",
                "srgan_st_tpu_torch.data.prepare_dataset", "srgan_st_tpu_torch.data.volumes",
                "srgan_st_tpu_torch.viz.save_image_patch", "srgan_st_tpu_torch.viz.feature_maps",
                "srgan_st_tpu_torch.viz.buddy_illustration",
                "srgan_st_tpu_torch.viz.training_curves", "srgan_st_tpu_torch.tools.soak",
-               "srgan_st_tpu_torch.tools.loss_study")
+               "srgan_st_tpu_torch.tools.loss_study", "srgan_st_tpu_torch.tools.bench",
+               "srgan_st_tpu_torch.tools.profile_step")
 
 
 def test_port_imports_no_jax():
-    """No module of the port (viz/ included), and not chip_smoke.py,
-    imports JAX, flax or the JAX package: every import statement, lazy ones
-    included, and every module actually imported in a fresh interpreter,
-    where importing them all imports no PIL, matplotlib or TensorBoard
-    either (the card machine has none)."""
+    """No module of the port (viz/ and tools/ included), and neither
+    chip_smoke.py nor bench_torch.py, imports JAX, flax or the JAX package:
+    every import statement, lazy ones included, and every module actually
+    imported in a fresh interpreter, where importing them all imports no
+    PIL, matplotlib or TensorBoard either (the card machine has none)."""
     for path in _port_sources():
         tree = ast.parse(open(path).read(), path)
         for node in ast.walk(tree):
@@ -510,6 +512,7 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(p.__path__, 'srgan_st_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "import bench_torch\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
         "assert not [m for m in ('PIL', 'matplotlib', 'tensorboard') if m in sys.modules]\n"
