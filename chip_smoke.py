@@ -212,6 +212,27 @@ PatchwiseST + ContentDiscriminator), bf16:
            job 0's device time (its forward and sr backward on the step's
            batch, over the packed GAN step's busy time).
 
+Then the trajectory replay (srgan_st_tpu_torch/tools/trajectory.py), with
+torch's default TF32 switches, as the port's training runs:
+
+  trajectory  the four training goldens (the executed reference's 20
+           warmup + 20 GAN steps at a 2 RCB / 16 ch G, 4 ch D, batch 8)
+           replayed in f32 and in bf16, each through the step functions and
+           through the chunk steps replayed from CUDA graphs, held to the
+           JAX tool's gates on the first 5 steps (f32 2e-3 / 1.5e-2 / 5e-2,
+           bf16 4e-2 / 1.5e-1 / 3e-1: warmup G, GAN G, GAN D loss); then the
+           full-width window of the same recipes (16 RCB / 64 ch, batch 16,
+           torch-seeded weights), each against the port's f32 plain
+           reference on the card (every kernel on its plain version, TF32
+           off, eager steps): the shipping bf16 recipe in chunk steps for
+           each, and flagship under TRUNK_MODE="fused", at the bf16 gates.
+           Every run's launch counts, reset at its start and read at its
+           end: kernel A once per warmup and G step, K7 once per G step of
+           flagship, gram-vgg and bb and none in st, K4 = K5 = once per
+           warmup and G step of the full-width shipping runs, K6 once per
+           warmup and G step of the fused run and nowhere else, nothing in
+           the references; one line with every max_rel beside its gate.
+
 Then the bench (bench_torch.py, srgan_st_tpu_torch/tools/bench.py), with
 torch's default TF32 switches, as a user runs it:
 
@@ -284,9 +305,10 @@ VIZ_LR = (256, 256)  # the comparison figure's LR frame (its GT is 1024x1024)
 SHAPE_A_TRAIN = (16, 48, 48, 256)
 SHAPE_A_4K = (1, 1080, 1920, 256)
 # an edge shape: a 13 x 70 quarter grid divides neither of the bf16 kernel's
-# 8 x 64 tile sides (nor the f32 kernel's 2 x 64)
+# 8 x 64 tile sides (nor the f32 kernel's 2 x 64); then the trajectory
+# goldens' training shape (batch 8, 4 x 16 channels: K = 2C = 128)
 SHAPES_A = (SHAPE_A_TRAIN, SHAPE_A_4K, (16, 288, 288, 256), (1, 768, 1084, 256),
-            (1, 2 * VIZ_LR[0], 2 * VIZ_LR[1], 256), (1, 26, 140, 256))
+            (1, 2 * VIZ_LR[0], 2 * VIZ_LR[1], 256), (1, 26, 140, 256), (8, 48, 48, 64))
 # Kernel B's inputs (the last upsample block's input): 4K, the odd frame,
 # whose 542 quarter-resolution columns end in a partial tile, the viz
 # phase's frame, and an edge shape whose 5 x 31 quarter grid divides neither
@@ -438,13 +460,15 @@ def phase_build() -> None:
         raise AssertionError(f"a bf16 wgmma kernel spills: {spilled}")
 
 
-def _coarse_w2(gen, dev):
-    """The coarse kernel of a random 9x9 64 -> 3 conv: conv3's own."""
+def _coarse_w2(gen, dev, c: int = 256):
+    """The coarse kernel of a random 9x9 c/4 -> 3 conv (conv3's own) for a
+    pre-shuffle activation of c channels."""
     import torch
 
     from srgan_st_tpu_torch.ops.subpixel_conv import _coarse_kernel
 
-    w3 = torch.randn(9, 9, 64, 3, generator=gen, device=dev) / (81 * 64) ** 0.5
+    cin = c // 4
+    w3 = torch.randn(9, 9, cin, 3, generator=gen, device=dev) / (81 * cin) ** 0.5
     return _coarse_kernel(w3, 2)
 
 
@@ -474,7 +498,7 @@ def phase_kernel_a(gen, dev) -> dict:
     gated, kept = [], {}
     for shape in SHAPES_A:
         x = torch.rand(shape, generator=gen, device=dev)
-        w2 = _coarse_w2(gen, dev)
+        w2 = _coarse_w2(gen, dev, shape[3])
         ref32, got32 = cc.coarse_conv_s2d_reference(x, w2), cc.coarse_conv_s2d(x, w2)
         same32 = torch.equal(got32, cc.coarse_conv_s2d(x, w2))
         xb, wb = x.bfloat16(), w2.bfloat16()
@@ -3086,6 +3110,75 @@ def phase_graph(dev, batch, vgg: str) -> dict:
     return {"replayed": replayed, "time": timed, "profiles": profiles, **rec}
 
 
+def phase_trajectory(dev) -> dict:
+    """srgan_st_tpu_torch/tools/trajectory.py on the card: the four goldens x
+    {f32, bf16} x {step, chunk} at the JAX tool's gates, then the
+    full-width window against the f32 plain reference (the bf16 gates and
+    the warmup-update cosine's least, UPDATE_COS_GATE); every record's
+    gates and its launches against those its mode implies (the tool's
+    `expected_launches`, gated in `ok`). Runs with torch's default TF32
+    switches (cuDNN on, matmul off), as train() does, and restores the
+    smoke's."""
+    import torch
+
+    from srgan_st_tpu_torch.tools import trajectory
+
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    try:
+        t0 = time.perf_counter()
+        goldens = os.path.join(HERE, "tests", "goldens")
+        records = trajectory.golden_window(trajectory.RECIPES, dev, goldens,
+                                           ("float32", "bfloat16"), ("step", "chunk"))
+        golden_s = time.perf_counter() - t0
+        records += trajectory.full_window(trajectory.RECIPES, dev, goldens)
+        full_s = time.perf_counter() - t0 - golden_s
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    bad, groups = [], {}
+    for rec in records:
+        if not rec["ok"]:
+            bad.append(f"{rec['config']}: {rec['detail']} gates {rec['gates']}, update_cos "
+                       f"{rec.get('update_cos')} >= {rec.get('update_cos_gate')}, launches "
+                       f"{rec['launches']} (want {rec['expected_launches']}) replayed "
+                       f"{rec['graph_launches']} (want {rec['expected_graph_launches']})")
+        group = ("golden" if rec["width"] == "golden" else "full_reference" if rec["plain"]
+                 else "full_fused" if rec["trunk"] == "fused" else "full_shipping")
+        for k, n in rec["launches"].items():
+            groups.setdefault(group, dict.fromkeys(rec["launches"], 0))[k] += n
+    # each kernel of the path launched in its group: A and K7 in the golden
+    # replays, A, K4, K5 and K7 in the shipping runs, K6 in the fused one
+    for group, names in (("golden", ("coarse_conv_s2d", "buddy_select")),
+                         ("full_shipping", ("coarse_conv_s2d", "packed_trunk_fwd",
+                                            "packed_trunk_bwd", "buddy_select")),
+                         ("full_fused", ("fused_trunk",))):
+        bad += [f"trajectory: {name} never launched in {group}"
+                for name in names if not groups[group][name]]
+    # per run: each max_rel beside its gate (None: reported, not gated), the
+    # warmup-update cosines beside their least, the kernels it launched and
+    # the replayed part of them
+    runs = {r["config"]: {
+        "max_rel": r["detail"] and {k: [v, (r["gates"] or {}).get(k)]
+                                    for k, v in r["detail"].items()},
+        **({"update_cos": [r["update_cos"], r["update_cos_gate"]]} if "update_cos" in r else {}),
+        "launches": {k: n for k, n in r["launches"].items() if n},
+        "replayed": {k: n for k, n in r["graph_launches"].items() if n},
+        "seconds": r["seconds"],
+        **({"split_plain_bf16": r["split_plain_bf16"]} if "split_plain_bf16" in r else {}),
+    } for r in records}
+    emit("trajectory", device=records[0]["device"], golden_seconds=golden_s,
+         full_seconds=full_s, runs=runs, launch_totals=groups)
+    if bad:
+        raise AssertionError(f"trajectory phase: {bad}")
+    return {"launches": groups}
+
+
+def _trajectory_launches(name: str, traj_rec: dict) -> dict:
+    """A kernel's launches in the trajectory phase: the golden replays, the
+    full-width references, shipping runs and fused run, each summed."""
+    return {group: counts[name] for group, counts in traj_rec["launches"].items()}
+
+
 # the bench's rows at a cut: one warm-up and one measured chunk of 100
 # batches a training row (bench.py: 2 and 5), one timed epoch of the
 # 12,800-patch pack an e2e row (bench.py: 2); infer-4k in full (12 + 20
@@ -3224,9 +3317,11 @@ def main() -> int:
         return run_soak_only(torch.device("cuda"))
     if sys.argv[1:] == ["--only", "bench"]:
         return run_bench_only(torch.device("cuda"))
+    if sys.argv[1:] == ["--only", "trajectory"]:
+        return run_trajectory_only(torch.device("cuda"))
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]} (none, or --only "
-              "graph|soak|bench)", file=sys.stderr)
+              "graph|soak|bench|trajectory)", file=sys.stderr)
         return 2
     return run(torch.device("cuda"))
 
@@ -3273,6 +3368,18 @@ def run_bench_only(dev) -> int:
     phase_build()
     with tempfile.TemporaryDirectory() as tmp:
         phase_bench(dev, tmp)
+    return 0
+
+
+def run_trajectory_only(dev) -> int:
+    """`--only trajectory`: the build and the trajectory phase alone (no
+    result line), for working on the training path's numerics."""
+    import torch
+
+    emit("env", torch=torch.__version__, cuda=torch.version.cuda,
+         device=torch.cuda.get_device_name(0), nvidia_smi=nvidia_smi())
+    phase_build()
+    phase_trajectory(dev)
     return 0
 
 
@@ -3343,6 +3450,8 @@ def run(dev) -> int:
         torch.cuda.empty_cache()
         graph_rec = phase_graph(dev, batch, vgg)
     torch.cuda.empty_cache()
+    traj_rec = phase_trajectory(dev)
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         bench_rec = phase_bench(dev, tmp)
     torch.cuda.empty_cache()
@@ -3373,6 +3482,7 @@ def run(dev) -> int:
             **({"graph_launches": graph_rec["replayed"][name]} if name != "serving_tail" else {}),
             "viz_launches": viz_rec["launches"][name],
             "bench_launches": _bench_launches(name, bench_rec),
+            "trajectory_launches": _trajectory_launches(name, traj_rec),
         })
     for rec, name, tpu, replaces in (
         (rec_k4, "packed_trunk_fwd", "K4",
@@ -3393,6 +3503,7 @@ def run(dev) -> int:
             **_new_path_launches(name, data_rec, dist_rec, soak_rec),
             "graph_launches": graph_rec["replayed"][name],
             "bench_launches": _bench_launches(name, bench_rec),
+            "trajectory_launches": _trajectory_launches(name, traj_rec),
         })
     kernels.append({
         "name": "fused_trunk", "tpu_kernel": "K6", "route": "cuda",
@@ -3412,6 +3523,7 @@ def run(dev) -> int:
         "shape": rec_k6["shape"], "n": rec_k6["n"],
         "graph_launches": graph_rec["replayed"]["fused_trunk"],
         "bench_launches": _bench_launches("fused_trunk", bench_rec),
+        "trajectory_launches": _trajectory_launches("fused_trunk", traj_rec),
     })
     kernels.append({
         "name": "buddy_select", "tpu_kernel": "K7", "route": "cuda",
@@ -3428,6 +3540,7 @@ def run(dev) -> int:
         "soak_launches_per_child": [c["buddy_select"] for c in soak_rec["launches_per_child"]],
         "loss_study_launches": loss_rec["launches"]["buddy_select"],
         "bench_launches": _bench_launches("buddy_select", bench_rec),
+        "trajectory_launches": _trajectory_launches("buddy_select", traj_rec),
     })
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -479,33 +479,50 @@ def _port_sources():
 # the data and multi-GPU modules, which keep their own copies of the JAX
 # package's pure-Python ones (data/volumes.py, data/prepare_dataset.py),
 # the figure tools (viz/training_curves.py is one such copy), and the soak,
-# the loss study, the bench and its per-op profile (tools/)
+# the loss study, the bench and its per-op profile, the trajectory replay
+# and its probe (tools/)
 NEW_MODULES = ("srgan_st_tpu_torch.parallel.distributed", "srgan_st_tpu_torch.parallel.mesh",
                "srgan_st_tpu_torch.data.prepare_dataset", "srgan_st_tpu_torch.data.volumes",
                "srgan_st_tpu_torch.viz.save_image_patch", "srgan_st_tpu_torch.viz.feature_maps",
                "srgan_st_tpu_torch.viz.buddy_illustration",
                "srgan_st_tpu_torch.viz.training_curves", "srgan_st_tpu_torch.tools.soak",
                "srgan_st_tpu_torch.tools.loss_study", "srgan_st_tpu_torch.tools.bench",
-               "srgan_st_tpu_torch.tools.profile_step")
+               "srgan_st_tpu_torch.tools.profile_step", "srgan_st_tpu_torch.tools.trajectory",
+               "srgan_st_tpu_torch.tools.trajectory_probe")
+# the JAX package's tools/ scripts (crosscheck_training_vs_reference,
+# onchip_trajectory_smoke, ...), which the port keeps its own copies of
+TOOLS = ("tools", *sorted(f[:-3] for f in os.listdir(os.path.join(REPO, "tools"))
+                          if f.endswith(".py")))
 
 
 def test_port_imports_no_jax():
     """No module of the port (viz/ and tools/ included), and neither
-    chip_smoke.py nor bench_torch.py, imports JAX, flax or the JAX package:
-    every import statement, lazy ones included, and every module actually
-    imported in a fresh interpreter, where importing them all imports no
-    PIL, matplotlib or TensorBoard either (the card machine has none)."""
-    for path in _port_sources():
+    chip_smoke.py nor bench_torch.py, imports JAX, flax, the JAX package or
+    a script of the repo's tools/ (the trajectory tool keeps its own feed
+    and VGG19 stub): every import statement, lazy ones included, and every
+    module actually imported in a fresh interpreter, where importing them
+    all imports no PIL, matplotlib or TensorBoard either (the card machine
+    has none)."""
+    assert {"crosscheck_training_vs_reference", "onchip_trajectory_smoke"} <= set(TOOLS)
+    sources = list(_port_sources())
+    assert os.path.join(PORT, "tools", "trajectory.py") in sources and len(sources) >= 70
+    checked = dict.fromkeys(sources, 0)  # import statements read, per file
+    for path in sources:
         tree = ast.parse(open(path).read(), path)
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
             elif isinstance(node, ast.ImportFrom):
-                names = [node.module or ""]
+                # a relative import (`from .tools import x`) is the port's own
+                names = [node.module or ""] if node.level == 0 else []
             else:
                 continue
             for name in names:
-                assert name.split(".")[0] not in FORBIDDEN, (path, name)
+                assert name.split(".")[0] not in FORBIDDEN + TOOLS, (path, name)
+                checked[path] += 1
+    assert checked[os.path.join(PORT, "tools", "trajectory.py")] >= 10
+    assert checked[os.path.join(PORT, "tools", "trajectory_probe.py")] >= 8
+    assert sum(checked.values()) >= 500, sum(checked.values())
     code = (
         "import importlib, pkgutil, sys\n"
         "import srgan_st_tpu_torch as p\n"
@@ -513,7 +530,7 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "import bench_torch\n"
-        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN + TOOLS!r}]\n"
         "assert not bad, bad\n"
         "assert not [m for m in ('PIL', 'matplotlib', 'tensorboard') if m in sys.modules]\n"
         "print(len([m for m in sys.modules if m.startswith('srgan_st_tpu_torch')]))\n"
