@@ -11,6 +11,7 @@ upscalers; TPU.SELF_ENSEMBLE wraps the generator in the x8 self-ensemble.
 
 from __future__ import annotations
 
+import itertools
 import os
 from statistics import NormalDist
 
@@ -22,6 +23,7 @@ from srgan_st_tpu_torch.ops.color import bgr2ycbcr
 from srgan_st_tpu_torch.ops.metrics import psnr as psnr_fn
 from srgan_st_tpu_torch.ops.metrics import ssim as ssim_fn
 from srgan_st_tpu_torch.ops.metrics import tensor2img
+from srgan_st_tpu_torch.utils.profiling import span
 
 
 def confidence_interval(data, confidence: float = 0.95) -> float:
@@ -113,7 +115,8 @@ def _write_png(path: str, bgr_img: np.ndarray) -> None:
 def make_generator_apply(config, variables, device=None):
     """Eval-mode generator `fn(lr_nhwc) -> sr_nhwc` (a float32 tensor on
     `device`) with running BN statistics, from a JAX-format variables tree.
-    Runs on CUDA unless `device` says otherwise. With
+    Runs on CUDA unless `device` says otherwise; a call is the span
+    `serve.frame`, its frame number as args. With
     config.TPU.TILED_EVAL, wraps the halo-tiled applier (numpy out), and
     with config.TPU.SELF_ENSEMBLE the x8 self-ensemble around it."""
     from srgan_st_tpu_torch.core.device import resolve_device
@@ -127,8 +130,10 @@ def make_generator_apply(config, variables, device=None):
     g_model.load_state_dict(generator_state_dict_from_variables(variables))
     g_model.to(dev).eval()
 
+    frames = itertools.count()
+
     def apply_fn(lr) -> torch.Tensor:
-        with torch.inference_mode():
+        with span("serve.frame", next(frames)), torch.inference_mode():
             return g_model(torch.as_tensor(lr, device=dev))
 
     apply_fn.model = g_model

@@ -33,6 +33,7 @@ import torch
 
 from srgan_st_tpu_torch.kernels import _build
 from srgan_st_tpu_torch.ops.pairwise import batch_pairwise_distance
+from srgan_st_tpu_torch.utils.profiling import span
 
 # launches of the CUDA kernels since import (or the last reset), and the
 # variant the last one ran
@@ -121,7 +122,7 @@ def _launch(p1, p2, bank, alpha, beta, dist_norm) -> torch.Tensor:
     variant, fn = _KERNELS[dt, dist_norm]
     lib = _build.load("buddy_select", _SIGNATURES)
     ptrs = (p1.data_ptr(), p2.data_ptr(), bank.data_ptr(), idx.data_ptr())
-    with torch.cuda.device(bank.device):
+    with torch.cuda.device(bank.device), span("kernel.buddy_select"):
         stream = torch.cuda.current_stream().cuda_stream
         if variant == "mma":
             err = getattr(lib, fn)(*ptrs, b, n, m, d, float(alpha), float(beta), stream)

@@ -18,6 +18,7 @@ import ctypes
 import torch
 
 from srgan_st_tpu_torch.kernels import _build
+from srgan_st_tpu_torch.utils.profiling import span
 
 # launches of the CUDA kernel since import (or the last reset)
 launches = 0
@@ -161,7 +162,7 @@ def _launch(x: torch.Tensor, w2: torch.Tensor, wt: torch.Tensor | None = None
     out = torch.empty((b, h // 2, w // 2, 4 * N2), device=x.device,
                       dtype=torch.float32)
     lib = _build.load("coarse_conv", _SIGNATURES)
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(x.device), span("kernel.coarse_conv_s2d"):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, _FN[x.dtype])(
             x.data_ptr(), wt.data_ptr(), out.data_ptr(), b, h, w, c, stream)

@@ -41,6 +41,7 @@ from srgan_st_tpu_torch.kernels.packed_trunk import (
     _reference_forward,
     _wgrad,
 )
+from srgan_st_tpu_torch.utils.profiling import span
 
 # launches of the CUDA kernel since import (or the last reset), and the
 # number of blocks the last one ran
@@ -122,7 +123,7 @@ def _launch_fwd(x, w1s, w2s, g1s, b1s, g2s, b2s, als, eps, weights=None, probe=N
         raise ValueError(f"fused_trunk: the probe must be a non-empty contiguous int64 "
                          f"tensor on {dev}; got {probe.dtype} {tuple(probe.shape)} on "
                          f"{probe.device}")
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), span("kernel.fused_trunk"):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, _FWD[cdt])(
             x.data_ptr(), w1t.data_ptr(), w2t.data_ptr(), *(v.data_ptr() for v in vecs),

@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from srgan_st_tpu_torch.kernels import _build
+from srgan_st_tpu_torch.utils.profiling import span
 
 # launches of the CUDA forward (K4) and backward (K5) since import (or the
 # last reset)
@@ -268,7 +269,7 @@ def _launch_fwd(x, w1s, w2s, g1s, b1s, g2s, b2s, als, eps, weights=None):
     lib = _build.load("packed_trunk", _SIGNATURES)
     ws = torch.empty(_ws_bytes(lib, n, x.shape, cdt, False), device=dev,
                      dtype=torch.uint8)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), span("kernel.packed_trunk_fwd"):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, _FWD[cdt])(
             x.data_ptr(), w1t.data_ptr(), w2t.data_ptr(), *(v.data_ptr() for v in vecs),
@@ -299,7 +300,7 @@ def _launch_bwd(dy, xs, a1s, a2s, stats, w1s, w2s, g1s, b1s, g2s, als, eps, weig
     ws = torch.empty(_ws_bytes(lib, n, dy.shape, cdt, True), device=dev,
                      dtype=torch.uint8)
     outs = (dx, dw1, dw2, dg1, db1, dg2, db2, dal)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), span("kernel.packed_trunk_bwd"):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, _BWD[cdt])(
             dy.data_ptr(), xs.data_ptr(), a1s.data_ptr(), a2s.data_ptr(),

@@ -23,6 +23,7 @@ import ctypes
 import torch
 
 from srgan_st_tpu_torch.kernels import _build
+from srgan_st_tpu_torch.utils.profiling import span
 
 # launches of the CUDA kernel since import (or the last reset)
 launches = 0
@@ -158,7 +159,7 @@ def _launch(y, w_up, b_up, alpha, w3, weights: TailWeights | None = None) -> tor
     lay = (weights or TailWeights()).get(w_up, b_up, alpha, w3, dev, cdt)
     z = torch.empty((b, h // 2, w // 2, 16 * N_OUT), device=dev, dtype=cdt)
     lib = _build.load("serving_tail", _SIGNATURES)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), span("kernel.serving_tail"):
         stream = torch.cuda.current_stream().cuda_stream
         if cdt == torch.bfloat16:
             err = lib.serving_tail_bf16(y.data_ptr(), lay["stream"].data_ptr(),

@@ -26,6 +26,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from srgan_st_tpu_torch.models.common import BatchNorm, Conv2d, init_weights, set_data_parallel
+from srgan_st_tpu_torch.utils.profiling import span
 
 
 class Linear(nn.Linear):
@@ -82,15 +83,17 @@ class Discriminator(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False, taps: tuple[str, ...] = ()):
         """train=True: batch statistics, running statistics updated in place.
-        With `taps`: {tap: NHWC activation} instead of the logits."""
-        h = x.to(self.dtype).permute(0, 3, 1, 2)
-        deepest = max((int(t.split(".")[1]) for t in taps), default=-1)
-        tap_out = {}
-        for i, layer in enumerate(self.features):
-            h = layer(h, train) if isinstance(layer, BatchNorm) else layer(h)
-            if f"features.{i}" in taps:
-                tap_out[f"features.{i}"] = h.permute(0, 2, 3, 1)
-            if taps and i >= deepest:
-                return tap_out
-        h = h.reshape(h.shape[0], -1)  # torch's (C, H, W) flatten
-        return self.classifier(h).float()
+        With `taps`: {tap: NHWC activation} instead of the logits. The
+        span `d.forward` holds it."""
+        with span("d.forward"):
+            h = x.to(self.dtype).permute(0, 3, 1, 2)
+            deepest = max((int(t.split(".")[1]) for t in taps), default=-1)
+            tap_out = {}
+            for i, layer in enumerate(self.features):
+                h = layer(h, train) if isinstance(layer, BatchNorm) else layer(h)
+                if f"features.{i}" in taps:
+                    tap_out[f"features.{i}"] = h.permute(0, 2, 3, 1)
+                if taps and i >= deepest:
+                    return tap_out
+            h = h.reshape(h.shape[0], -1)  # torch's (C, H, W) flatten
+            return self.classifier(h).float()

@@ -45,6 +45,7 @@ import torch.nn as nn
 from srgan_st_tpu_torch.models.common import (
     BatchNorm, Conv2d, PReLU, TapConv, init_weights, pixel_shuffle, set_data_parallel,
 )
+from srgan_st_tpu_torch.utils.profiling import span
 
 _TRUNK_MODES = ("unfused", "packed", "hybrid", "fused", "xpack", "xpack_eval")
 
@@ -325,27 +326,39 @@ class Generator(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """x NHWC in [0, 1]. train=True: batch statistics, running
-        statistics updated in place."""
-        x = x.to(self.dtype)
+        statistics updated in place. Its regions are the spans `g.forward`,
+        `g.stem`, `g.trunk` (the trunk, the fusion layer and the global
+        skip), `g.upsample` and `g.tail` (conv3, or kernel B, and the
+        clamp)."""
+        with span("g.forward"):
+            x = x.to(self.dtype)
 
-        # Low-frequency information extraction layer (model.py:100-103)
-        conv1 = self.conv1[1](self.conv1[0](x))
+            # Low-frequency information extraction layer (model.py:100-103)
+            with span("g.stem"):
+                conv1 = self.conv1[1](self.conv1[0](x))
 
-        # High-frequency trunk + linear fusion layer + global skip
-        h = self._trunk(conv1, train).permute(0, 3, 1, 2)
-        conv_fuse, bn_fuse = self.conv2
-        h = bn_fuse(conv_fuse(h), train) + conv1.permute(0, 3, 1, 2)
+            # High-frequency trunk + linear fusion layer + global skip
+            with span("g.trunk"):
+                h = self._trunk(conv1, train).permute(0, 3, 1, 2)
+                conv_fuse, bn_fuse = self.conv2
+                h = bn_fuse(conv_fuse(h), train) + conv1.permute(0, 3, 1, 2)
 
-        # Sub-pixel zoom blocks (model.py:118-124)
-        factors = self._up_factors()
-        for i, r in enumerate(factors):
-            if i == len(factors) - 1 and not train and self._use_fused_tail(h, r):
-                return self._fused_tail(h, i)
-            h = self.upsampling[i](h)
+            # Sub-pixel zoom blocks (model.py:118-124)
+            factors = self._up_factors()
+            fused_tail = None
+            with span("g.upsample"):
+                for i, r in enumerate(factors):
+                    if i == len(factors) - 1 and not train and self._use_fused_tail(h, r):
+                        fused_tail = i
+                        break
+                    h = self.upsampling[i](h)
 
-        # Reconstruction (model.py:127) + clamp (model.py:150)
-        out = self.conv3(h.permute(0, 2, 3, 1))
-        return torch.clamp(out.float(), 0.0, 1.0)
+            # Reconstruction (model.py:127) + clamp (model.py:150)
+            with span("g.tail"):
+                if fused_tail is not None:
+                    return self._fused_tail(h, fused_tail)
+                out = self.conv3(h.permute(0, 2, 3, 1))
+                return torch.clamp(out.float(), 0.0, 1.0)
 
 
 def random_variables(seed: int, channels: int = 64, num_rcb: int = 16,

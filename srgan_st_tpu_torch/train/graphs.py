@@ -23,6 +23,13 @@ while it was captured; the capture takes them back from the counters
 the counters count executed launches either way. A capture that fails
 raises, naming the step and the line of the op that broke it; nothing falls
 back to eager steps.
+
+A replay runs no Python, so the program's spans (utils/profiling.py) exist
+inside a step only while it is captured: the capture records the region of
+each of the graph's nodes (`node_regions()`), in the order a replay runs
+them, which is how a profile labels a replay's device ops. The steps also
+count their captures and replays by kind (`graph_counts()`); a replay is
+one batch.
 """
 
 from __future__ import annotations
@@ -33,6 +40,8 @@ import traceback
 
 import torch
 from torch.utils import _pytree as pytree
+
+from srgan_st_tpu_torch.utils.profiling import GraphNodes, capture_regions, span
 
 
 class StepGraphs:
@@ -62,6 +71,17 @@ class StepGraphs:
     def launches_per_replay(self) -> dict[str, dict[str, int]]:
         return {kind: dict(s.launches) for kind, s in self._steps.items()}
 
+    def graph_counts(self) -> dict[str, dict[str, int]]:
+        """{kind: {"captures", "replays"}} since this StepGraphs was made."""
+        return {kind: {"captures": int(s.graph is not None), "replays": s.replays}
+                for kind, s in self._steps.items()}
+
+    def node_regions(self) -> dict[str, list[str]]:
+        """{kind: the region path of each kernel, copy and memset node of
+        its graph, in capture order ("" outside every span of the step)}."""
+        return {kind: list(s.node_regions) for kind, s in self._steps.items()
+                if s.graph is not None}
+
     def pool_bytes(self) -> int | None:
         """Bytes of the segments of the graphs' memory pool (None if the
         allocator's snapshot does not name pools)."""
@@ -83,6 +103,9 @@ class _CapturedStep:
         self.out = None
         self.launches: dict[str, int] = {}
         self.capture_seconds = 0.0
+        self.node_regions: list[str] = []
+        self.replays = 0
+        self.launch_span = f"graph.launch.{kind}"
 
     def __call__(self, args):
         flat, spec = pytree.tree_flatten(args)
@@ -92,16 +115,23 @@ class _CapturedStep:
         if spec != self.spec or any(s.shape != x.shape or s.dtype != x.dtype
                                     for s, x in zip(self.static_in, flat)):
             raise ValueError(f"the {self.kind} step graph was captured for other inputs")
-        for dst, src in zip(self.static_in, flat):
-            dst.copy_(src, non_blocking=True)
-        self.graph.replay()
+        with span("graph.copy_in"):
+            for dst, src in zip(self.static_in, flat):
+                dst.copy_(src, non_blocking=True)
+        with span(self.launch_span):
+            self.graph.replay()
         from srgan_st_tpu_torch import kernels
 
         kernels.add_launch_counts(self.launches, replayed=True)
         kernels.generation += 1
+        self.replays += 1
         return self.out
 
     def _warm_up_and_capture(self, flat, spec):
+        with span(f"graph.capture.{self.kind}"):
+            return self._capture(flat, spec)
+
+    def _capture(self, flat, spec):
         from srgan_st_tpu_torch import kernels
 
         dev, stream = self.graphs.device, self.graphs.stream
@@ -127,7 +157,8 @@ class _CapturedStep:
         try:
             with torch.cuda.graph(graph, pool=self.graphs.pool, stream=stream,
                                   capture_error_mode="thread_local"):
-                static_out = self.fn(*args)
+                with capture_regions(GraphNodes(stream.cuda_stream)) as regions:
+                    static_out = self.fn(*args)
         except Exception as e:  # noqa: BLE001 — re-raised with the op's place
             raise RuntimeError(f"CUDA graph capture of the {self.kind} step failed at "
                                f"{_where(e)}: {type(e).__name__}: {e}") from e
@@ -138,6 +169,7 @@ class _CapturedStep:
         self.launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
         kernels.add_launch_counts({k: -n for k, n in self.launches.items()})
         self.graph, self.out = graph, static_out
+        self.node_regions = regions.labels
         self.capture_seconds = time.perf_counter() - t0
         return out
 

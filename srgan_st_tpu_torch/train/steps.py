@@ -37,10 +37,16 @@ random crops, and DATA.AUGMENT a per-sample flip then rot90^k, on the
 device. The draws (`draw_augment`) come from a torch.Generator seeded from
 (DATA.SEED + 7, step, rank), the counterpart of `_aug_key`, and are passed
 to `_prepare_batch`; they are not jax.random's bits.
+
+The steps mark their regions with `utils/profiling.py` `span`: `train.chunk`
+and `train.batch` (its step number as args) in the chunk steps, and in the
+bodies `step.prepare`, `loss.<criterion>`, `g.backward`, `step.allreduce`,
+`optim.g` / `optim.d` and `d.step` with `d.backward`.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Callable
 
@@ -49,6 +55,7 @@ import torch
 
 from srgan_st_tpu_torch.losses.functions import adversarial_loss
 from srgan_st_tpu_torch.ops.resize import resize_bicubic
+from srgan_st_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -82,9 +89,11 @@ class Adam:
     lr is a Python float set before each step."""
 
     def __init__(self, params, lr_fn: Callable[[int], float], beta1: float,
-                 beta2: float, eps: float, weight_decay: float, bounds=()):
+                 beta2: float, eps: float, weight_decay: float, bounds=(),
+                 name: str = "optim"):
         self.params = [p for p in params if p.requires_grad]
         self.lr_fn = lr_fn
+        self.name = name  # the span of its step
         self._capturable = bool(self.params) and self.params[0].is_cuda
         cls = torch.optim.AdamW if weight_decay else torch.optim.Adam
         if self._capturable:
@@ -109,17 +118,18 @@ class Adam:
 
     def step(self, grads) -> None:
         """Apply one update with `grads` (one per parameter, in order)."""
-        for p, g in zip(self.params, grads, strict=True):
-            p.grad = g
-        if self._capturable:
-            piece = (self._count >= self._bounds).sum().reshape(1)
-            self._lr.copy_(self._lrs.index_select(0, piece).reshape(()))
-        else:
-            for group in self.opt.param_groups:
-                group["lr"] = self.lr_fn(self._count)
-        self.opt.step()
-        self.opt.zero_grad(set_to_none=True)
-        self._count += 1
+        with span(self.name):
+            for p, g in zip(self.params, grads, strict=True):
+                p.grad = g
+            if self._capturable:
+                piece = (self._count >= self._bounds).sum().reshape(1)
+                self._lr.copy_(self._lrs.index_select(0, piece).reshape(()))
+            else:
+                for group in self.opt.param_groups:
+                    group["lr"] = self.lr_fn(self._count)
+            self.opt.step()
+            self.opt.zero_grad(set_to_none=True)
+            self._count += 1
 
     def state_dict(self) -> dict:
         sd = self.opt.state_dict()
@@ -144,18 +154,18 @@ class Adam:
 
 
 def make_optimizer(params, base_lr, beta1, beta2, eps, weight_decay,
-                   milestones_steps, gamma) -> Adam:
+                   milestones_steps, gamma, name: str = "optim") -> Adam:
     """Adam with the reference's hyperparameters — eps=1e-4, not torch's
     default (reference config.py:107,114)."""
     return Adam(params, multistep_lr(base_lr, milestones_steps, gamma), beta1, beta2,
-                eps, weight_decay, bounds=milestones_steps)
+                eps, weight_decay, bounds=milestones_steps, name=name)
 
 
 def make_g_optimizer(config, params, steps_per_epoch: int, milestones: bool = True):
     ms = [m * steps_per_epoch for m in config.SCHEDULER.MILESTONES] if milestones else []
     s = config.SOLVER
     return make_optimizer(params, s.G_BASE_LR, s.G_BETA1, s.G_BETA2, s.G_EPS,
-                          s.G_WEIGHT_DECAY, ms, config.SCHEDULER.GAMMA)
+                          s.G_WEIGHT_DECAY, ms, config.SCHEDULER.GAMMA, "optim.g")
 
 
 def make_d_optimizer(config, params, steps_per_epoch: int):
@@ -166,7 +176,7 @@ def make_d_optimizer(config, params, steps_per_epoch: int):
     ms = [m * d_updates_per_epoch for m in config.SCHEDULER.MILESTONES]
     s = config.SOLVER
     return make_optimizer(params, s.D_BASE_LR, s.D_BETA1, s.D_BETA2, s.D_EPS,
-                          s.D_WEIGHT_DECAY, ms, config.SCHEDULER.GAMMA)
+                          s.D_WEIGHT_DECAY, ms, config.SCHEDULER.GAMMA, "optim.d")
 
 
 def draw_augment(config, step: int, rank: int, batch: int, tile: tuple[int, int],
@@ -199,27 +209,28 @@ def _prepare_batch(gt, config, device, offsets=None, flip=None, rot=None
     in uint8; then /255 and MATLAB-bicubic x(1/upscale) with its
     quantization (reference dataset.py:23-32; the JAX package's
     _prepare_batch with its draws passed in)."""
-    s = int(config.DATA.GT_IMAGE_SIZE)
-    gt = torch.as_tensor(gt).to(device)
-    if gt.shape[1] != s or gt.shape[2] != s:
-        if offsets is None:
-            raise ValueError(f"tile size {tuple(gt.shape[1:3])} != GT_IMAGE_SIZE {s} "
-                             "needs crop offsets")
-        ar = torch.arange(s, device=device)
-        rows = (offsets[0].to(device)[:, None] + ar)[:, :, None]
-        cols = (offsets[1].to(device)[:, None] + ar)[:, None, :]
-        gt = gt[torch.arange(gt.shape[0], device=device)[:, None, None], rows, cols]
-    if flip is not None:
-        gt = torch.where(flip.to(device)[:, None, None, None], gt.flip(2), gt)
-        r = rot.to(device)[:, None, None, None]
-        for k in (1, 2, 3):
-            gt = torch.where(r == k, torch.rot90(gt, k, (1, 2)), gt)
-    if gt.dtype == torch.uint8:
-        # a 0-dim tensor divisor (filled on the device, no copy): CUDA divides
-        # by a Python scalar as a multiply by its reciprocal, which differs
-        # from x / 255 in the last bit
-        gt = gt.float() / torch.full((), 255.0, device=gt.device)
-    return gt, resize_bicubic(gt, 1.0 / config.DATA.UPSCALE_FACTOR, method="matlab")
+    with span("step.prepare"):
+        s = int(config.DATA.GT_IMAGE_SIZE)
+        gt = torch.as_tensor(gt).to(device)
+        if gt.shape[1] != s or gt.shape[2] != s:
+            if offsets is None:
+                raise ValueError(f"tile size {tuple(gt.shape[1:3])} != GT_IMAGE_SIZE {s} "
+                                 "needs crop offsets")
+            ar = torch.arange(s, device=device)
+            rows = (offsets[0].to(device)[:, None] + ar)[:, :, None]
+            cols = (offsets[1].to(device)[:, None] + ar)[:, None, :]
+            gt = gt[torch.arange(gt.shape[0], device=device)[:, None, None], rows, cols]
+        if flip is not None:
+            gt = torch.where(flip.to(device)[:, None, None, None], gt.flip(2), gt)
+            r = rot.to(device)[:, None, None, None]
+            for k in (1, 2, 3):
+                gt = torch.where(r == k, torch.rot90(gt, k, (1, 2)), gt)
+        if gt.dtype == torch.uint8:
+            # a 0-dim tensor divisor (filled on the device, no copy): CUDA divides
+            # by a Python scalar as a multiply by its reciprocal, which differs
+            # from x / 255 in the last bit
+            gt = gt.float() / torch.full((), 255.0, device=gt.device)
+        return gt, resize_bicubic(gt, 1.0 / config.DATA.UPSCALE_FACTOR, method="matlab")
 
 
 def _draws(config, step: int, gt_u8, rank: int, augment: bool) -> dict:
@@ -230,7 +241,8 @@ def _draws(config, step: int, gt_u8, rank: int, augment: bool) -> dict:
 def _pmean_step(mesh, grads, total, values: dict):
     """Gradients, the loss and the criterion values averaged over the ranks
     in one all-reduce (the identity with one process)."""
-    avg = mesh.pmean([*grads, total.detach(), *values.values()])
+    with span("step.allreduce") if mesh.active else contextlib.nullcontext():
+        avg = mesh.pmean([*grads, total.detach(), *values.values()])
     n = len(grads)
     return avg[:n], avg[n], dict(zip(values, avg[n + 1:]))
 
@@ -248,9 +260,10 @@ def _device(state: GANTrainState) -> torch.device:
 def _criterion_sum(criterions, sr, gt, adversarial=None):
     total, values = 0.0, {}
     for name, (fn, weight) in criterions.items():
-        term = (adversarial(sr) if fn is None else fn(sr, gt)) * weight
-        values[f"G_{name}"] = term.detach()
-        total = total + term
+        with span(f"loss.{name}"):
+            term = (adversarial(sr) if fn is None else fn(sr, gt)) * weight
+            values[f"G_{name}"] = term.detach()
+            total = total + term
     return total, values
 
 
@@ -262,7 +275,8 @@ def _warmup_body(config, criterions, mesh):
         gt, lr = _prepare_batch(gt_u8, config, _device(state), **draws)
         sr = state.g_model(lr, train=True)
         total, values = _criterion_sum(criterions, sr, gt)
-        grads = torch.autograd.grad(total, state.g_opt.params)
+        with span("g.backward"):
+            grads = torch.autograd.grad(total, state.g_opt.params)
         grads, total, values = _pmean_step(mesh, grads, total, values)
         state.g_opt.step(grads)
         return dict(values, G_Loss=total)
@@ -283,27 +297,32 @@ def _gan_bodies(config, criterions, mesh):
 
         total, values = _criterion_sum(criterions, sr, gt, adversarial)
         # gradients of G's parameters only: D's are not computed
-        grads = torch.autograd.grad(total, state.g_opt.params)
+        with span("g.backward"):
+            grads = torch.autograd.grad(total, state.g_opt.params)
         grads, total, values = _pmean_step(mesh, grads, total, values)
         state.g_opt.step(grads)
         return sr.detach(), dict(values, G_Loss=total)
 
     def d_body(state: GANTrainState, gt_u8, sr, draws: dict) -> dict:
-        # D sees unaugmented real patches: any crop of a real tile is a real
-        # patch (its draws are those of the step after the G step's)
-        gt, _ = _prepare_batch(gt_u8, config, _device(state), **draws)
-        sr = sr.detach()
-        pred_gt = state.d_model(gt, train=True)
-        pred_sr = state.d_model(sr, train=True)  # statistics chained after gt's
-        d_loss = adversarial_loss(pred_gt, real_label) + adversarial_loss(pred_sr, 0.0)
-        grads = torch.autograd.grad(d_loss, state.d_opt.params)
-        # the pre-sigmoid means averaged before the sigmoid: sigmoid of the
-        # global mean (steps.py:291-297)
-        *grads, d_loss, mean_gt, mean_sr = mesh.pmean(
-            [*grads, d_loss.detach(), pred_gt.detach().mean(), pred_sr.detach().mean()])
-        state.d_opt.step(grads)
-        return {"D_Loss": d_loss, "D(GT)_Probability": torch.sigmoid(mean_gt),
-                "D(SR)_Probability": torch.sigmoid(mean_sr)}
+        with span("d.step"):
+            # D sees unaugmented real patches: any crop of a real tile is a real
+            # patch (its draws are those of the step after the G step's)
+            gt, _ = _prepare_batch(gt_u8, config, _device(state), **draws)
+            sr = sr.detach()
+            pred_gt = state.d_model(gt, train=True)
+            pred_sr = state.d_model(sr, train=True)  # statistics chained after gt's
+            d_loss = adversarial_loss(pred_gt, real_label) + adversarial_loss(pred_sr, 0.0)
+            with span("d.backward"):
+                grads = torch.autograd.grad(d_loss, state.d_opt.params)
+            # the pre-sigmoid means averaged before the sigmoid: sigmoid of the
+            # global mean (steps.py:291-297)
+            with span("step.allreduce") if mesh.active else contextlib.nullcontext():
+                *grads, d_loss, mean_gt, mean_sr = mesh.pmean(
+                    [*grads, d_loss.detach(), pred_gt.detach().mean(),
+                     pred_sr.detach().mean()])
+            state.d_opt.step(grads)
+            return {"D_Loss": d_loss, "D(GT)_Probability": torch.sigmoid(mean_gt),
+                    "D(SR)_Probability": torch.sigmoid(mean_sr)}
 
     return g_body, d_body
 
@@ -374,12 +393,14 @@ def make_warmup_chunk_step(config, criterions, mesh=None, graphs=None):
 
     def chunk_step(state: GANTrainState, chunk):
         metrics0 = None
-        for gt in chunk:
-            draws = _draws(config, state.step, gt, mesh.rank, augment)
-            metrics = _run(graphs, "warmup", state, body, gt, draws)
-            state.step += 1
-            if metrics0 is None:
-                metrics0 = _kept(graphs, metrics)
+        with span("train.chunk"):
+            for gt in chunk:
+                with span("train.batch", state.step):
+                    draws = _draws(config, state.step, gt, mesh.rank, augment)
+                    metrics = _run(graphs, "warmup", state, body, gt, draws)
+                    state.step += 1
+                    if metrics0 is None:
+                        metrics0 = _kept(graphs, metrics)
         return state, metrics0
 
     return chunk_step
@@ -403,16 +424,18 @@ def make_gan_chunk_step(config, criterions, mesh=None, graphs=None):
 
     def chunk_step(state: GANTrainState, chunk, do_d_update: bool = True):
         metrics0 = None
-        for i, gt in enumerate(chunk):
-            draws = _draws(config, state.step, gt, mesh.rank, augment)
-            if i == 0 and do_d_update:
-                d_draws = _draws(config, state.step + 1, gt, mesh.rank, False)
-                metrics = _run(graphs, "gan", state, g_and_d, gt, draws, d_draws)
-            else:
-                metrics = _run(graphs, "g", state, g_only, gt, draws)
-            state.step += 1
-            if metrics0 is None:
-                metrics0 = _kept(graphs, metrics)
+        with span("train.chunk"):
+            for i, gt in enumerate(chunk):
+                with span("train.batch", state.step):
+                    draws = _draws(config, state.step, gt, mesh.rank, augment)
+                    if i == 0 and do_d_update:
+                        d_draws = _draws(config, state.step + 1, gt, mesh.rank, False)
+                        metrics = _run(graphs, "gan", state, g_and_d, gt, draws, d_draws)
+                    else:
+                        metrics = _run(graphs, "g", state, g_only, gt, draws)
+                    state.step += 1
+                    if metrics0 is None:
+                        metrics0 = _kept(graphs, metrics)
         return state, metrics0
 
     return chunk_step

@@ -1093,3 +1093,81 @@ def test_dcp_restore_keeps_the_graphs_storage(dev, tmp_path):
         assert resumed.launches_per_replay().keys() == {"g"}
     finally:
         torch.backends.cudnn.deterministic = False
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["warmup", "gan"])
+def test_replayed_ops_take_the_regions_that_captured_them(dev, kind):
+    """One traced chunk of 3 batches after a chunk that captured the step
+    graphs: each replay's device ops match its graph's kernel, copy and
+    memset nodes in count; 99% of busy time is labelled; every K5 wgrad
+    tile is under `g.backward`; the ops under the K4/K5 launch spans are
+    the kernels `trunk_roofline.train` matches by name (and the library's
+    copy and memset), and the reverse; the foreach Adam kernels are under
+    `optim.*`."""
+    import os
+    import sys
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from srgan_st_tpu_torch.losses.registry import build_criterions, build_warmup_criterions
+    from srgan_st_tpu_torch.models.discriminator import Discriminator
+    from srgan_st_tpu_torch.models.generator import Generator
+    from srgan_st_tpu_torch.train.graphs import StepGraphs
+    from srgan_st_tpu_torch.tools import profile_step as T
+    from srgan_st_tpu_torch.train.steps import (
+        create_gan_state, create_generator_state, make_gan_chunk_step, make_warmup_chunk_step,
+    )
+    from srgan_st_tpu_torch.utils import profiling as P
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from benchmark import harness
+
+    trunk_names = harness.readers()["trunk_roofline.train"].NAMES
+    cfg = _graph_config("packed", 64)
+    rng = np.random.default_rng(8)
+    chunk = [torch.from_numpy(rng.integers(0, 256, (2, 96, 96, 3), dtype=np.uint8)).to(dev)
+             for _ in range(3)]
+    graphs = StepGraphs(dev)
+    if kind == "warmup":
+        state = create_generator_state(cfg, Generator.from_config(cfg), 4, dev,
+                                       milestones=False)
+        step = make_warmup_chunk_step(cfg, build_warmup_criterions(cfg), graphs=graphs)
+        run = lambda: step(state, chunk)  # noqa: E731
+    else:
+        state = create_gan_state(cfg, Generator.from_config(cfg),
+                                 Discriminator.from_config(cfg), 4, dev)
+        step = make_gan_chunk_step(cfg, build_criterions(cfg), graphs=graphs)
+        run = lambda: step(state, chunk, True)  # noqa: E731
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    ops, calls, spans = T.trace_events(prof)
+    rec = T.program_trace(ops, calls, spans, graphs.node_regions())
+    assert P._stack == [] and P._capture is None
+    if kind == "warmup":
+        assert graphs.graph_counts() == {"warmup": {"captures": 1, "replays": 5}}
+    else:
+        assert graphs.graph_counts() == {"gan": {"captures": 1, "replays": 1},
+                                         "g": {"captures": 1, "replays": 3}}
+    assert [r["kind"] for r in rec["replays"]] == (
+        ["warmup"] * 3 if kind == "warmup" else ["gan", "g", "g"])
+    assert all(r["ops"] == r["nodes"] for r in rec["replays"]), rec["replays"]
+    assert rec["labelled_share"] >= 0.99
+    ops = sorted(ops)
+    parts = [set(lab.split("/")) if lab else set() for lab in rec["labels"]]
+    wgrad = [p for op, p in zip(ops, parts) if "trunk_wgrad_wgmma" in op[2]]
+    assert wgrad and all("g.backward" in p for p in wgrad)
+    under = {i for i, p in enumerate(parts)
+             if p & {"kernel.packed_trunk_fwd", "kernel.packed_trunk_bwd"}}
+    named = {i for i, op in enumerate(ops) if trunk_names.match(op[2])}
+    # the library's x copy and ticket memset (a graph may run the copy as
+    # the driver's kernel `memcpy32_post`)
+    copies = {i for i in under if ops[i][2].startswith(("Memcpy", "Memset", "memcpy"))}
+    assert named and under - copies == named
+    adam = [p for op, p in zip(ops, parts) if "multi_tensor_apply_kernel" in op[2]]
+    assert adam and all(any(n.startswith("optim.") for n in p) for p in adam)

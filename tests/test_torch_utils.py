@@ -1,5 +1,5 @@
 """The port's utils (srgan_st_tpu_torch/utils/) and the `doctor` command,
-on the CPU: the counterparts of tests/test_utils.py (meter, finite checks)
+on the CPU: the counterparts of tests/test_utils.py (finite checks)
 and tests/test_tpu_health.py (the verdicts, on synthetic probe results)."""
 
 import json
@@ -16,25 +16,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # ---------------------------------------------------------------------------
 # profiling
-
-def test_meter_counts_after_warmup():
-    from srgan_st_tpu_torch.utils.profiling import ThroughputMeter
-
-    meter = ThroughputMeter(n_chips=2, warmup_steps=2)
-    assert meter.patches_per_sec_per_chip == 0.0
-    for _ in range(5):
-        meter.step(16)
-    assert meter.patches_per_sec_per_chip > 0
-    # the two warmup steps are left out: 3 steps of 16 patches are counted
-    assert meter._patches == 48
-
-
-def test_meter_defaults_to_the_process_group_size():
-    """n_chips is the world size: 1 without a process group."""
-    from srgan_st_tpu_torch.utils.profiling import ThroughputMeter
-
-    assert ThroughputMeter().n_chips == 1
-
 
 def test_trace_context_writes_a_trace_and_none_is_a_no_op(tmp_path):
     from srgan_st_tpu_torch.utils.profiling import trace_context
