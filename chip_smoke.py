@@ -16,19 +16,27 @@ toolkit. In order, each phase printing one JSON line:
            frame among them), kernel A at its
            training-scale shape, and an edge shape each whose quarter
            grid divides no tile, in f32 (TF32 off) and in bf16; a second
-           launch must give the same bits;
+           launch must give the same bits; then kernel E (the eval trunk,
+           16 blocks and the fusion conv, bf16 only) at every trunk shape
+           the serve requests give it and an odd edge shape, within 2x its
+           plain version's own bf16 envelope, with a second call's bits,
+           and its time at 4K beside its bound, its plain version's and
+           the cuDNN blocks' (`--only eval_trunk`: the build and this
+           alone);
   serve    seeded full-width weights (16 RCB, 64 channels, x4) written as
            a JAX-format npz and served in bf16 through make_infer_fn /
            upscale_image: a 960x540 frame in the composed tail mode and
            with TAIL_MODE="fused", an odd 541x383 frame in both, the
            960x540 frame through TILED_EVAL and with TRUNK_MODE="xpack"
            (BatchNorm folded into the trunk's convs), and an odd 61x47
-           frame through the x8 self-ensemble (kernel A exactly 8 times).
+           frame through the x8 self-ensemble (kernels A and E exactly 8
+           times each; every request but xpack's runs its trunk as E).
            The launch counts are reset just before these requests and read
            just after;
   check    the composed, fused and tiled outputs against each other within
-           the network's bf16 envelope, the xpack output against the f32
-           network within 2x that envelope, the x8 ensemble against the
+           the network's bf16 envelope, the xpack and the composed (kernel
+           E) outputs against the f32 network within 2x the bf16 blocks'
+           (TRUNK_MODE="unfused") envelope, the x8 ensemble against the
            f32 network's ensemble within 2x its frame's envelope, and the
            CUDA f32 network against its CPU run (the plain versions) on a
            small frame;
@@ -317,6 +325,14 @@ SHAPE_B_4K = (1, 1080, 1920, 64)
 SHAPES_B = (SHAPE_B_4K, (1, 768, 1084, 64), (1, 2 * VIZ_LR[0], 2 * VIZ_LR[1], 64),
             (1, 10, 62, 64))
 
+# Kernel E's inputs (the eval trunk's stem output): the 4K frame, the padded
+# odd frame, a tile batch of TILED_EVAL's 144-px windows, the x8 ensemble's
+# odd frame in both orientations, a two-frame batch, and an odd edge shape
+# narrower than one 64-pixel row tile
+SHAPE_E_4K = (1, *LR_4K, 64)
+SHAPES_E = (SHAPE_E_4K, (1, 384, 542, 64), (16, 72, 72, 64), (1, *LR_ENSEMBLE, 64),
+            (1, LR_ENSEMBLE[1], LR_ENSEMBLE[0], 64), (2, 96, 96, 64), (1, 37, 53, 64))
+E_BLOCKS = 16
 
 # The trunk kernels' inputs: the training shape, then an edge shape whose
 # pixel count and width do not divide the kernels' 64-pixel tiles, then two
@@ -402,12 +418,13 @@ def nvidia_smi() -> str:
 # the training shape's width and channels)
 KERNEL_FUNCS = ("coarse_conv_wgmma", "coarse_conv_kernel", "serving_tail_wgmma",
                 "serving_tail_kernel", "trunk_conv_wgmma", "trunk_wgrad_wgmma",
-                "fused_trunk_wgmma", "buddy_mma_kernel")
+                "fused_trunk_wgmma", "buddy_mma_kernel", "eval_trunk_conv")
 WGMMA_SMEM = {"coarse_conv_wgmma": ("coarse_conv", "coarse_conv_s2d_bf16_smem", ()),
               "serving_tail_wgmma": ("serving_tail", "serving_tail_bf16_smem", ()),
               "trunk_conv_wgmma": ("packed_trunk", "packed_trunk_conv_smem", (24, 64)),
               "trunk_wgrad_wgmma": ("packed_trunk", "packed_trunk_wgrad_smem", (24, 64)),
-              "fused_trunk_wgmma": ("fused_trunk", "fused_trunk_bf16_smem", (24, 64))}
+              "fused_trunk_wgmma": ("fused_trunk", "fused_trunk_bf16_smem", (24, 64)),
+              "eval_trunk_conv": ("eval_trunk", "eval_trunk_smem", ())}
 
 
 def _ptxas_functions(log: str) -> dict:
@@ -612,6 +629,96 @@ def phase_kernel_b(gen, dev) -> dict:
     return rec
 
 
+def _eval_trunk_operands(gen, dev, n: int):
+    """Random eval trunk operands of n blocks at 64 channels (HWIO kernels
+    N(0, 1/fan_in), BatchNorms with non-trivial running statistics as
+    their f32 affine, slopes in [0.1, 0.3]) and the Generator whose g.trunk
+    region they are (its blocks: the cuDNN yardstick)."""
+    import torch
+
+    from srgan_st_tpu_torch.models.generator import Generator
+
+    g = Generator(num_rcb=n, dtype=torch.bfloat16, trunk_mode="unfused").to(dev).eval()
+    with torch.no_grad():
+        for p in g.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen, device=dev) / (p[0].numel() ** 0.5))
+        for m in g.modules():
+            if hasattr(m, "running_var"):
+                m.weight.uniform_(0.5, 1.0, generator=gen)
+                m.bias.normal_(0.0, 0.1, generator=gen)
+                m.running_mean.normal_(0.0, 0.1, generator=gen)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+        for blk in g.trunk:
+            blk.rcb[2].weight.uniform_(0.1, 0.3, generator=gen)
+    return g, g._eval_trunk_operands()
+
+
+def phase_kernel_e(gen, dev) -> dict:
+    """Kernel E (16 blocks and the fusion conv) against its plain version at
+    each of SHAPES_E (bf16: within 2x the plain version's own bf16 envelope
+    of the plain version in f32 on the same operands; a second call's
+    bits), then at 4K its time (`ms`: the call on laid-out operands;
+    `wrapper_ms` lays them out), the plain version's, the cuDNN blocks'
+    (the g.trunk region of the unfused eval generator), the bound and the
+    design's floor. No profile here: a process's later profiles lose
+    device events, and the K4/K5 phase counts its kernels in one (the
+    card test of a served frame counts kernel E's)."""
+    import torch
+
+    from srgan_st_tpu_torch.kernels import eval_trunk as et
+
+    g, (ws, scale, shift, als, laid) = _eval_trunk_operands(gen, dev, E_BLOCKS)
+    ws16 = ws.bfloat16().float()
+    gated = []
+    for shape in SHAPES_E:
+        x = (torch.rand(shape, generator=gen, device=dev) - 0.5).bfloat16()
+        before = et.launches
+        got = et.eval_trunk(x, ws, scale, shift, als, laid)
+        same = torch.equal(got, et.eval_trunk(x, ws, scale, shift, als, laid))
+        torch.cuda.synchronize()
+        plain16 = et.eval_trunk_reference(x, ws, scale, shift, als)
+        ref32 = et.eval_trunk_reference(x.float(), ws16, scale, shift, als)
+        env, err = max_abs(plain16, ref32), max_abs(got, ref32)
+        rec = {"kernel": "eval_trunk", "shape": list(shape), "bf16_max_abs_err": err,
+               "bf16_envelope": env, "vs_plain_bf16": max_abs(got, plain16),
+               "calls": et.launches - before, "bitwise_repeatable": same}
+        emit("kernel", **rec)
+        if not (env > 0 and err <= 2 * env and bool(torch.isfinite(got.float()).all())):
+            raise AssertionError(f"eval_trunk bf16 at {shape}: {err} > 2 * {env}")
+        if not same or rec["calls"] != 2:
+            raise AssertionError(f"eval_trunk at {shape}: {rec}")
+        gated.append(rec)
+        del got, plain16, ref32
+    rec = {"kernel": "eval_trunk", "gated_shapes": [r["shape"] for r in gated],
+           "bf16_max_abs_err": max(r["bf16_max_abs_err"] for r in gated),
+           "vs_plain_bf16": max(r["vs_plain_bf16"] for r in gated)}
+    b, h, w, c = SHAPE_E_4K
+    x = (torch.rand(SHAPE_E_4K, generator=gen, device=dev) - 0.5).bfloat16()
+    m = 2 * E_BLOCKS + 1
+    flops = 2.0 * b * h * w * 9 * c * c * m
+    nbytes = 2 * (2 * x.numel() + m * 9 * c * c)
+    own = design_flops("eval_trunk", "eval_trunk_bf16_mma_flops", E_BLOCKS, b, h, w)
+
+    def blocks():
+        y = g._trunk(x, False, "unfused").permute(0, 3, 1, 2)
+        return g.conv2[1](g.conv2[0](y), False) + x.permute(0, 3, 1, 2)
+
+    with torch.inference_mode():
+        rec.update(
+            shape=list(SHAPE_E_4K), n=E_BLOCKS,
+            ms=cuda_ms(lambda: et._launch(x, ws, scale, shift, als, laid)),
+            wrapper_ms=cuda_ms(lambda: et.eval_trunk(x, ws, scale, shift, als)),
+            plain_ms=cuda_ms(lambda: et.eval_trunk_reference(x, ws, scale, shift, als), iters=3),
+            library_ms=cuda_ms(blocks), bytes=nbytes, flops=flops,
+            design_flops=own, floor_ms=own / BF16_FLOPS * 1e3,
+            launch_host_ms=host_ms(lambda: et._launch(x, ws, scale, shift, als, laid)))
+    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, flops)
+    rec["roofline_share"] = rec["bound_ms"] / rec["ms"]
+    rec["achieved_tflop_per_s"] = flops / (rec["ms"] / 1e3) / 1e12
+    rec["ms_over_library_ms"] = rec["ms"] / rec["library_ms"]
+    emit("kernel_time", **rec)
+    return rec
+
 def _serve_fns(gpath, dev):
     from srgan_st_tpu_torch.core.config import Config
     from srgan_st_tpu_torch.eval.ensemble import self_ensemble
@@ -622,6 +729,7 @@ def _serve_fns(gpath, dev):
                                             ("fused", "bfloat16", "fused", False, None),
                                             ("tiled", "bfloat16", None, True, None),
                                             ("xpack", "bfloat16", None, False, "xpack"),
+                                            ("unfused", "bfloat16", None, False, "unfused"),
                                             ("f32", "float32", None, False, None)):
         cfg = Config()
         cfg.TPU.COMPUTE_DTYPE, cfg.TPU.TAIL_MODE, cfg.TPU.TILED_EVAL = dtype, tail, tiled
@@ -660,12 +768,16 @@ def phase_serve(fns, frames) -> tuple[dict, dict]:
             raise AssertionError(f"{mode} {frame}: bad output {sr.shape}")
         if delta[need[mode]] < 1:
             raise AssertionError(f"{mode} {frame} did not launch {need[mode]}")
-        if mode == "ensemble" and delta != {**{k: 0 for k in delta}, need[mode]: 8}:
-            raise AssertionError(f"the x8 ensemble launched {delta}, not kernel A 8 times")
+        if mode == "ensemble" and delta != {**{k: 0 for k in delta}, need[mode]: 8,
+                                             "eval_trunk": 8}:
+            raise AssertionError(f"the x8 ensemble launched {delta}, not kernels A and E "
+                                 "8 times each")
+        if mode != "xpack" and delta["eval_trunk"] < 1:
+            raise AssertionError(f"{mode} {frame} did not launch eval_trunk")
         outs[(mode, frame)] = sr
     counts = launch_counts()
     emit("serve", launches_total=counts)
-    if min(counts["coarse_conv_s2d"], counts["serving_tail"]) < 1:
+    if min(counts["coarse_conv_s2d"], counts["serving_tail"], counts["eval_trunk"]) < 1:
         raise AssertionError(f"a kernel of the path never launched: {counts}")
     torch.cuda.synchronize()
     return outs, counts
@@ -696,11 +808,14 @@ def phase_check(fns, frames, outs, rng) -> dict:
             rec[frame]["tiled_vs_whole"] = d_tiled
             if not d_tiled <= env:
                 raise AssertionError(f"tiled vs whole {d_tiled} > {env}")
-            # the BN-folded trunk: its bf16 output against the f32 network
+            # the BN-folded trunk's and kernel E's bf16 outputs against the
+            # f32 network, within 2x the bf16 blocks' envelope
+            blocks = float(np.abs(upscale_image(fns["unfused"], lr, 4) - f32).max())
             d_xpack = float(np.abs(outs[("xpack", frame)] - f32).max())
-            rec[frame]["xpack_vs_f32"] = d_xpack
-            if not d_xpack <= 2 * env:
-                raise AssertionError(f"xpack vs f32 {d_xpack} > 2 * {env}")
+            rec[frame].update(xpack_vs_f32=d_xpack, blocks_envelope=blocks)
+            if not (d_xpack <= 2 * blocks and env <= 2 * blocks):
+                raise AssertionError(f"xpack vs f32 {d_xpack}, kernel E's {env}: over "
+                                     f"2 * {blocks}")
         rec[frame]["unclamped_share"] = float(((f32 > 0) & (f32 < 1)).mean())
 
     # the x8 ensemble of the bf16 network against that of the f32 one, in
@@ -990,12 +1105,14 @@ def phase_artifact(rng, dev) -> dict:
     """Full-width bf16 artifacts, fixed at the 4K frame and dynamic, exported
     (export_generator checks the program against the live module), saved,
     loaded on the card, and held bit for bit to the live plain path with
-    cuDNN on deterministic algorithms; then ms per 4K frame of the fixed one
-    and of the live plain path."""
+    cuDNN on deterministic algorithms, no hand-written kernel launched by
+    either; then ms per 4K frame of the fixed one and of the live plain
+    path."""
     import torch
 
     from srgan_st_tpu_torch.core.config import Config
     from srgan_st_tpu_torch.eval import export as ex
+    from srgan_st_tpu_torch.kernels import launch_counts
     from srgan_st_tpu_torch.models.generator import random_variables
 
     cfg = Config()
@@ -1013,22 +1130,25 @@ def phase_artifact(rng, dev) -> dict:
             seconds = time.perf_counter() - t0
             live = ex.plain_eval_generator(cfg, variables, fixed is None, dev)
             equal = {}
+            before = launch_counts()
             for b, h, w in sizes:
                 x = torch.from_numpy(rng.random((b, h, w, 3), np.float32)).to(dev)
                 with torch.inference_mode(), ex.deterministic_cudnn():
                     got, want = run(x), live(x)
                 equal[f"{b}x{h}x{w}"] = bool(got.shape == (b, 4 * h, 4 * w, 3)
                                              and torch.equal(got, want))
+            launched = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
             rec[kind] = {"seconds": seconds, "bytes": os.path.getsize(path), "meta": meta,
-                         "bit_exact": equal}
+                         "bit_exact": equal, "kernel_launches": launched}
             if kind == "fixed":
                 with torch.inference_mode():
                     rec[kind]["ms_per_frame"] = cuda_ms(lambda: run(x))
                     rec[kind]["live_plain_ms_per_frame"] = cuda_ms(lambda: live(x))
             del run, live
     emit("artifact", **rec)
-    if not all(all(r["bit_exact"].values()) for r in rec.values()):
-        raise AssertionError(f"an artifact differs from the live plain path: {rec}")
+    if not all(all(r["bit_exact"].values()) and not r["kernel_launches"] for r in rec.values()):
+        raise AssertionError(f"an artifact differs from the live plain path, or a "
+                             f"hand-written kernel ran: {rec}")
     return rec
 
 
@@ -1386,11 +1506,12 @@ def phase_train(dev, batch) -> dict:
         finally:
             os.chdir(cwd)
     # per phase: TRAIN_STEPS G steps (one K4 and one K5 each) and
-    # TRAIN_STEPS + 3 G forwards (the steps and the 3 validation pairs)
+    # TRAIN_STEPS + 3 G forwards (the steps and the 3 validation pairs, whose
+    # eval trunk is kernel E)
     steps = TRAIN_STEPS
     want = {"packed_trunk_fwd": 2 * steps, "packed_trunk_bwd": 2 * steps,
             "coarse_conv_s2d": 2 * (steps + 3), "serving_tail": 0, "fused_trunk": 0,
-            "buddy_select": 0}
+            "buddy_select": 0, "eval_trunk": 2 * 3}
     fresh = _gan_state(cfg_t, dev)
     moved = {"g": bool((_flat(state.g_model) != _flat(fresh.g_model)).any()),
              "d": bool((_flat(state.d_model) != _flat(fresh.d_model)).any())}
@@ -1705,7 +1826,7 @@ def phase_data(dev) -> dict:
                         "device_cache_eager_steps": eager_runs}
         want_counts = {"packed_trunk_fwd": DATA_STEPS, "packed_trunk_bwd": DATA_STEPS,
                        "coarse_conv_s2d": DATA_STEPS + 3, "serving_tail": 0,
-                       "fused_trunk": 0, "buddy_select": 0}
+                       "fused_trunk": 0, "buddy_select": 0, "eval_trunk": 3}
         del auto
     # (4) 120^2 tiles, crop + augment on the card against the CPU function
     with tempfile.TemporaryDirectory() as tmp:
@@ -2136,7 +2257,8 @@ def phase_dist(dev) -> dict:
     g_steps = 2 * DIST_STEPS  # warmup's and train's
     want = [{"packed_trunk_fwd": g_steps, "packed_trunk_bwd": g_steps,
              "coarse_conv_s2d": g_steps + (6 if r == 0 else 0), "serving_tail": 0,
-             "fused_trunk": 0, "buddy_select": 0} for r in range(2)]
+             "fused_trunk": 0, "buddy_select": 0, "eval_trunk": 6 if r == 0 else 0}
+            for r in range(2)]
     b = {"launches_per_rank": [s["launches"] for s in local], "launches_expected": want,
          "launches_one_rank": one["local"]["launches"],
          "running_bit_identical": all(np.array_equal(ranks[0]["local/" + k],
@@ -2698,13 +2820,15 @@ def phase_run(dev, vgg: str) -> dict:
         # and 1, one trunk kernel forward each, and K5 under "packed" and
         # "xpack", which is "packed" in training; unfused launches none),
         # RUN_STEPS + 6 G forwards through kernel A (the steps, 3 validation
-        # and 3 test pairs)
+        # and 3 test pairs), the 6 eval forwards through kernel E where its
+        # gate takes the trunk mode
         steps = {"fused": RUN_STEPS if trunk == "fused" else 0,
                  "packed": RUN_STEPS if trunk in ("packed", "xpack") else 0}
         want = {"coarse_conv_s2d": RUN_STEPS + 6, "serving_tail": 0,
                 "packed_trunk_fwd": steps["packed"], "packed_trunk_bwd": steps["packed"],
                 "fused_trunk": steps["fused"],
-                "buddy_select": RUN_STEPS if job in (0, 1) else 0}
+                "buddy_select": RUN_STEPS if job in (0, 1) else 0,
+                "eval_trunk": 6 if trunk in ("packed", "hybrid", "fused") else 0}
         rec = {"job": job, "experiment": name, "trunk": trunk, "seconds": seconds,
                "launches": counts, "launches_expected": want, "results_files": files,
                "test_images": shots,
@@ -3189,14 +3313,16 @@ BENCH_K7_ROWS = ("flagship-st", "gram-vgg")
 
 def _bench_expected(name: str, k: int) -> dict:
     """A row's launches of each hand-written kernel: kernel A once a G step
-    (the reconstruction conv's forward) and once a frame, K4 and K5 once a
-    G step (the packed auto trunk of bf16 training), K7 once a G step where
-    the row's loss selects buddies on the kernel; nothing else. An e2e
-    epoch is the 12,800-patch pack in batches of 16."""
+    (the reconstruction conv's forward) and once a frame, kernel E once a
+    frame (the bf16 eval trunk), K4 and K5 once a G step (the packed auto
+    trunk of bf16 training), K7 once a G step where the row's loss selects
+    buddies on the kernel; nothing else. An e2e epoch is the 12,800-patch
+    pack in batches of 16."""
     from srgan_st_tpu_torch.tools import bench
 
     if name == "infer-4k":
-        steps, counts = bench.INFER_WARMUP + bench.INFER_ITERS, {"coarse_conv_s2d"}
+        steps = bench.INFER_WARMUP + bench.INFER_ITERS
+        counts = {"coarse_conv_s2d", "eval_trunk"}
     else:
         chunks = (BENCH_CUT["warmup"] + BENCH_CUT["iters"] if name in bench.TRAIN_ROWS
                   else BENCH_CUT["warmup"] + BENCH_CUT["epochs"] * 12_800 // 16 // k)
@@ -3206,7 +3332,7 @@ def _bench_expected(name: str, k: int) -> dict:
             counts.add("buddy_select")
     return {n: steps if n in counts else 0 for n in
             ("coarse_conv_s2d", "serving_tail", "packed_trunk_fwd", "packed_trunk_bwd",
-             "fused_trunk", "buddy_select")}
+             "fused_trunk", "buddy_select", "eval_trunk")}
 
 
 def phase_bench(dev, work: str) -> dict:
@@ -3319,9 +3445,11 @@ def main() -> int:
         return run_bench_only(torch.device("cuda"))
     if sys.argv[1:] == ["--only", "trajectory"]:
         return run_trajectory_only(torch.device("cuda"))
+    if sys.argv[1:] == ["--only", "eval_trunk"]:
+        return run_eval_trunk_only(torch.device("cuda"))
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]} (none, or --only "
-              "graph|soak|bench|trajectory)", file=sys.stderr)
+              "graph|soak|bench|trajectory|eval_trunk)", file=sys.stderr)
         return 2
     return run(torch.device("cuda"))
 
@@ -3383,6 +3511,22 @@ def run_trajectory_only(dev) -> int:
     return 0
 
 
+def run_eval_trunk_only(dev) -> int:
+    """`--only eval_trunk`: the build and kernel E's phase alone (no result
+    line), for working on the eval trunk."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    emit("env", torch=torch.__version__, cuda=torch.version.cuda,
+         device=torch.cuda.get_device_name(0), nvidia_smi=nvidia_smi())
+    phase_build()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    phase_kernel_e(gen, dev)
+    return 0
+
+
 def run(dev) -> int:
     """Every phase, on the CUDA device `dev`."""
     import torch
@@ -3403,6 +3547,8 @@ def run(dev) -> int:
     rec_a = phase_kernel_a(gen, dev)
     torch.cuda.empty_cache()
     rec_b = phase_kernel_b(gen, dev)
+    torch.cuda.empty_cache()
+    rec_e = phase_kernel_e(gen, dev)
     torch.cuda.empty_cache()
 
     rng = np.random.default_rng(0)
@@ -3524,6 +3670,17 @@ def run(dev) -> int:
         "graph_launches": graph_rec["replayed"]["fused_trunk"],
         "bench_launches": _bench_launches("fused_trunk", bench_rec),
         "trajectory_launches": _trajectory_launches("fused_trunk", traj_rec),
+    })
+    kernels.append({
+        "name": "eval_trunk", "tpu_kernel": None, "route": "cuda",
+        "source": "srgan_st_tpu_torch/csrc/eval_trunk.cu",
+        "replaces": "none: the eval trunk (blocks, fusion layer, global skip), plain XLA "
+                    "in the JAX package",
+        "launches": counts["eval_trunk"], "max_abs_err": rec_e["bf16_max_abs_err"],
+        "ms": rec_e["ms"], "plain_ms": rec_e["plain_ms"], "bound_ms": rec_e["bound_ms"],
+        "bound_by": rec_e["bound_by"], "library_ms": rec_e["library_ms"],
+        "shape": rec_e["shape"], "n": rec_e["n"], "train_launches": train_counts["eval_trunk"],
+        "bench_launches": _bench_launches("eval_trunk", bench_rec),
     })
     kernels.append({
         "name": "buddy_select", "tpu_kernel": "K7", "route": "cuda",

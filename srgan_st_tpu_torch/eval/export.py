@@ -28,9 +28,10 @@ A `torch.export` program takes the place of the JAX package's StableHLO:
   torch.library custom ops with fake implementations could be traced, but
   would tie the artifact to this package; ROADMAP.md Queue C.) On a CUDA
   device an artifact therefore runs slower than the live path, which
-  launches kernels A and B. A dynamic export runs the unfused eval trunk
+  launches kernels A, B and E. A dynamic export runs the unfused eval trunk
   (the JAX package falls back to it under symbolic widths); a fixed one
-  keeps TPU.TRUNK_MODE's eval trunk.
+  keeps TPU.TRUNK_MODE's BatchNorm-folded trunk under an xpack mode and
+  runs the unfused blocks under every other (`export_trunk_mode`).
 
 The weights are baked into the program: the artifact is the complete
 model. `export_generator` checks the program against the live module, bit
@@ -93,10 +94,18 @@ class _EvalGenerator(torch.nn.Module):
         return self.g(x, train=False)
 
 
+def export_trunk_mode(trunk_mode: str | None, dynamic: bool) -> str:
+    """The trunk an export traces: the BatchNorm-folded trunk for a fixed-
+    shape export of an xpack mode, else the unfused blocks. No mode may
+    reach a hand-written kernel (the eval auto's kernel E among them): a
+    ctypes launch is not traced by torch.export."""
+    return trunk_mode if not dynamic and trunk_mode in ("xpack", "xpack_eval") else "unfused"
+
+
 def plain_eval_generator(config, variables, dynamic: bool = True, device=None):
     """The eval generator on the plain paths an export traces: the plain
-    coarse conv3 (CONV3_INNER=1), the composed tail, and under dynamic
-    shapes the unfused trunk. Returns a module `fn(x) -> sr` on `device`."""
+    coarse conv3 (CONV3_INNER=1), the composed tail, and the trunk of
+    `export_trunk_mode`. Returns a module `fn(x) -> sr` on `device`."""
     from srgan_st_tpu_torch.core.device import compute_dtype, resolve_device
     from srgan_st_tpu_torch.models.generator import Generator
     from srgan_st_tpu_torch.train.checkpoint import generator_state_dict_from_variables
@@ -106,7 +115,7 @@ def plain_eval_generator(config, variables, dynamic: bool = True, device=None):
                   channels=config.MODEL.G_N_CHANNEL, num_rcb=config.MODEL.G_N_RCB,
                   upscale=config.DATA.UPSCALE_FACTOR,
                   dtype=compute_dtype(config.TPU.COMPUTE_DTYPE),
-                  trunk_mode=None if dynamic else config.TPU.get("TRUNK_MODE"),
+                  trunk_mode=export_trunk_mode(config.TPU.get("TRUNK_MODE"), dynamic),
                   stem_mode=config.TPU.get("STEM_MODE"), conv3_inner=1)
     g.load_state_dict(generator_state_dict_from_variables(variables))
     return _EvalGenerator(g).to(resolve_device(device)).eval()

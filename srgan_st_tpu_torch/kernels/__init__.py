@@ -7,6 +7,7 @@
 | packed_trunk.py | csrc/packed_trunk.cu | packed_trunk.py `_fwd_kernel`, `_bwd_kernel` |
 | fused_trunk.py  | csrc/fused_trunk.cu  | fused_trunk.py `_kernel` |
 | buddy_select.py | csrc/buddy_select.cu | buddy_select.py `_buddy_kernel` |
+| eval_trunk.py   | csrc/eval_trunk.cu   | none: the eval trunk, plain XLA there (kernel E) |
 
 Each wrapper counts its launches in a module-level integer; a replay of a
 captured CUDA graph adds the launches made while it was captured
@@ -31,7 +32,8 @@ _COUNTERS = {"coarse_conv_s2d": ("coarse_conv", "launches"),
              "packed_trunk_fwd": ("packed_trunk", "fwd_launches"),
              "packed_trunk_bwd": ("packed_trunk", "bwd_launches"),
              "fused_trunk": ("fused_trunk", "launches"),
-             "buddy_select": ("buddy_select", "launches")}
+             "buddy_select": ("buddy_select", "launches"),
+             "eval_trunk": ("eval_trunk", "launches")}
 
 
 def _module(name: str):

@@ -24,7 +24,11 @@ through the hand-written K4/K5 kernels (kernels/packed_trunk.py); "hybrid"
 is the plain forward with the K5 backward; "fused", in any train step, runs
 the K6 forward and its torch backward (kernels/fused_trunk.py); "xpack"
 is "packed" in training and, in eval, kernels/xpack_trunk.py's trunk with
-each BatchNorm folded into its conv. The last upsample block's shuffle is elided and the
+each BatchNorm folded into its conv. In eval without gradients, a CUDA bf16
+64-channel trunk under the auto or "packed", "hybrid" or "fused" runs the
+whole `g.trunk` region (blocks, fusion layer, global skip) as kernel E
+(kernels/eval_trunk.py), one call a frame; an explicit "unfused" keeps the
+blocks. The last upsample block's shuffle is elided and the
 reconstruction conv runs on its pre-shuffle activation
 (conv2d_subpixel_pre_shuffled), through the hand-written coarse conv kernel
 by default; TAIL_MODE="fused" runs the last up-conv, PReLU and conv3 as one
@@ -154,6 +158,10 @@ class Generator(nn.Module):
         from srgan_st_tpu_torch.kernels.serving_tail import TailWeights
 
         self._tail_weights = TailWeights()
+        # kernel E's operands of the eval trunk, likewise
+        from srgan_st_tpu_torch.kernels.eval_trunk import EvalTrunkWeights
+
+        self._eval_trunk_weights = EvalTrunkWeights()
         factors = self._up_factors()
         # conv3_mode None: the last block's pixel-shuffle and the
         # reconstruction conv's space-to-depth are exact inverses, so both
@@ -168,6 +176,12 @@ class Generator(nn.Module):
         self.trunk = nn.Sequential(*[ResidualConvBlock(channels) for _ in range(num_rcb)])
         self.conv2 = nn.Sequential(
             Conv2d(channels, channels, 3, 1, 1, bias=False), BatchNorm(channels))
+        # kernel E's modules in its order: conv1_j, conv2_j of each block and
+        # the fusion conv, their BatchNorms, the blocks' PReLUs
+        self._eval_trunk_modules = (
+            [m for blk in self.trunk for m in (blk.rcb[0], blk.rcb[3])] + [self.conv2[0]],
+            [m for blk in self.trunk for m in (blk.rcb[1], blk.rcb[4])] + [self.conv2[1]],
+            [blk.rcb[2] for blk in self.trunk])
         self.upsampling = nn.Sequential(*[
             UpsampleBlock(channels, r, fuse_shuffle=self.fuse and i == len(factors) - 1)
             for i, r in enumerate(factors)
@@ -252,29 +266,38 @@ class Generator(nn.Module):
         H100, a packed GAN step took 0.52-0.61 (Adversarial) and 0.66-0.70
         (run job 0) of an unfused one (PERF.md, "Where the time goes"). In
         a train step "xpack" is "packed": the JAX xpack trunk is K4/K5's
-        function in a TPU lane layout. In eval, an explicit "xpack" takes
-        the BatchNorm-folded trunk and every other mode the unfused blocks
-        (the kernel trunks have no eval mode); "xpack_eval" is eval only
-        and takes even widths, as the JAX Generator does; "packed" and
-        "hybrid" run inside the K4/K5 gate, "fused" at any dtype and shape
-        (on CUDA its kernel raises on what it does not take). With more
-        than one process the kernel trunks run only under LOCAL_BN: sync-BN
-        needs the unfused blocks' cross-rank moments. Elsewhere: unfused."""
-        mode = self.trunk_mode or (
-            "packed" if train and self.dtype == torch.bfloat16 else "unfused")
-        if train and mode == "xpack_eval":
+        function in a TPU lane layout. In eval, "eval" (kernel E, the whole
+        `g.trunk` region in one call) wherever kernels/eval_trunk.py's
+        `gate` holds: no gradient, a CUDA bf16 activation of 64 channels,
+        and the auto, "packed", "hybrid" or "fused" (the JAX package's eval
+        auto is the unfused blocks, its folded trunk opt-in); an explicit "xpack"
+        takes the BatchNorm-folded trunk and every other case the unfused
+        blocks (the training kernel trunks have no eval mode);
+        "xpack_eval" is eval only and takes even widths, as the JAX
+        Generator does; "packed" and "hybrid" run inside the K4/K5 gate,
+        "fused" at any dtype and shape (on CUDA its kernel raises on what
+        it does not take). With more than one process the kernel trunks run
+        only under LOCAL_BN: sync-BN needs the unfused blocks' cross-rank
+        moments. Elsewhere: unfused."""
+        from srgan_st_tpu_torch.kernels import eval_trunk
+
+        if train and self.trunk_mode == "xpack_eval":
             raise ValueError(
                 "trunk_mode='xpack_eval' is an eval-only formulation; use "
                 "trunk_mode='xpack' (eval resolves it to the BN-folded eval "
                 "trunk automatically)")
-        if train and mode == "xpack":
-            mode = "packed"
         if not train:
-            mode = "xpack_eval" if mode.startswith("xpack") else "unfused"
-        if mode == "xpack_eval" and x.shape[2] % 2:
+            if self.trunk_mode in ("xpack", "xpack_eval"):
+                return "unfused" if x.shape[2] % 2 else "xpack_eval"
+            if eval_trunk.gate(train, torch.is_grad_enabled(), x.device.type, x.dtype,
+                               x.shape[-1], self.trunk_mode):
+                return "eval"
             return "unfused"
-        if (train and mode != "unfused" and self.group is not None and self.group.active
-                and not self.local_bn):
+        mode = self.trunk_mode or ("packed" if self.dtype == torch.bfloat16 else "unfused")
+        if mode == "xpack":
+            mode = "packed"
+        if mode != "unfused" and self.group is not None and self.group.active \
+                and not self.local_bn:
             # the kernel trunks normalize with the batch moments they compute
             # per rank; sync-BN needs the unfused blocks' cross-rank mean.
             # Auto falls back, a forced kernel trunk is an error
@@ -289,11 +312,31 @@ class Generator(nn.Module):
             return "unfused"
         return mode
 
-    def _trunk(self, x: torch.Tensor, train: bool) -> torch.Tensor:
-        """The residual trunk on NHWC x; NHWC out. Every path but the
-        unfused blocks reads the blocks' parameters stacked, and in a train
-        step feeds the batch moments it returns to the running-stat EMA."""
-        mode = self._trunk_mode(train, x)
+    def _eval_trunk_operands(self) -> tuple:
+        """Kernel E's operands of the blocks' own parameters and running
+        statistics (kernels/eval_trunk.py `EvalTrunkWeights`), laid out
+        once per parameter version."""
+        convs, bns, prelus = self._eval_trunk_modules
+        # the tensors read from the modules' dicts: the cache's key is read
+        # every frame, and Module.__getattr__ would cost more than the check
+        return self._eval_trunk_weights.get(
+            [c._parameters["weight"] for c in convs],
+            [(b._parameters["weight"], b._parameters["bias"], b._buffers["running_mean"],
+              b._buffers["running_var"]) for b in bns],
+            [a._parameters["weight"] for a in prelus], bns[0].eps)
+
+    def _eval_trunk(self, x: torch.Tensor) -> torch.Tensor:
+        """The `g.trunk` region in eval as kernel E. x: the NHWC stem
+        output; NHWC out."""
+        from srgan_st_tpu_torch.kernels.eval_trunk import eval_trunk
+
+        return eval_trunk(x.contiguous(), *self._eval_trunk_operands())
+
+    def _trunk(self, x: torch.Tensor, train: bool, mode: str) -> torch.Tensor:
+        """The residual trunk on NHWC x in `mode` (not "eval"); NHWC out.
+        Every path but the unfused blocks reads the blocks' parameters
+        stacked, and in a train step feeds the batch moments it returns to
+        the running-stat EMA."""
         if mode == "unfused":
             h = x.permute(0, 3, 1, 2)
             remat = self.remat and torch.is_grad_enabled()
@@ -339,9 +382,13 @@ class Generator(nn.Module):
 
             # High-frequency trunk + linear fusion layer + global skip
             with span("g.trunk"):
-                h = self._trunk(conv1, train).permute(0, 3, 1, 2)
-                conv_fuse, bn_fuse = self.conv2
-                h = bn_fuse(conv_fuse(h), train) + conv1.permute(0, 3, 1, 2)
+                mode = self._trunk_mode(train, conv1)
+                if mode == "eval":
+                    h = self._eval_trunk(conv1).permute(0, 3, 1, 2)
+                else:
+                    h = self._trunk(conv1, train, mode).permute(0, 3, 1, 2)
+                    conv_fuse, bn_fuse = self.conv2
+                    h = bn_fuse(conv_fuse(h), train) + conv1.permute(0, 3, 1, 2)
 
             # Sub-pixel zoom blocks (model.py:118-124)
             factors = self._up_factors()

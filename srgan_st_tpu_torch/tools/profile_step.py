@@ -54,6 +54,9 @@ a `serve.frame` span. The readings:
                          it is its roofline
   host_ms_per_frame      host time of `serve.frame` a frame
   trunk_ms_per_frame     device time under `g.trunk` a frame
+  eval_trunk_ms_per_launch
+                         device time under `kernel.eval_trunk` per call of
+                         kernel E (the eval trunk, one call a frame)
 """
 
 from __future__ import annotations
@@ -262,7 +265,8 @@ def readings(ops: list, rec: dict, units: int, launches: dict) -> dict:
         out["loss_d_forward_ms_per_batch"] = device_ms(
             lambda p: under("loss.")(p) and "d.forward" in p)
     out = {name: v / units for name, v in out.items() if v is not None}
-    for key, counter in (("k4", "packed_trunk_fwd"), ("k5", "packed_trunk_bwd")):
+    for key, counter in (("k4", "packed_trunk_fwd"), ("k5", "packed_trunk_bwd"),
+                         ("eval_trunk", "eval_trunk")):
         ms = device_ms(lambda p, c=counter: f"kernel.{c}" in p)
         if ms is not None and launches.get(counter):
             out[f"{key}_ms_per_launch"] = ms / launches[counter]

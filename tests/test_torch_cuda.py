@@ -414,7 +414,7 @@ def test_generator_train_step_launches_the_kernels(dev):
     torch.cuda.synchronize()
     assert launch_counts() == {"coarse_conv_s2d": 1, "serving_tail": 0,
                                "packed_trunk_fwd": 1, "packed_trunk_bwd": 1,
-                               "fused_trunk": 0, "buddy_select": 0}
+                               "fused_trunk": 0, "buddy_select": 0, "eval_trunk": 0}
     for name, p in g.named_parameters():
         assert p.grad is not None and torch.isfinite(p.grad).all(), name
     assert float(g.conv3.weight.grad.abs().max()) > 0
@@ -825,16 +825,16 @@ def test_xpack_eval_within_envelope_of_unfused(dev):
     out = {}
     reset_launch_counts()
     for dtype in (torch.float32, torch.bfloat16):
-        for mode in (None, "xpack"):
+        for mode in ("unfused", "xpack"):
             g = Generator(num_rcb=4, dtype=dtype, trunk_mode=mode)
             g.load_state_dict(sd)
             with torch.inference_mode():
                 out[(dtype, mode)] = g.to(dev).eval()(lr)
     counts = launch_counts()
-    assert counts["packed_trunk_fwd"] == counts["fused_trunk"] == 0
-    ref = out[(torch.float32, None)]
+    assert counts["packed_trunk_fwd"] == counts["fused_trunk"] == counts["eval_trunk"] == 0
+    ref = out[(torch.float32, "unfused")]
     assert _err(out[(torch.float32, "xpack")], ref) <= 1e-4
-    env = _err(out[(torch.bfloat16, None)], ref)
+    env = _err(out[(torch.bfloat16, "unfused")], ref)
     assert 0 < env and _err(out[(torch.bfloat16, "xpack")], ref) <= 2 * env
 
 
@@ -1171,3 +1171,152 @@ def test_replayed_ops_take_the_regions_that_captured_them(dev, kind):
     assert named and under - copies == named
     adam = [p for op, p in zip(ops, parts) if "multi_tensor_apply_kernel" in op[2]]
     assert adam and all(any(n.startswith("optim.") for n in p) for p in adam)
+
+
+def _eval_trunk_operands(dev, n, seed=5):
+    """Random eval trunk operands of n blocks at 64 channels: HWIO kernels
+    N(0, 1/fan_in), BatchNorms with non-trivial running statistics as their
+    f32 affine, slopes in [0.1, 0.3]."""
+    from srgan_st_tpu_torch.kernels.eval_trunk import affine
+
+    rng = np.random.default_rng(seed)
+    m = 2 * n + 1
+    ws = torch.from_numpy(rng.standard_normal((m, 3, 3, 64, 64), np.float32) / 24.0)
+    gam = torch.from_numpy(rng.uniform(0.5, 1.0, (m, 64)).astype(np.float32))
+    bet = torch.from_numpy(0.1 * rng.standard_normal((m, 64), np.float32))
+    mean = torch.from_numpy(0.1 * rng.standard_normal((m, 64), np.float32))
+    var = torch.from_numpy(rng.uniform(0.5, 1.5, (m, 64)).astype(np.float32))
+    scale, shift = affine(gam, bet, mean, var, 1e-5)
+    als = torch.from_numpy(rng.uniform(0.1, 0.3, n).astype(np.float32))
+    return [t.to(dev) for t in (ws, scale, shift, als)], (gam, bet, mean, var)
+
+
+def _eval_blocks_f32(x, ws, gam, bet, mean, var, als, eps=1e-5):
+    """The g.trunk region as the f32 eval blocks compute it (TF32 off):
+    conv, (a - m) rsqrt(v + eps) w + b, PReLU, conv, BN, + x; the fusion
+    conv, BN, + the stem output. NHWC f32."""
+    import torch.nn.functional as F
+
+    def conv(h, i):
+        a = F.conv2d(h.permute(0, 3, 1, 2), ws[i].permute(3, 2, 0, 1).float(), padding=1)
+        a = a.permute(0, 2, 3, 1)
+        return (a - mean[i]) * torch.rsqrt(var[i] + eps) * gam[i] + bet[i]
+
+    x0 = h = x.float()
+    for j in range(als.shape[0]):
+        a = conv(h, 2 * j)
+        h = h + conv(torch.where(a >= 0, a, als[j] * a), 2 * j + 1)
+    return conv(h, 2 * als.shape[0]) + x0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 540, 960, 64), (2, 96, 96, 64), (1, 37, 53, 64)])
+def test_eval_trunk_matches_plain(dev, shape):
+    """Kernel E (16 blocks and the fusion conv) against its plain version
+    on the same bf16 operands, and against the f32 eval blocks within 2x
+    the blocks' own bf16 envelope; one call counted; a second call gives
+    the same bits. (1, 37, 53) is odd and narrower than one 64-pixel row
+    tile; (2, 96, 96) ends each row in a partial tile."""
+    from srgan_st_tpu_torch.kernels import eval_trunk as et
+    from srgan_st_tpu_torch.kernels.packed_trunk import _conv
+
+    (ws, scale, shift, als), stats = _eval_trunk_operands(dev, 16)
+    x = (torch.rand(shape, generator=torch.Generator(device=dev).manual_seed(7), device=dev)
+         - 0.5).bfloat16()
+    before = et.launches
+    got = et.eval_trunk(x, ws, scale, shift, als)
+    torch.cuda.synchronize()
+    assert et.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    assert torch.isfinite(got.float()).all()
+    assert torch.equal(got, et.eval_trunk(x, ws, scale, shift, als))
+    ref = et.eval_trunk_reference(x, ws, scale, shift, als)
+    gam, bet, mean, var = (t.to(dev) for t in stats)
+    ref32 = _eval_blocks_f32(x, ws, gam, bet, mean, var, als)
+    # the blocks in bf16: each step rounded, as models/common.py computes them
+    cdt, h = torch.bfloat16, x
+    for j in range(16):
+        a = _conv(h, ws[2 * j].bfloat16()).bfloat16()
+        a = (a - mean[2 * j].to(cdt)) * torch.rsqrt(var[2 * j].to(cdt) + 1e-5) \
+            * gam[2 * j].to(cdt) + bet[2 * j].to(cdt)
+        a = torch.where(a >= 0, a, als[j].to(cdt) * a)
+        b = _conv(a, ws[2 * j + 1].bfloat16()).bfloat16()
+        h = h + ((b - mean[2 * j + 1].to(cdt)) * torch.rsqrt(var[2 * j + 1].to(cdt) + 1e-5)
+                 * gam[2 * j + 1].to(cdt) + bet[2 * j + 1].to(cdt))
+    b = _conv(h, ws[32].bfloat16()).bfloat16()
+    blocks16 = x + ((b - mean[32].to(cdt)) * torch.rsqrt(var[32].to(cdt) + 1e-5)
+                    * gam[32].to(cdt) + bet[32].to(cdt))
+    env = _err(blocks16, ref32)
+    err_ref, err32 = _err(got, ref), _err(got, ref32)
+    print(f"eval_trunk {shape}: |kernel - plain| {err_ref}, |kernel - f32| {err32}, "
+          f"|plain - f32| {_err(ref, ref32)}, envelope {env}")
+    # the kernel and its plain version differ by their f32 sums' order: a
+    # rounding flipped here and there, carried through the blocks, within
+    # what the blocks' own roundings move
+    assert 0 < env and err32 <= 2 * env
+    assert err_ref <= env
+
+
+@pytest.mark.cuda
+def test_eval_trunk_raises_outside_its_gate(dev):
+    from srgan_st_tpu_torch.kernels import eval_trunk as et
+
+    (ws, scale, shift, als), _ = _eval_trunk_operands(dev, 1)
+    for x in (torch.zeros(1, 8, 8, 64, device=dev),                       # f32
+              torch.zeros(1, 8, 8, 32, device=dev, dtype=torch.bfloat16)):  # C = 32
+        with pytest.raises(ValueError, match="eval_trunk"):
+            et.eval_trunk(x, ws, scale, shift, als)
+
+
+@pytest.mark.cuda
+def test_serving_frame_takes_kernel_e_under_g_trunk(dev):
+    """make_generator_apply on a 4K frame (960x540 in, batch 1, bf16, the
+    default config) runs the g.trunk region as kernel E: one call a frame,
+    33 kernel-E convs under `g.trunk` and none elsewhere, no eager
+    BatchNorm or PReLU op under it; the output within 2x the bf16 network's
+    envelope of the f32 network."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from srgan_st_tpu_torch.core.config import Config
+    from srgan_st_tpu_torch.eval.validate import make_generator_apply
+    from srgan_st_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from srgan_st_tpu_torch.models.generator import random_variables
+    from srgan_st_tpu_torch.tools import profile_step as T
+
+    variables = random_variables(0)
+    fns = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg = Config()
+        cfg.TPU.COMPUTE_DTYPE = dtype
+        fns[dtype] = make_generator_apply(cfg, variables, dev)
+    x = torch.rand(1, 540, 960, 3, generator=torch.Generator(device=dev).manual_seed(3),
+                   device=dev)
+    fns["bfloat16"](x)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out16 = fns["bfloat16"](x)
+        torch.cuda.synchronize()
+    assert launch_counts()["eval_trunk"] == 1
+    ops, calls, spans = T.trace_events(prof)
+    rec = T.program_trace(ops, calls, spans)
+    labels = [set(lab.split("/")) if lab else set() for lab in rec["labels"]]
+    ops = sorted(ops)
+    kernel_e = [p for op, p in zip(ops, labels) if "eval_trunk_conv" in op[2]]
+    assert len(kernel_e) == 33 and all("g.trunk" in p and "kernel.eval_trunk" in p
+                                       for p in kernel_e)
+    trunk_ops = [op[2] for op, p in zip(ops, labels) if "g.trunk" in p]
+    assert all("eval_trunk_conv" in name for name in trunk_ops), sorted(set(trunk_ops))
+    out32 = fns["float32"](x)
+    ref16 = make_generator_apply(_config_unfused(), variables, dev)(x)
+    env = _err(ref16, out32)
+    assert 0 < env and _err(out16, out32) <= 2 * env, (_err(out16, out32), env)
+
+
+def _config_unfused():
+    from srgan_st_tpu_torch.core.config import Config
+
+    cfg = Config()
+    cfg.TPU.COMPUTE_DTYPE = "bfloat16"
+    cfg.TPU.TRUNK_MODE = "unfused"
+    return cfg
