@@ -1511,7 +1511,7 @@ def phase_train(dev, batch) -> dict:
     steps = TRAIN_STEPS
     want = {"packed_trunk_fwd": 2 * steps, "packed_trunk_bwd": 2 * steps,
             "coarse_conv_s2d": 2 * (steps + 3), "serving_tail": 0, "fused_trunk": 0,
-            "buddy_select": 0, "eval_trunk": 2 * 3}
+            "buddy_select": 0, "eval_trunk": 2 * 3, "rrdb_trunk": 0}
     fresh = _gan_state(cfg_t, dev)
     moved = {"g": bool((_flat(state.g_model) != _flat(fresh.g_model)).any()),
              "d": bool((_flat(state.d_model) != _flat(fresh.d_model)).any())}
@@ -1826,7 +1826,8 @@ def phase_data(dev) -> dict:
                         "device_cache_eager_steps": eager_runs}
         want_counts = {"packed_trunk_fwd": DATA_STEPS, "packed_trunk_bwd": DATA_STEPS,
                        "coarse_conv_s2d": DATA_STEPS + 3, "serving_tail": 0,
-                       "fused_trunk": 0, "buddy_select": 0, "eval_trunk": 3}
+                       "fused_trunk": 0, "buddy_select": 0, "eval_trunk": 3,
+                       "rrdb_trunk": 0}
         del auto
     # (4) 120^2 tiles, crop + augment on the card against the CPU function
     with tempfile.TemporaryDirectory() as tmp:
@@ -2257,7 +2258,8 @@ def phase_dist(dev) -> dict:
     g_steps = 2 * DIST_STEPS  # warmup's and train's
     want = [{"packed_trunk_fwd": g_steps, "packed_trunk_bwd": g_steps,
              "coarse_conv_s2d": g_steps + (6 if r == 0 else 0), "serving_tail": 0,
-             "fused_trunk": 0, "buddy_select": 0, "eval_trunk": 6 if r == 0 else 0}
+             "fused_trunk": 0, "buddy_select": 0, "eval_trunk": 6 if r == 0 else 0,
+             "rrdb_trunk": 0}
             for r in range(2)]
     b = {"launches_per_rank": [s["launches"] for s in local], "launches_expected": want,
          "launches_one_rank": one["local"]["launches"],
@@ -2828,7 +2830,8 @@ def phase_run(dev, vgg: str) -> dict:
                 "packed_trunk_fwd": steps["packed"], "packed_trunk_bwd": steps["packed"],
                 "fused_trunk": steps["fused"],
                 "buddy_select": RUN_STEPS if job in (0, 1) else 0,
-                "eval_trunk": 6 if trunk in ("packed", "hybrid", "fused") else 0}
+                "eval_trunk": 6 if trunk in ("packed", "hybrid", "fused") else 0,
+                "rrdb_trunk": 0}
         rec = {"job": job, "experiment": name, "trunk": trunk, "seconds": seconds,
                "launches": counts, "launches_expected": want, "results_files": files,
                "test_images": shots,
@@ -3332,7 +3335,7 @@ def _bench_expected(name: str, k: int) -> dict:
             counts.add("buddy_select")
     return {n: steps if n in counts else 0 for n in
             ("coarse_conv_s2d", "serving_tail", "packed_trunk_fwd", "packed_trunk_bwd",
-             "fused_trunk", "buddy_select", "eval_trunk")}
+             "fused_trunk", "buddy_select", "eval_trunk", "rrdb_trunk")}
 
 
 def phase_bench(dev, work: str) -> dict:

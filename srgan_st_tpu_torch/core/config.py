@@ -6,11 +6,13 @@ training slices read, and its `--set GROUP.FIELD=value` CLI overrides. Key
 names and defaults are the same, so a config carries over unchanged:
 `TPU.*` names settings (compute dtype, trunk and tail modes, conv3 inner
 factoring, tiled eval, the data-parallel layout and LOCAL_BN, chunking,
-CUDA graphs, the NaN guard, remat), not hardware. `TPU.DONATE` is no key
-of the port: its steps update the state in place, which is what donation
-buys in JAX. `TPU.SHARD_MAP` is not a key either. `EXP.ORBAX_CHECKPOINTS`
-keeps its name and writes `torch.distributed.checkpoint` directories
-(train/checkpoint.py), not orbax ones.
+CUDA graphs, the NaN guard, remat), not hardware. `MODEL.G_ARCH` and
+`MODEL.G_N_GROW` are the port's own: its second generator. `TPU.DONATE`
+is no key of the port: its steps update the state in place, which is
+what donation buys in JAX. `TPU.SHARD_MAP` is not a key either.
+`EXP.ORBAX_CHECKPOINTS` keeps its name and writes
+`torch.distributed.checkpoint` directories (train/checkpoint.py), not
+orbax ones.
 """
 
 from __future__ import annotations
@@ -87,8 +89,12 @@ class Config:
         self.MODEL.D_WARMUP_WEIGHTS = ""
         self.MODEL.G_IN_CHANNEL = 3
         self.MODEL.G_OUT_CHANNEL = 3
-        self.MODEL.G_N_CHANNEL = 64
-        self.MODEL.G_N_RCB = 16
+        # the generator: "srresnet" (models/generator.py) or "rrdb"
+        # (models/rrdb.py, Real-ESRGAN x4plus's RRDBNet; eval only)
+        self.MODEL.G_ARCH = "srresnet"
+        self.MODEL.G_N_CHANNEL = 64         # under "rrdb": num_feat
+        self.MODEL.G_N_RCB = 16             # residual blocks; under "rrdb": RRDBs
+        self.MODEL.G_N_GROW = 32            # "rrdb" only: the dense blocks' growth width
         self.MODEL.G_LOSS = dotdict()
         # VGG19 tap points and weights of ContentVGG (reference config.py:60-64)
         self.MODEL.G_LOSS.VGG19_LAYERS = {

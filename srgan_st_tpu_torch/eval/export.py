@@ -58,10 +58,19 @@ _MAGIC = b"SRGANX1\n"
 FORMAT = "srgan-st-tpu-torch/torch.export"
 
 
+NO_RRDB = ("export takes SRResNet generators only: the RRDB generator (MODEL.G_ARCH "
+           "'rrdb') is served live, by infer and validate")
+
+
 def derive_arch(variables) -> dict:
     """Recover (channels, num_rcb, upscale) from a generator variable tree:
     conv1's kernel carries the width, the ``rcb{i}`` subtrees the depth,
-    and each ``up{i}`` block's conv expands channels by r^2."""
+    and each ``up{i}`` block's conv expands channels by r^2. An RRDBNet
+    state dict raises: export takes SRResNet generators only."""
+    from srgan_st_tpu_torch.models.rrdb import is_rrdb_state
+
+    if is_rrdb_state(variables):
+        raise ValueError(NO_RRDB)
     params = variables.get("params", variables)
     channels = int(np.asarray(params["conv1"]["kernel"]).shape[-1])
     num_rcb = sum(1 for k in params if re.fullmatch(r"rcb\d+", k))
@@ -110,6 +119,8 @@ def plain_eval_generator(config, variables, dynamic: bool = True, device=None):
     from srgan_st_tpu_torch.models.generator import Generator
     from srgan_st_tpu_torch.train.checkpoint import generator_state_dict_from_variables
 
+    if config.MODEL.get("G_ARCH", "srresnet") != "srresnet":
+        raise ValueError(NO_RRDB)
     g = Generator(in_channels=config.MODEL.G_IN_CHANNEL,
                   out_channels=config.MODEL.G_OUT_CHANNEL,
                   channels=config.MODEL.G_N_CHANNEL, num_rcb=config.MODEL.G_N_RCB,

@@ -6,7 +6,11 @@
         --input photos/ --output photos_x4/ [--tiled] [--bf16]
 
 * weights are the JAX package's npz format (`g_best.npz`), carried into the
-  torch generator by train/checkpoint.py;
+  torch generator by train/checkpoint.py, or a Real-ESRGAN / basicsr
+  RRDBNet state dict (`.pth` in the release layout, `{"params_ema": sd}`,
+  `{"params": sd}` or bare, or an npz of its names); the checkpoint's keys
+  pick the architecture (`body.0.rdb1.conv1.weight`: RRDBNet) and its
+  shapes the widths, depth and factor;
 * accepts a single image file or a directory (png/jpg/bmp/tif);
 * `--tiled` runs the halo-tiled applier (eval/tiled.py): one tile-batch
   shape for any image size and bounded device memory;
@@ -46,11 +50,30 @@ def _save_png(path: str, img01: np.ndarray) -> None:
     _write_png(path, rgb[..., ::-1])
 
 
+def load_generator_weights(path: str) -> dict:
+    """A generator checkpoint: an npz (a JAX-format variables tree, or a
+    flat state dict), or a torch file holding a state dict, bare or under
+    "params_ema" or "params" (Real-ESRGAN's release layout; "params_ema"
+    first, as its inference loads it)."""
+    if not path.endswith((".pth", ".pt")):
+        from srgan_st_tpu_torch.train.checkpoint import load_params_npz
+
+        return load_params_npz(path)
+    import torch
+
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    for key in ("params_ema", "params"):
+        if key in state:
+            return state[key]
+    return state
+
+
 def make_infer_fn(config, gpath: str | None = None, device=None):
     """`fn(lr_nhwc float32 [0,1]) -> sr_nhwc` for the generator in the
     checkpoint at `gpath` (default results/<EXP.NAME>/g_best.npz), or the
     bicubic / nearest baseline by EXP.NAME. The checkpoint, not the config,
-    defines the architecture."""
+    defines the architecture: its keys pick SRResNet or RRDBNet
+    (MODEL.G_ARCH), its shapes the widths, depth and factor."""
     from srgan_st_tpu_torch.models.baselines import baseline
 
     if config.EXP.NAME in ("bicubic", "nearest"):
@@ -58,11 +81,20 @@ def make_infer_fn(config, gpath: str | None = None, device=None):
 
     from srgan_st_tpu_torch.eval.export import derive_arch
     from srgan_st_tpu_torch.eval.validate import make_generator_apply
-    from srgan_st_tpu_torch.train.checkpoint import load_params_npz
+    from srgan_st_tpu_torch.models import rrdb
 
     if not gpath:
         gpath = f"results/{config.EXP.NAME}/g_best.npz"
-    variables = load_params_npz(gpath)
+    variables = load_generator_weights(gpath)
+    if rrdb.is_rrdb_state(variables):
+        arch = rrdb.arch_of_state(variables)
+        m = config.MODEL
+        m.G_ARCH, m.G_N_CHANNEL, m.G_N_RCB, m.G_N_GROW = (
+            "rrdb", arch["channels"], arch["num_block"], arch["growth"])
+        m.G_IN_CHANNEL, m.G_OUT_CHANNEL = arch["in_channels"], arch["out_channels"]
+        config.DATA.UPSCALE_FACTOR = arch["upscale"]
+        return make_generator_apply(config, variables, device=device)
+    config.MODEL.G_ARCH = "srresnet"
     arch = derive_arch(variables)
     config.MODEL.G_N_CHANNEL = arch["channels"]
     config.MODEL.G_N_RCB = arch["num_rcb"]
@@ -104,8 +136,8 @@ def main(argv=None) -> None:
     parser.add_argument("--output", type=str, required=True,
                         help="output directory")
     parser.add_argument("--gpath", type=str, default=None,
-                        help="generator weights (.npz); default "
-                             "results/<exp_name>/g_best.npz")
+                        help="generator weights (.npz, or a Real-ESRGAN .pth); "
+                             "default results/<exp_name>/g_best.npz")
     parser.add_argument("--artifact", type=str, default=None,
                         help="serve from an exported torch.export artifact "
                              "(.srganx, see eval/export.py) instead of weights "

@@ -14,7 +14,8 @@ the output equals the one-rank output bit for bit.
 Receptive-field radius of the SRResNet generator in LR pixels:
 conv1 9x9 (4) + num_rcb RCBs x 2 conv3x3 (2*num_rcb) + conv2 (1) +
 upsample conv3x3 per stage (1 each) + conv3 9x9 at HR (= ceil(4/upscale))
--> 40 for the default config.
+-> 40 for the default config; of the RRDB generator
+(`models/rrdb.py` `receptive_radius`) 15 a block + 4 -> 349 for 23.
 """
 
 from __future__ import annotations
@@ -32,8 +33,13 @@ def to_numpy(x) -> np.ndarray:
     return np.asarray(x)
 
 
-def generator_halo(num_rcb: int = 16, upscale: int = 4) -> int:
-    """Receptive-field radius (LR px) of the SRResNet generator."""
+def generator_halo(num_rcb: int = 16, upscale: int = 4, arch: str = "srresnet") -> int:
+    """Receptive-field radius (LR px) of the generator `arch`
+    (MODEL.G_ARCH) of `num_rcb` blocks."""
+    if arch == "rrdb":
+        from srgan_st_tpu_torch.models.rrdb import receptive_radius
+
+        return receptive_radius(num_rcb)
     n_up = int(math.log2(upscale)) if upscale in (2, 4, 8) else 1
     return 4 + 2 * num_rcb + 1 + n_up + max(1, -(-4 // upscale))
 

@@ -114,20 +114,26 @@ def _write_png(path: str, bgr_img: np.ndarray) -> None:
 
 def make_generator_apply(config, variables, device=None):
     """Eval-mode generator `fn(lr_nhwc) -> sr_nhwc` (a float32 tensor on
-    `device`) with running BN statistics, from a JAX-format variables tree.
-    Runs on CUDA unless `device` says otherwise; a call is the span
-    `serve.frame`, its frame number as args. With
-    config.TPU.TILED_EVAL, wraps the halo-tiled applier (numpy out), and
-    with config.TPU.SELF_ENSEMBLE the x8 self-ensemble around it."""
+    `device`) of the architecture MODEL.G_ARCH names: SRResNet with running
+    BN statistics from a JAX-format variables tree, or RRDBNet from its
+    state dict (basicsr's names; tensors or arrays). Runs on CUDA unless
+    `device` says otherwise; a call is the span `serve.frame`, its frame
+    number as args. With config.TPU.TILED_EVAL, wraps the halo-tiled
+    applier (numpy out), and with config.TPU.SELF_ENSEMBLE the x8
+    self-ensemble around it."""
     from srgan_st_tpu_torch.core.device import resolve_device
-    from srgan_st_tpu_torch.models.generator import Generator
+    from srgan_st_tpu_torch.models.generator import build_generator
     from srgan_st_tpu_torch.train.checkpoint import (
         generator_state_dict_from_variables,
     )
 
     dev = resolve_device(device)
-    g_model = Generator.from_config(config)
-    g_model.load_state_dict(generator_state_dict_from_variables(variables))
+    arch = config.MODEL.get("G_ARCH", "srresnet")
+    g_model = build_generator(config)
+    if arch == "rrdb":
+        g_model.load_state_dict({k: torch.as_tensor(v) for k, v in variables.items()})
+    else:
+        g_model.load_state_dict(generator_state_dict_from_variables(variables))
     g_model.to(dev).eval()
 
     frames = itertools.count()
@@ -143,7 +149,7 @@ def make_generator_apply(config, variables, device=None):
 
         apply_fn = TiledApplier(
             apply_fn, upscale=config.DATA.UPSCALE_FACTOR,
-            halo=generator_halo(config.MODEL.G_N_RCB, config.DATA.UPSCALE_FACTOR),
+            halo=generator_halo(config.MODEL.G_N_RCB, config.DATA.UPSCALE_FACTOR, arch),
         )
     if config.TPU.get("SELF_ENSEMBLE"):
         from srgan_st_tpu_torch.eval.ensemble import self_ensemble

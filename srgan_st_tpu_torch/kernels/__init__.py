@@ -11,7 +11,9 @@
 
 Each wrapper counts its launches in a module-level integer; a replay of a
 captured CUDA graph adds the launches made while it was captured
-(`add_launch_counts`). xpack_trunk.py
+(`add_launch_counts`). Beside them, "rrdb_trunk" counts the calls of
+models/rrdb.py's dense trunk, which no kernel of the port computes.
+xpack_trunk.py
 has no kernel: the JAX module it ports is plain XLA, so its eval trunk is
 plain torch, and its training trunk is packed_trunk.py's.
 """
@@ -33,13 +35,16 @@ _COUNTERS = {"coarse_conv_s2d": ("coarse_conv", "launches"),
              "packed_trunk_bwd": ("packed_trunk", "bwd_launches"),
              "fused_trunk": ("fused_trunk", "launches"),
              "buddy_select": ("buddy_select", "launches"),
-             "eval_trunk": ("eval_trunk", "launches")}
+             "eval_trunk": ("eval_trunk", "launches"),
+             "rrdb_trunk": ("srgan_st_tpu_torch.models.rrdb", "trunk_calls")}
 
 
 def _module(name: str):
+    """A kernel wrapper of this package by its name, or a module by its
+    full name."""
     import importlib
 
-    return importlib.import_module(f"srgan_st_tpu_torch.kernels.{name}")
+    return importlib.import_module(name if "." in name else f"srgan_st_tpu_torch.kernels.{name}")
 
 
 def reset_launch_counts() -> None:
@@ -49,7 +54,8 @@ def reset_launch_counts() -> None:
 
 
 def launch_counts() -> dict[str, int]:
-    """Executed launches of each kernel: eager calls and graph replays."""
+    """Executed launches of each kernel, eager calls and graph replays, and
+    the dense trunk's calls ("rrdb_trunk")."""
     return {name: getattr(_module(module), attr) for name, (module, attr) in _COUNTERS.items()}
 
 

@@ -457,3 +457,19 @@ def random_variables(seed: int, channels: int = 64, num_rcb: int = 16,
     params["conv3"] = conv(9, channels, out_channels, scale=0.5)
     params["conv3"]["bias"] = np.full(out_channels, 0.5, f32)
     return {"params": params, "batch_stats": stats}
+
+
+GENERATOR_ARCHS = ("srresnet", "rrdb")
+
+
+def build_generator(config, dtype: torch.dtype | None = None) -> nn.Module:
+    """The generator MODEL.G_ARCH names: SRResNet (`Generator.from_config`)
+    or Real-ESRGAN's RRDBNet (models/rrdb.py, eval only)."""
+    arch = config.MODEL.get("G_ARCH", "srresnet")
+    if arch == "srresnet":
+        return Generator.from_config(config, dtype)
+    if arch == "rrdb":
+        from srgan_st_tpu_torch.models.rrdb import RRDBNet
+
+        return RRDBNet.from_config(config, dtype)
+    raise ValueError(f"MODEL.G_ARCH={arch!r}: expected one of {GENERATOR_ARCHS}")

@@ -414,7 +414,8 @@ def test_generator_train_step_launches_the_kernels(dev):
     torch.cuda.synchronize()
     assert launch_counts() == {"coarse_conv_s2d": 1, "serving_tail": 0,
                                "packed_trunk_fwd": 1, "packed_trunk_bwd": 1,
-                               "fused_trunk": 0, "buddy_select": 0, "eval_trunk": 0}
+                               "fused_trunk": 0, "buddy_select": 0, "eval_trunk": 0,
+                               "rrdb_trunk": 0}
     for name, p in g.named_parameters():
         assert p.grad is not None and torch.isfinite(p.grad).all(), name
     assert float(g.conv3.weight.grad.abs().max()) > 0
@@ -1320,3 +1321,60 @@ def _config_unfused():
     cfg.TPU.COMPUTE_DTYPE = "bfloat16"
     cfg.TPU.TRUNK_MODE = "unfused"
     return cfg
+
+
+# ---------------------------------------------------------------------------
+# The RRDB generator (Real-ESRGAN x4plus) on the serving path
+
+@pytest.mark.cuda
+def test_rrdb_frame_at_540p_matches_the_reference_and_launches_no_kernel(dev):
+    """A 960 x 540 frame of the published configuration through
+    make_generator_apply (bf16) against benchmark/reference/rrdb.py (f32,
+    TF32 off) within the cell's limits; no kernel of the port launched,
+    the trunk counted once, and `g.trunk` holding the dense trunk's 346
+    convs (23 x 3 x 5 and conv_body) and nothing of the HR stage."""
+    import os
+    import sys
+
+    from torch.profiler import ProfilerActivity, profile
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from benchmark import compare, harness, seeded, seeded_rrdb
+    from benchmark.drivers.serve_rrdb import program_config
+    from benchmark.reference.rrdb import upscale
+    from srgan_st_tpu_torch.eval.validate import make_generator_apply
+    from srgan_st_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from srgan_st_tpu_torch.models.rrdb import RRDBNet
+    from srgan_st_tpu_torch.tools import profile_step as T
+
+    cfg = harness.load_json("configs", "realesrgan_x4plus.json")
+    limits = harness.load_json("workloads", "realesrgan_x4plus.video_4k.json")["limits"]
+    gen = seeded.generator_for(2**31 + 99, dev)
+    sd = seeded_rrdb.state(cfg, gen, dev)
+    fn = make_generator_apply(program_config(cfg), sd, dev)
+    assert isinstance(fn.model, RRDBNet) and fn.model.dtype == torch.bfloat16
+    x = torch.rand(1, 540, 960, 3, generator=gen, device=dev)
+    fn(x)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sr = fn(x)
+        torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts.pop("rrdb_trunk") == 1 and set(counts.values()) == {0}, counts
+    ops, calls, spans = T.trace_events(prof)
+    rec = T.program_trace(ops, calls, spans)
+    ops = sorted(ops)
+    labels = [set(lab.split("/")) if lab else set() for lab in rec["labels"]]
+    convs = [p for op, p in zip(ops, labels) if "fprop" in op[2] or "conv" in op[2].lower()]
+    in_trunk = [p for p in convs if "g.trunk" in p]
+    assert len(in_trunk) >= 346 and not any("g.upsample" in p or "g.tail" in p
+                                            for p in in_trunk)
+    assert rec["regions"]["g.trunk"] >= 0.8 * sum(rec["regions"][r] for r in (
+        "g.stem", "g.trunk", "g.upsample", "g.tail"))
+    ref = upscale(sd, x)
+    rms, big = compare.frame_gaps(sr, ref)
+    assert sr.shape == (1, 2160, 3840, 3)
+    assert rms <= limits["frame_rms_gap"] and big <= limits["frame_max_gap"], (rms, big)
