@@ -22,7 +22,14 @@ toolkit. In order, each phase printing one JSON line:
            plain version's own bf16 envelope, with a second call's bits,
            and its time at 4K beside its bound, its plain version's and
            the cuDNN blocks' (`--only eval_trunk`: the build and this
-           alone);
+           alone); then kernel R (Real-ESRGAN's RRDBs, bf16 only) at
+           (1, 37, 53), (2, 64, 96) and the video frame within 2x its plain
+           version's envelope, a second call's bits, one RRDB's and the
+           23's times at 540p beside the bound, the plain version and the
+           cuDNN blocks, the 23's output within the same rule; then the
+           RRDB serving entry (make_generator_apply, G_ARCH "rrdb"): one
+           540p frame's launch counts, reset just before it (`--only
+           rrdb_dense`: the build and these alone);
   serve    seeded full-width weights (16 RCB, 64 channels, x4) written as
            a JAX-format npz and served in bf16 through make_infer_fn /
            upscale_image: a 960x540 frame in the composed tail mode and
@@ -333,6 +340,11 @@ SHAPE_E_4K = (1, *LR_4K, 64)
 SHAPES_E = (SHAPE_E_4K, (1, 384, 542, 64), (16, 72, 72, 64), (1, *LR_ENSEMBLE, 64),
             (1, LR_ENSEMBLE[1], LR_ENSEMBLE[0], 64), (2, 96, 96, 64), (1, 37, 53, 64))
 E_BLOCKS = 16
+# kernel R: the gated shapes (2 RRDBs; 1 at the video cell's frame), and
+# the published trunk's RRDBs for the timing
+SHAPE_R_4K = (1, *LR_4K, 64)
+SHAPES_R = ((1, 37, 53, 64), (2, 64, 96, 64), SHAPE_R_4K)
+R_BLOCKS = 23
 
 # The trunk kernels' inputs: the training shape, then an edge shape whose
 # pixel count and width do not divide the kernels' 64-pixel tiles, then two
@@ -418,13 +430,14 @@ def nvidia_smi() -> str:
 # the training shape's width and channels)
 KERNEL_FUNCS = ("coarse_conv_wgmma", "coarse_conv_kernel", "serving_tail_wgmma",
                 "serving_tail_kernel", "trunk_conv_wgmma", "trunk_wgrad_wgmma",
-                "fused_trunk_wgmma", "buddy_mma_kernel", "eval_trunk_conv")
+                "fused_trunk_wgmma", "buddy_mma_kernel", "eval_trunk_conv", "rrdb_dense_conv")
 WGMMA_SMEM = {"coarse_conv_wgmma": ("coarse_conv", "coarse_conv_s2d_bf16_smem", ()),
               "serving_tail_wgmma": ("serving_tail", "serving_tail_bf16_smem", ()),
               "trunk_conv_wgmma": ("packed_trunk", "packed_trunk_conv_smem", (24, 64)),
               "trunk_wgrad_wgmma": ("packed_trunk", "packed_trunk_wgrad_smem", (24, 64)),
               "fused_trunk_wgmma": ("fused_trunk", "fused_trunk_bf16_smem", (24, 64)),
-              "eval_trunk_conv": ("eval_trunk", "eval_trunk_smem", ())}
+              "eval_trunk_conv": ("eval_trunk", "eval_trunk_smem", ()),
+              "rrdb_dense_conv": ("rrdb_dense", "rrdb_dense_smem", ())}
 
 
 def _ptxas_functions(log: str) -> dict:
@@ -718,6 +731,184 @@ def phase_kernel_e(gen, dev) -> dict:
     rec["ms_over_library_ms"] = rec["ms"] / rec["library_ms"]
     emit("kernel_time", **rec)
     return rec
+
+
+def rrdb_operands(gen, dev, n: int):
+    """Random operands of n RRDBs at the published widths (HWIO kernels N(0,
+    4 / fan_in), the benchmark cell's gain; biases N(0, 0.05^2)), drawn by
+    the torch generator `gen` on `dev`."""
+    import torch
+
+    from srgan_st_tpu_torch.kernels.rrdb_dense import conv_channels
+
+    ws, bs = [], []
+    for _ in range(3 * n):
+        for cin, cout in conv_channels(64, 32):
+            ws.append(torch.randn((3, 3, cin, cout), generator=gen, device=dev)
+                      * (2.0 / (9 * cin) ** 0.5))
+            bs.append(0.05 * torch.randn(cout, generator=gen, device=dev))
+    return ws, bs
+
+
+def _rrdb_model(gen, dev):
+    """The published RRDB generator (23 RRDBs), bf16 on `dev`, its dense
+    convs `rrdb_operands`' draw."""
+    import torch
+
+    from srgan_st_tpu_torch.models.rrdb import RRDBNet
+
+    model = RRDBNet(num_block=R_BLOCKS, dtype=torch.bfloat16).to(dev).eval()
+    ws, bs = rrdb_operands(gen, dev, R_BLOCKS)
+    with torch.no_grad():
+        for conv, wk, bk in zip(model._dense_convs, ws, bs):
+            conv.weight.copy_(wk.permute(3, 2, 0, 1))
+            conv.bias.copy_(bk)
+    return model
+
+
+def phase_kernel_r(gen, dev) -> dict:
+    """Kernel R (the RRDBs of Real-ESRGAN's trunk, bf16 only) against its
+    plain version at each of SHAPES_R (2 RRDBs; 1 at the video frame):
+    within 2x the plain version's own bf16 envelope of the plain version in
+    f32 on the same operands, and of the plain version in bf16 (the two
+    differ by their f32 sums' order: a rounding flipped here and there,
+    carried through 30 convs), and a second call's bits. Then at (1, 540,
+    960, 64) the time of one RRDB (`ms`, laid-out operands) and of the
+    published trunk's 23
+    (`trunk_ms`; `wrapper_ms` lays the operands out), the 23's output held
+    to their plain version's by the same envelope rule, their bound (compute:
+    2 x 239,616 multiply-adds a pixel a dense block), the design's floor,
+    the plain version's time, the cuDNN blocks' (RRDBNet's modules: the
+    `torch.cat` copies, cuDNN convs, separate bias, LeakyReLU and residual
+    passes) as `library_ms`, and the host's enqueue of one trunk call."""
+    import torch
+
+    from srgan_st_tpu_torch.kernels import rrdb_dense as R
+    from srgan_st_tpu_torch.models.rrdb import RES_SCALE, SLOPE
+
+    gated = []
+    for shape in SHAPES_R:
+        n = 1 if shape == SHAPE_R_4K else 2
+        ws, bs = rrdb_operands(gen, dev, n)
+        x = (torch.rand(shape, generator=gen, device=dev) - 0.5).bfloat16()
+        before = R.launches
+        got = R.rrdb_dense(x, ws, bs, SLOPE, RES_SCALE)
+        same = torch.equal(got, R.rrdb_dense(x, ws, bs, SLOPE, RES_SCALE))
+        torch.cuda.synchronize()
+        plain16 = R.rrdb_dense_reference(x, ws, bs, SLOPE, RES_SCALE)
+        ref32 = R.rrdb_dense_reference(x.float(), [w.bfloat16().float() for w in ws], bs,
+                                       SLOPE, RES_SCALE)
+        env, err = max_abs(plain16, ref32), max_abs(got, ref32)
+        rec = {"kernel": "rrdb_dense", "shape": list(shape), "rrdbs": n,
+               "bf16_max_abs_err": err, "bf16_envelope": env,
+               "vs_plain_bf16": max_abs(got, plain16), "max_abs_ref": float(ref32.abs().max()),
+               "calls": R.launches - before, "bitwise_repeatable": same}
+        emit("kernel", **rec)
+        if not (env > 0 and err <= 2 * env and rec["vs_plain_bf16"] <= 2 * env
+                and bool(torch.isfinite(got.float()).all())):
+            raise AssertionError(f"rrdb_dense bf16 at {shape}: {rec}")
+        if not same or rec["calls"] != 2:
+            raise AssertionError(f"rrdb_dense at {shape}: {rec}")
+        gated.append(rec)
+        del got, plain16, ref32
+    rec = {"kernel": "rrdb_dense", "gated_shapes": [r["shape"] for r in gated],
+           "bf16_max_abs_err": max(r["bf16_max_abs_err"] for r in gated),
+           "vs_plain_bf16": max(r["vs_plain_bf16"] for r in gated)}
+    b, h, w, c = SHAPE_R_4K
+    x = (torch.rand(SHAPE_R_4K, generator=gen, device=dev) - 0.5).bfloat16()
+    model = _rrdb_model(gen, dev)
+    ws, bs, laid = model._dense_weights.get(
+        [(cv._parameters["weight"], cv._parameters["bias"]) for cv in model._dense_convs])
+    one = ws[:15], bs[:15], R.layout(ws[:15], bs[:15])
+    macs = 3 * b * h * w * 239_616  # an RRDB
+    conv_bytes = 3 * b * h * w * 1_664  # an RRDB's convs, each prefix read once
+    own = design_flops("rrdb_dense", "rrdb_dense_bf16_mma_flops", 1, b, h, w)
+    xn = x.permute(0, 3, 1, 2)
+    with torch.inference_mode():
+        rec.update(
+            shape=list(SHAPE_R_4K), n=1, trunk_n=R_BLOCKS,
+            ms=cuda_ms(lambda: R.rrdb_dense(x, *one[:2], SLOPE, RES_SCALE, one[2])),
+            trunk_ms=cuda_ms(lambda: R.rrdb_dense(x, ws, bs, SLOPE, RES_SCALE, laid), iters=5),
+            wrapper_ms=cuda_ms(lambda: R.rrdb_dense(x, ws, bs, SLOPE, RES_SCALE), iters=3),
+            plain_ms=cuda_ms(lambda: R.rrdb_dense_reference(x, *one[:2], SLOPE, RES_SCALE),
+                             iters=3),
+            trunk_plain_ms=cuda_ms(lambda: R.rrdb_dense_reference(x, ws, bs, SLOPE, RES_SCALE),
+                                   iters=1, warmup=1),
+            library_ms=cuda_ms(lambda: model.body[0](xn)),
+            trunk_library_ms=cuda_ms(lambda: model.body(xn), iters=5),
+            launch_host_ms=host_ms(lambda: R.rrdb_dense(x, ws, bs, SLOPE, RES_SCALE, laid)),
+            flops=2.0 * macs, trunk_flops=2.0 * macs * R_BLOCKS,
+            conv_bytes=conv_bytes, design_flops=own, floor_ms=own / BF16_FLOPS * 1e3)
+    rec["bound_ms"], rec["bound_by"] = bound_ms(0, rec["flops"])
+    rec["trunk_bound_ms"] = rec["bound_ms"] * R_BLOCKS
+    rec["conv_bytes_ms"] = conv_bytes / HBM_BYTES_PER_S * 1e3
+    rec["roofline_share"] = rec["bound_ms"] / rec["ms"]
+    rec["trunk_roofline_share"] = rec["trunk_bound_ms"] / rec["trunk_ms"]
+    rec["achieved_tflop_per_s"] = rec["trunk_flops"] / (rec["trunk_ms"] / 1e3) / 1e12
+    rec["ms_over_library_ms"] = rec["ms"] / rec["library_ms"]
+    rec["trunk_ms_over_library_ms"] = rec["trunk_ms"] / rec["trunk_library_ms"]
+    # the timed 23 against their plain version, in bf16 and in f32
+    with torch.inference_mode():
+        got = R.rrdb_dense(x, ws, bs, SLOPE, RES_SCALE, laid)
+        plain16 = R.rrdb_dense_reference(x, ws, bs, SLOPE, RES_SCALE)
+        ref32 = R.rrdb_dense_reference(x.float(), [w.bfloat16().float() for w in ws], bs,
+                                       SLOPE, RES_SCALE)
+    env = max_abs(plain16, ref32)
+    rec.update(trunk_bf16_max_abs_err=max_abs(got, ref32), trunk_bf16_envelope=env,
+               trunk_vs_plain_bf16=max_abs(got, plain16),
+               trunk_max_abs_ref=float(ref32.abs().max()))
+    emit("kernel_time", **rec)
+    if not (env > 0 and rec["trunk_bf16_max_abs_err"] <= 2 * env
+            and rec["trunk_vs_plain_bf16"] <= 2 * env and bool(torch.isfinite(got.float()).all())):
+        raise AssertionError(f"rrdb_dense bf16, the 23 RRDBs at {SHAPE_R_4K}: {rec}")
+    return rec
+
+
+def phase_serve_rrdb(gen, dev) -> dict:
+    """The RRDB generator's serving entry, as the video cell reaches kernel
+    R: `make_generator_apply` under MODEL.G_ARCH "rrdb" (bf16, the published
+    widths and depth, `_rrdb_model`'s weights), one 540p frame warmed, then
+    the launch counts reset just before one frame and read just after:
+    kernel R once, as often as the trunk, and no other kernel of the port.
+    Beside it the bare model's frame: the same counts and, the same kernels
+    on the same weights, the same frame."""
+    import torch
+
+    from srgan_st_tpu_torch import kernels
+    from srgan_st_tpu_torch.core.config import Config
+    from srgan_st_tpu_torch.eval.validate import make_generator_apply
+
+    model = _rrdb_model(gen, dev)
+    cfg = Config()
+    cfg.MODEL.G_ARCH = "rrdb"
+    cfg.MODEL.G_N_CHANNEL, cfg.MODEL.G_N_RCB, cfg.MODEL.G_N_GROW = 64, R_BLOCKS, 32
+    cfg.TPU.COMPUTE_DTYPE = "bfloat16"
+    fn = make_generator_apply(cfg, model.state_dict(), dev)
+    lr = torch.rand(1, *LR_4K, 3, generator=gen, device=dev)
+    fn(lr)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    sr = fn(lr)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    before = kernels.launch_counts()
+    with torch.inference_mode():
+        bare = model(lr)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    rec = {"frame": list(LR_4K), "launches": counts,
+           "bare_model_launches": {k: after[k] - before[k] for k in after
+                                   if after[k] != before[k]},
+           "served_vs_bare_max_abs": max_abs(sr, bare), "out_shape": list(sr.shape)}
+    emit("serve", mode="rrdb", **rec)
+    want = {**{k: 0 for k in counts}, "rrdb_dense": 1, "rrdb_trunk": 1}
+    if counts != want or rec["bare_model_launches"] != {"rrdb_dense": 1, "rrdb_trunk": 1}:
+        raise AssertionError(f"rrdb frame launches: served {counts}, bare model "
+                             f"{rec['bare_model_launches']}")
+    if sr.shape != (1, 4 * LR_4K[0], 4 * LR_4K[1], 3) or not bool(torch.isfinite(sr).all()):
+        raise AssertionError(f"rrdb served frame: bad output {tuple(sr.shape)}")
+    return rec
+
 
 def _serve_fns(gpath, dev):
     from srgan_st_tpu_torch.core.config import Config
@@ -1511,7 +1702,7 @@ def phase_train(dev, batch) -> dict:
     steps = TRAIN_STEPS
     want = {"packed_trunk_fwd": 2 * steps, "packed_trunk_bwd": 2 * steps,
             "coarse_conv_s2d": 2 * (steps + 3), "serving_tail": 0, "fused_trunk": 0,
-            "buddy_select": 0, "eval_trunk": 2 * 3, "rrdb_trunk": 0}
+            "buddy_select": 0, "eval_trunk": 2 * 3, "rrdb_dense": 0, "rrdb_trunk": 0}
     fresh = _gan_state(cfg_t, dev)
     moved = {"g": bool((_flat(state.g_model) != _flat(fresh.g_model)).any()),
              "d": bool((_flat(state.d_model) != _flat(fresh.d_model)).any())}
@@ -1827,7 +2018,7 @@ def phase_data(dev) -> dict:
         want_counts = {"packed_trunk_fwd": DATA_STEPS, "packed_trunk_bwd": DATA_STEPS,
                        "coarse_conv_s2d": DATA_STEPS + 3, "serving_tail": 0,
                        "fused_trunk": 0, "buddy_select": 0, "eval_trunk": 3,
-                       "rrdb_trunk": 0}
+                       "rrdb_dense": 0, "rrdb_trunk": 0}
         del auto
     # (4) 120^2 tiles, crop + augment on the card against the CPU function
     with tempfile.TemporaryDirectory() as tmp:
@@ -2259,7 +2450,7 @@ def phase_dist(dev) -> dict:
     want = [{"packed_trunk_fwd": g_steps, "packed_trunk_bwd": g_steps,
              "coarse_conv_s2d": g_steps + (6 if r == 0 else 0), "serving_tail": 0,
              "fused_trunk": 0, "buddy_select": 0, "eval_trunk": 6 if r == 0 else 0,
-             "rrdb_trunk": 0}
+             "rrdb_dense": 0, "rrdb_trunk": 0}
             for r in range(2)]
     b = {"launches_per_rank": [s["launches"] for s in local], "launches_expected": want,
          "launches_one_rank": one["local"]["launches"],
@@ -2831,7 +3022,7 @@ def phase_run(dev, vgg: str) -> dict:
                 "fused_trunk": steps["fused"],
                 "buddy_select": RUN_STEPS if job in (0, 1) else 0,
                 "eval_trunk": 6 if trunk in ("packed", "hybrid", "fused") else 0,
-                "rrdb_trunk": 0}
+                "rrdb_dense": 0, "rrdb_trunk": 0}
         rec = {"job": job, "experiment": name, "trunk": trunk, "seconds": seconds,
                "launches": counts, "launches_expected": want, "results_files": files,
                "test_images": shots,
@@ -3335,7 +3526,7 @@ def _bench_expected(name: str, k: int) -> dict:
             counts.add("buddy_select")
     return {n: steps if n in counts else 0 for n in
             ("coarse_conv_s2d", "serving_tail", "packed_trunk_fwd", "packed_trunk_bwd",
-             "fused_trunk", "buddy_select", "eval_trunk", "rrdb_trunk")}
+             "fused_trunk", "buddy_select", "eval_trunk", "rrdb_dense", "rrdb_trunk")}
 
 
 def phase_bench(dev, work: str) -> dict:
@@ -3450,9 +3641,11 @@ def main() -> int:
         return run_trajectory_only(torch.device("cuda"))
     if sys.argv[1:] == ["--only", "eval_trunk"]:
         return run_eval_trunk_only(torch.device("cuda"))
+    if sys.argv[1:] == ["--only", "rrdb_dense"]:
+        return run_rrdb_dense_only(torch.device("cuda"))
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]} (none, or --only "
-              "graph|soak|bench|trajectory|eval_trunk)", file=sys.stderr)
+              "graph|soak|bench|trajectory|eval_trunk|rrdb_dense)", file=sys.stderr)
         return 2
     return run(torch.device("cuda"))
 
@@ -3530,6 +3723,24 @@ def run_eval_trunk_only(dev) -> int:
     return 0
 
 
+def run_rrdb_dense_only(dev) -> int:
+    """`--only rrdb_dense`: the build, kernel R's phase and the RRDB serving
+    phase alone (no result line), for working on the RRDB trunk."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    emit("env", torch=torch.__version__, cuda=torch.version.cuda,
+         device=torch.cuda.get_device_name(0), nvidia_smi=nvidia_smi())
+    phase_build()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    phase_kernel_r(gen, dev)
+    torch.cuda.empty_cache()
+    phase_serve_rrdb(gen, dev)
+    return 0
+
+
 def run(dev) -> int:
     """Every phase, on the CUDA device `dev`."""
     import torch
@@ -3552,6 +3763,10 @@ def run(dev) -> int:
     rec_b = phase_kernel_b(gen, dev)
     torch.cuda.empty_cache()
     rec_e = phase_kernel_e(gen, dev)
+    torch.cuda.empty_cache()
+    rec_r = phase_kernel_r(gen, dev)
+    torch.cuda.empty_cache()
+    rec_rs = phase_serve_rrdb(gen, dev)
     torch.cuda.empty_cache()
 
     rng = np.random.default_rng(0)
@@ -3684,6 +3899,20 @@ def run(dev) -> int:
         "bound_by": rec_e["bound_by"], "library_ms": rec_e["library_ms"],
         "shape": rec_e["shape"], "n": rec_e["n"], "train_launches": train_counts["eval_trunk"],
         "bench_launches": _bench_launches("eval_trunk", bench_rec),
+    })
+    kernels.append({
+        "name": "rrdb_dense", "tpu_kernel": None, "route": "cuda",
+        "source": "srgan_st_tpu_torch/csrc/rrdb_dense.cu",
+        "replaces": "none: port-only (Real-ESRGAN's dense block; the JAX package has no "
+                    "RRDB generator)",
+        "launches": rec_rs["launches"]["rrdb_dense"],
+        "max_abs_err": rec_r["bf16_max_abs_err"],
+        "ms": rec_r["ms"], "trunk_ms": rec_r["trunk_ms"], "plain_ms": rec_r["plain_ms"],
+        "bound_ms": rec_r["bound_ms"], "trunk_bound_ms": rec_r["trunk_bound_ms"],
+        "bound_by": rec_r["bound_by"], "library_ms": rec_r["library_ms"],
+        "trunk_library_ms": rec_r["trunk_library_ms"], "shape": rec_r["shape"],
+        "train_launches": train_counts["rrdb_dense"],
+        "bench_launches": _bench_launches("rrdb_dense", bench_rec),
     })
     kernels.append({
         "name": "buddy_select", "tpu_kernel": "K7", "route": "cuda",

@@ -8,14 +8,15 @@
 | fused_trunk.py  | csrc/fused_trunk.cu  | fused_trunk.py `_kernel` |
 | buddy_select.py | csrc/buddy_select.cu | buddy_select.py `_buddy_kernel` |
 | eval_trunk.py   | csrc/eval_trunk.cu   | none: the eval trunk, plain XLA there (kernel E) |
+| rrdb_dense.py   | csrc/rrdb_dense.cu   | none: Real-ESRGAN's dense trunk, no JAX counterpart (kernel R) |
 
 Each wrapper counts its launches in a module-level integer; a replay of a
 captured CUDA graph adds the launches made while it was captured
 (`add_launch_counts`). Beside them, "rrdb_trunk" counts the calls of
-models/rrdb.py's dense trunk, which no kernel of the port computes.
-xpack_trunk.py
-has no kernel: the JAX module it ports is plain XLA, so its eval trunk is
-plain torch, and its training trunk is packed_trunk.py's.
+models/rrdb.py's dense trunk, whatever computes it (kernel R, counted
+as "rrdb_dense", or the torch blocks). xpack_trunk.py has no kernel: the
+JAX module it ports is plain XLA, so its eval trunk is plain torch, and
+its training trunk is packed_trunk.py's.
 """
 
 
@@ -36,6 +37,7 @@ _COUNTERS = {"coarse_conv_s2d": ("coarse_conv", "launches"),
              "fused_trunk": ("fused_trunk", "launches"),
              "buddy_select": ("buddy_select", "launches"),
              "eval_trunk": ("eval_trunk", "launches"),
+             "rrdb_dense": ("rrdb_dense", "launches"),
              "rrdb_trunk": ("srgan_st_tpu_torch.models.rrdb", "trunk_calls")}
 
 
@@ -54,8 +56,8 @@ def reset_launch_counts() -> None:
 
 
 def launch_counts() -> dict[str, int]:
-    """Executed launches of each kernel, eager calls and graph replays, and
-    the dense trunk's calls ("rrdb_trunk")."""
+    """Executed launches of each kernel (kernels E and R: calls), eager
+    calls and graph replays, and the dense trunk's calls ("rrdb_trunk")."""
     return {name: getattr(_module(module), attr) for name, (module, attr) in _COUNTERS.items()}
 
 

@@ -20,12 +20,22 @@ bias, the others torch's default.
 
 Input and output are NHWC, as `Generator`'s; inside, NCHW modules in
 `torch.channels_last` memory. Parameters are float32 and cast to the
-compute dtype at use. The dense concatenation is `torch.cat` of each
-conv's input in channels_last memory: cuDNN takes a dense NHWC operand,
-so a channel prefix of one wider buffer would be copied to a dense tensor
-before each conv anyway (PERF.md, PR 18). No hand-written kernel of the
-port runs here. Each call of the dense trunk adds one to `trunk_calls`
-(`kernels.launch_counts()`'s "rrdb_trunk")."""
+compute dtype at use.
+
+The RRDBs run in one of two ways. In eval without gradients on a CUDA
+bf16 activation at the published widths (nf 64, gc 32: kernels/rrdb_dense.py
+`gate`), as kernel R (csrc/rrdb_dense.cu), one call of 1 + 15 n launches:
+each dense block's features in one zero-bordered buffer (planes of 8
+channels) whose channel prefixes its convs read in place, the bias,
+LeakyReLU and both 0.2-scaled residuals in the convs' f32 epilogues, one
+rounding a conv. Everywhere else (float32,
+the CPU, other widths, gradients) as the modules below: the dense
+concatenation is `torch.cat` of each conv's input in channels_last memory
+(cuDNN takes a dense NHWC operand, so a channel prefix of one wider buffer
+would be copied to a dense tensor before each conv anyway: the layout probe in PERF.md §4).
+conv_body and the global skip stay torch ops on both paths. Each call of
+the dense trunk adds one to `trunk_calls` (`kernels.launch_counts()`'s
+"rrdb_trunk"), and each kernel R call one to "rrdb_dense"."""
 
 from __future__ import annotations
 
@@ -106,6 +116,13 @@ class RRDBNet(nn.Module):
         self.conv_last = Conv3x3(channels, out_channels)
         init_weights(self)
         self.to(memory_format=torch.channels_last)
+        # kernel R's operands, laid out again only when a parameter changes
+        from srgan_st_tpu_torch.kernels.rrdb_dense import RRDBDenseWeights
+
+        self._dense_weights = RRDBDenseWeights()
+        self._dense_convs = [conv for rrdb in self.body for rdb in rrdb.children()
+                             for conv in rdb.children()]
+        self.growth = growth
 
     @classmethod
     def from_config(cls, config, dtype: torch.dtype | None = None) -> "RRDBNet":
@@ -131,13 +148,28 @@ class RRDBNet(nn.Module):
                 feat = self.conv_first(x)
             with span("g.trunk"):
                 trunk_calls += 1
-                feat = feat + self.conv_body(self.body(feat))
+                feat = feat + self.conv_body(self._body(feat))
             with span("g.upsample"):
                 for conv in (self.conv_up1, self.conv_up2):
                     feat = lrelu(conv(F.interpolate(feat, scale_factor=2, mode="nearest")))
             with span("g.tail"):
                 out = self.conv_last(lrelu(self.conv_hr(feat)))
                 return torch.clamp(out.float(), 0.0, 1.0).permute(0, 2, 3, 1)
+
+    def _body(self, feat: torch.Tensor) -> torch.Tensor:
+        """The RRDBs on the NCHW stem output: kernel R where its gate holds,
+        else the modules."""
+        from srgan_st_tpu_torch.kernels import rrdb_dense as R
+
+        if not R.gate(self.training, torch.is_grad_enabled(), feat.device.type, feat.dtype,
+                      feat.shape[1], self.growth):
+            return self.body(feat)
+        # the tensors read from the modules' dicts: the cache's key is read
+        # every frame, and Module.__getattr__ would cost more than the check
+        ws, bs, laid = self._dense_weights.get(
+            [(c._parameters["weight"], c._parameters["bias"]) for c in self._dense_convs])
+        y = R.rrdb_dense(feat.permute(0, 2, 3, 1).contiguous(), ws, bs, SLOPE, RES_SCALE, laid)
+        return y.permute(0, 3, 1, 2)
 
 
 @torch.no_grad()
