@@ -248,21 +248,6 @@ torch's default TF32 switches, as the port's training runs:
            warmup and G step of the fused run and nowhere else, nothing in
            the references; one line with every max_rel beside its gate.
 
-Then the bench (bench_torch.py, srgan_st_tpu_torch/tools/bench.py), with
-torch's default TF32 switches, as a user runs it:
-
-  bench    its seven rows through their own functions at a cut (one
-           warm-up and one measured chunk of 100 batches a training row,
-           bench.py: 2 and 5; one timed epoch of the seeded 12,800-patch
-           pack an e2e row, bench.py: 2; infer-4k in full, 12 + 20 frames):
-           each record (patches/s or HR MP/s, the card and its power limit,
-           peak memory) with its launch counts, reset just before the row
-           and read just after: kernel A once a G step and once a frame, K4
-           = K5 = 1 per G step (the packed auto trunk), K7 = 1 per G step in
-           flagship-st and gram-vgg and none in flagship-st-xla (the plain
-           selection); then tools/profile_step.py's profile of one replayed
-           headline chunk of 8 (A, K4, K5 8 times each).
-
 Then the rest of serving, last (after a torch.export in the process,
 torch.profiler misses a kernel of K4 or K5, which the trunk profiles gate):
 
@@ -3497,106 +3482,6 @@ def _trajectory_launches(name: str, traj_rec: dict) -> dict:
     return {group: counts[name] for group, counts in traj_rec["launches"].items()}
 
 
-# the bench's rows at a cut: one warm-up and one measured chunk of 100
-# batches a training row (bench.py: 2 and 5), one timed epoch of the
-# 12,800-patch pack an e2e row (bench.py: 2); infer-4k in full (12 + 20
-# frames)
-BENCH_CUT = {"warmup": 1, "iters": 1, "epochs": 1}
-BENCH_K7_ROWS = ("flagship-st", "gram-vgg")
-
-
-def _bench_expected(name: str, k: int) -> dict:
-    """A row's launches of each hand-written kernel: kernel A once a G step
-    (the reconstruction conv's forward) and once a frame, kernel E once a
-    frame (the bf16 eval trunk), K4 and K5 once a G step (the packed auto
-    trunk of bf16 training), K7 once a G step where the row's loss selects
-    buddies on the kernel; nothing else. An e2e epoch is the 12,800-patch
-    pack in batches of 16."""
-    from srgan_st_tpu_torch.tools import bench
-
-    if name == "infer-4k":
-        steps = bench.INFER_WARMUP + bench.INFER_ITERS
-        counts = {"coarse_conv_s2d", "eval_trunk"}
-    else:
-        chunks = (BENCH_CUT["warmup"] + BENCH_CUT["iters"] if name in bench.TRAIN_ROWS
-                  else BENCH_CUT["warmup"] + BENCH_CUT["epochs"] * 12_800 // 16 // k)
-        steps = chunks * k
-        counts = {"coarse_conv_s2d", "packed_trunk_fwd", "packed_trunk_bwd"}
-        if name in BENCH_K7_ROWS:
-            counts.add("buddy_select")
-    return {n: steps if n in counts else 0 for n in
-            ("coarse_conv_s2d", "serving_tail", "packed_trunk_fwd", "packed_trunk_bwd",
-             "fused_trunk", "buddy_select", "eval_trunk", "rrdb_dense", "rrdb_trunk")}
-
-
-def phase_bench(dev, work: str) -> dict:
-    """bench_torch.py's seven rows (srgan_st_tpu_torch/tools/bench.py) through
-    their own functions at BENCH_CUT, the bf16 defaults (packed auto trunk,
-    graph steps), the e2e pack made by `ensure_pack` in `work`; the launch
-    counts reset just before each row and read just after, held to
-    `_bench_expected`; each record's keys, card and power limit; then
-    tools/profile_step.py's profile of one replayed headline chunk (k = 8).
-    Runs with torch's default TF32 switches (cuDNN on, matmul off), as
-    bench_torch.py does, and restores the smoke's."""
-    import gc
-
-    import torch
-
-    from srgan_st_tpu_torch import kernels
-    from srgan_st_tpu_torch.tools import bench
-    from srgan_st_tpu_torch.tools.profile_step import run_and_trace
-
-    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
-    try:
-        pack = os.path.join(work, "patches.pack.npy")
-        t0 = time.perf_counter()
-        bench.ensure_pack(pack)
-        rec = {"cut": BENCH_CUT, "pack_seconds": time.perf_counter() - t0, "rows": {},
-               "launches": {}}
-        card = torch.cuda.get_device_name(0)
-        bad = []
-        for name in bench.SUITE:
-            gc.collect()
-            torch.cuda.empty_cache()
-            kernels.reset_launch_counts()
-            t0 = time.perf_counter()
-            if name in bench.TRAIN_ROWS:
-                row = bench.measure(name, device=dev, warmup=BENCH_CUT["warmup"],
-                                    iters=BENCH_CUT["iters"])
-            elif name == "infer-4k":
-                row = bench.measure_infer(device=dev)
-            else:
-                row = bench.measure_e2e(stream=name == "e2e-stream", device=dev,
-                                        warmup=BENCH_CUT["warmup"],
-                                        epochs=BENCH_CUT["epochs"], pack=pack)
-            counts = kernels.launch_counts()
-            row["seconds"] = time.perf_counter() - t0
-            rec["rows"][name], rec["launches"][name] = row, counts
-            want = _bench_expected(name, 100)
-            if counts != want:
-                bad.append(f"{name}: launches {counts} != {want}")
-            if not (row["value"] > 0 and row["config"] == name
-                    and row["device"]["name"] == card and row["device"]["power_limit_w"]):
-                bad.append(f"{name}: record {row}")
-            emit("bench", **row, launches=counts)
-        gc.collect()
-        torch.cuda.empty_cache()
-        prof = run_and_trace("headline", k=8, top=10, device=dev)
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
-    rec["profile_step"] = {k: prof[k] for k in ("k", "profile", "ms_per_step", "launches")}
-    want = {n: (8 if n in ("coarse_conv_s2d", "packed_trunk_fwd", "packed_trunk_bwd") else 0)
-            for n in prof["launches"]}
-    if prof["launches"] != want or not prof["profile"]["kernels"]:
-        bad.append(f"profile_step: launches {prof['launches']} != {want}, "
-                   f"kernels {prof['profile']['kernels']}")
-    emit("bench", profile_step="headline, one replayed chunk of 8", **rec["profile_step"])
-    if bad:
-        raise AssertionError(f"bench phase: {bad}")
-    return rec
-
-
 def _new_path_launches(name: str, data_rec: dict, dist_rec: dict, soak_rec: dict) -> dict:
     """A kernel's launches on the paths of the data, dist and soak phases: one
     train() run from the resident pack, each rank of the LOCAL_BN run, and
@@ -3606,11 +3491,6 @@ def _new_path_launches(name: str, data_rec: dict, dist_rec: dict, soak_rec: dict
             "local_bn_launches_per_rank": [c[name] for c in
                                            dist_rec["local_bn"]["launches_per_rank"]],
             "soak_launches_per_child": [c[name] for c in soak_rec["launches_per_child"]]}
-
-
-def _bench_launches(name: str, bench_rec: dict) -> dict:
-    """A kernel's launches in each bench row of the bench phase (its cut)."""
-    return {row: counts[name] for row, counts in bench_rec["launches"].items()}
 
 
 def main() -> int:
@@ -3635,8 +3515,6 @@ def main() -> int:
         return run_graph_only(torch.device("cuda"))
     if sys.argv[1:] == ["--only", "soak"]:
         return run_soak_only(torch.device("cuda"))
-    if sys.argv[1:] == ["--only", "bench"]:
-        return run_bench_only(torch.device("cuda"))
     if sys.argv[1:] == ["--only", "trajectory"]:
         return run_trajectory_only(torch.device("cuda"))
     if sys.argv[1:] == ["--only", "eval_trunk"]:
@@ -3645,7 +3523,7 @@ def main() -> int:
         return run_rrdb_dense_only(torch.device("cuda"))
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]} (none, or --only "
-              "graph|soak|bench|trajectory|eval_trunk|rrdb_dense)", file=sys.stderr)
+              "graph|soak|trajectory|eval_trunk|rrdb_dense)", file=sys.stderr)
         return 2
     return run(torch.device("cuda"))
 
@@ -3679,19 +3557,6 @@ def run_soak_only(dev) -> int:
     phase_build()
     phase_soak()
     phase_loss_study(dev)
-    return 0
-
-
-def run_bench_only(dev) -> int:
-    """`--only bench`: the build and the bench phase alone (no result
-    line), for working on the bench."""
-    import torch
-
-    emit("env", torch=torch.__version__, cuda=torch.version.cuda,
-         device=torch.cuda.get_device_name(0), nvidia_smi=nvidia_smi())
-    phase_build()
-    with tempfile.TemporaryDirectory() as tmp:
-        phase_bench(dev, tmp)
     return 0
 
 
@@ -3816,9 +3681,6 @@ def run(dev) -> int:
     torch.cuda.empty_cache()
     traj_rec = phase_trajectory(dev)
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        bench_rec = phase_bench(dev, tmp)
-    torch.cuda.empty_cache()
     # serving's baseline and artifacts last: after a torch.export in the
     # process, torch.profiler misses one of K4's or K5's kernels in a call
     # (measured on the H100), which the trunk profiles above gate on
@@ -3845,7 +3707,6 @@ def run(dev) -> int:
             **_new_path_launches(name, data_rec, dist_rec, soak_rec),
             **({"graph_launches": graph_rec["replayed"][name]} if name != "serving_tail" else {}),
             "viz_launches": viz_rec["launches"][name],
-            "bench_launches": _bench_launches(name, bench_rec),
             "trajectory_launches": _trajectory_launches(name, traj_rec),
         })
     for rec, name, tpu, replaces in (
@@ -3866,7 +3727,6 @@ def run(dev) -> int:
             "shape": rec["shape"], "n": rec["n"],
             **_new_path_launches(name, data_rec, dist_rec, soak_rec),
             "graph_launches": graph_rec["replayed"][name],
-            "bench_launches": _bench_launches(name, bench_rec),
             "trajectory_launches": _trajectory_launches(name, traj_rec),
         })
     kernels.append({
@@ -3886,7 +3746,6 @@ def run(dev) -> int:
         "bf16_equals_k4": all(all(r["bf16_equals_k4"].values()) for r in rec_k6["errors"]),
         "shape": rec_k6["shape"], "n": rec_k6["n"],
         "graph_launches": graph_rec["replayed"]["fused_trunk"],
-        "bench_launches": _bench_launches("fused_trunk", bench_rec),
         "trajectory_launches": _trajectory_launches("fused_trunk", traj_rec),
     })
     kernels.append({
@@ -3898,7 +3757,6 @@ def run(dev) -> int:
         "ms": rec_e["ms"], "plain_ms": rec_e["plain_ms"], "bound_ms": rec_e["bound_ms"],
         "bound_by": rec_e["bound_by"], "library_ms": rec_e["library_ms"],
         "shape": rec_e["shape"], "n": rec_e["n"], "train_launches": train_counts["eval_trunk"],
-        "bench_launches": _bench_launches("eval_trunk", bench_rec),
     })
     kernels.append({
         "name": "rrdb_dense", "tpu_kernel": None, "route": "cuda",
@@ -3912,7 +3770,6 @@ def run(dev) -> int:
         "bound_by": rec_r["bound_by"], "library_ms": rec_r["library_ms"],
         "trunk_library_ms": rec_r["trunk_library_ms"], "shape": rec_r["shape"],
         "train_launches": train_counts["rrdb_dense"],
-        "bench_launches": _bench_launches("rrdb_dense", bench_rec),
     })
     kernels.append({
         "name": "buddy_select", "tpu_kernel": "K7", "route": "cuda",
@@ -3928,7 +3785,6 @@ def run(dev) -> int:
         "shape": rec_k7["shape"], "graph_launches": graph_rec["replayed"]["buddy_select"],
         "soak_launches_per_child": [c["buddy_select"] for c in soak_rec["launches_per_child"]],
         "loss_study_launches": loss_rec["launches"]["buddy_select"],
-        "bench_launches": _bench_launches("buddy_select", bench_rec),
         "trajectory_launches": _trajectory_launches("buddy_select", traj_rec),
     })
     print(smi, flush=True)

@@ -1,5 +1,6 @@
-"""Per-op device profile of one chunk of a bench row (the port's counterpart
-of tools/profile_step.py), and the program's regions in it.
+"""Per-op device profile of one chunk of a row of the JAX package's bench.py
+(the port's counterpart of tools/profile_step.py), and the program's regions
+in it.
 
     python -m srgan_st_tpu_torch.tools.profile_step [config] [top_n] [with_d]
         [--k K] [--trace-dir DIR] [--spans-cost]
@@ -18,9 +19,12 @@ of tools/profile_step.py), and the program's regions in it.
               with the program's spans and without them (`spans_off`), 3
               of each, alternating
 
-Builds the row as `tools/bench.py` does (BENCH_DTYPE, BENCH_TRUNK,
-BENCH_CONV3 alike), runs two chunks of k batches of 16 (the graph captures
-fall inside them; for infer-4k, 14 frames of the feedback chain), then
+Builds the row with bench.py's criteria (`make_config`), BENCH_DTYPE
+(default bfloat16), BENCH_TRUNK (TPU.TRUNK_MODE; unset: the port's auto),
+BENCH_CONV3 (TPU.CONV3_INNER) and, for gram-vgg, BENCH_VGG_PAIR (0|1, the
+frozen pair), on bench.py's seeded uint8 chunk, runs two chunks of k
+batches of 16 (the graph captures fall inside them; for infer-4k, 14
+frames of the feedback chain), then
 profiles one more chunk (k frames) with torch.profiler
 (`utils/profiling.py` `profile_once`, or `device_summary` of the
 --trace-dir profile): the device's busy and window ms and
@@ -63,10 +67,12 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import statistics
 import sys
 import time
 
+import numpy as np
 import torch
 
 from srgan_st_tpu_torch.utils.profiling import covered, union
@@ -76,6 +82,104 @@ from srgan_st_tpu_torch.utils.profiling import covered, union
 SPAN_PREFIXES = ("train.", "graph.", "step.", "g.", "loss.", "optim.", "d.", "kernel.",
                  "serve.")
 OUTSIDE = "(outside the program)"
+INFER_LR = (540, 960)
+
+
+def make_config(name: str):
+    """The Config of a training row, with bench.py's criteria, specs and
+    weights (bench.py:77-101)."""
+    from srgan_st_tpu_torch.core.config import Config
+
+    config = Config()
+    config.add_g_criterion("Pixel", {"kind": "pixel"}, 1.0)
+    if name in ("flagship-st", "flagship-st-xla"):
+        config.add_g_criterion(
+            "PatchwiseST", {"kind": "patchwise_st", "pallas": name == "flagship-st"}, 100.0)
+        config.add_g_criterion("ContentDiscriminator", {"kind": "content_disc"}, 2000.0)
+    elif name == "gram-vgg":
+        config.add_g_criterion("Gram", {"kind": "gram"}, 500.0)
+        spec = {"kind": "content_vgg", "allow_random_init": True}
+        if os.environ.get("BENCH_VGG_PAIR"):
+            spec["pair"] = os.environ["BENCH_VGG_PAIR"] == "1"
+        config.add_g_criterion("ContentVGG", spec, 1.0)
+    elif name != "headline":
+        raise ValueError(name)
+    return config
+
+
+def apply_bench_knobs(config) -> str:
+    """BENCH_DTYPE, BENCH_TRUNK and BENCH_CONV3 into `config`; returns the
+    compute dtype's name."""
+    dtype = os.environ.get("BENCH_DTYPE", "bfloat16")
+    config.TPU.COMPUTE_DTYPE = dtype
+    config.TPU.TRUNK_MODE = os.environ.get("BENCH_TRUNK") or None
+    c3 = os.environ.get("BENCH_CONV3")
+    if c3:
+        config.TPU.CONV3_INNER = int(c3) if c3.isdigit() else c3
+    return dtype
+
+
+def build_gan(config, dev, mesh):
+    """(state, chunk_step, graphs): the seeded GAN state of `config` on
+    `dev` and its chunk step, replaying CUDA graphs where the run takes
+    them (train/graphs.py step_graphs; None on the CPU)."""
+    from srgan_st_tpu_torch.losses.registry import build_criterions
+    from srgan_st_tpu_torch.models.discriminator import Discriminator
+    from srgan_st_tpu_torch.models.generator import Generator
+    from srgan_st_tpu_torch.train.graphs import step_graphs
+    from srgan_st_tpu_torch.train.steps import create_gan_state, make_gan_chunk_step
+
+    state = create_gan_state(config, Generator.from_config(config, group=mesh),
+                             Discriminator.from_config(config, group=mesh), 1000, dev)
+    graphs = step_graphs(config, dev, mesh)
+    return state, make_gan_chunk_step(config, build_criterions(config), mesh, graphs), graphs
+
+
+def bench_chunk(config, dev, mesh, k: int | None = None) -> torch.Tensor:
+    """This process's share of bench.py's seeded uint8 chunk (k batches of
+    DATA.BATCH_SIZE, default k = D_UPDATE_INTERVAL) on `dev`, copied there
+    once: the chunk step takes its batches as views of it."""
+    k = k or config.SOLVER.D_UPDATE_INTERVAL
+    s = config.DATA.GT_IMAGE_SIZE
+    chunk = np.random.default_rng(0).integers(0, 256, (k, config.DATA.BATCH_SIZE, s, s, 3),
+                                              np.uint8)
+    local = np.ascontiguousarray(chunk[:, mesh.batch_slice(config.DATA.BATCH_SIZE)])
+    return torch.from_numpy(local).to(dev)
+
+
+def next_lr(sr: torch.Tensor, x: torch.Tensor, z: torch.Tensor, i: int, s: int) -> torch.Tensor:
+    """bench.py's feedback chain (bench.py:346-356): the next LR frame is
+    the s x s average pool of this SR frame (every HR pixel is consumed),
+    mixed with a noise frame, plus 1e-7 i (i the frame's index, in f32 as
+    JAX computes it), in x's dtype."""
+    b, hh, ww, c = sr.shape
+    pooled = sr.reshape(b, hh // s, s, ww // s, s, c).mean((2, 4))
+    return (0.5 * pooled + 0.5 * z + float(np.float32(1e-7) * np.float32(i))).to(x.dtype)
+
+
+def infer_setup(device=None, lr_shape: tuple[int, int] = INFER_LR):
+    """(step, lr, noise, dev, s): the eval generator of the headline config
+    in BENCH_DTYPE (seeded random weights), bench.py's seeded LR frame and
+    its 8 noise frames on the device, and step(x, n) -> the next frame."""
+    from srgan_st_tpu_torch.core.device import resolve_device
+    from srgan_st_tpu_torch.eval.validate import make_generator_apply
+    from srgan_st_tpu_torch.models.generator import random_variables
+
+    config = make_config("headline")
+    config.TPU.COMPUTE_DTYPE = os.environ.get("BENCH_DTYPE", "bfloat16")
+    dev = resolve_device(device)
+    s = config.DATA.UPSCALE_FACTOR
+    rng = np.random.default_rng(0)
+    lr = torch.from_numpy(rng.random((1, *lr_shape, 3), np.float32)).to(dev)
+    noise = torch.from_numpy(rng.random((8, 1, *lr_shape, 3), np.float32)).to(dev)
+    variables = random_variables(0, channels=config.MODEL.G_N_CHANNEL,
+                                 num_rcb=config.MODEL.G_N_RCB, upscale=s)
+    apply_fn = make_generator_apply(config, variables, dev)
+
+    def step(x, n: int):
+        return next_lr(apply_fn(x), x, noise[n % 8], n, s)
+
+    return step, lr, noise, dev, s
 
 
 def trace_events(prof) -> tuple[list, list, list]:
@@ -370,9 +474,6 @@ def _measure(one_chunk, k: int, top: int, dev, trace_dir, graphs, cost: bool) ->
 def run_and_trace(name: str, k: int = 8, with_d: bool = False, top: int = 30,
                   device=None, trace_dir: str | None = None, cost: bool = False) -> dict:
     """One chunk of k batches of a training row, replayed, profiled."""
-    from srgan_st_tpu_torch.tools.bench import (
-        apply_bench_knobs, bench_chunk, build_gan, make_config,
-    )
     from srgan_st_tpu_torch.train.utils import setup_run
 
     config = make_config("headline" if name == "warmup" else name)
@@ -406,8 +507,6 @@ def run_and_trace(name: str, k: int = 8, with_d: bool = False, top: int = 30,
 def run_and_trace_infer(k: int = 8, top: int = 30, device=None,
                         trace_dir: str | None = None, cost: bool = False) -> dict:
     """k frames of bench.py's infer-4k chain, profiled."""
-    from srgan_st_tpu_torch.tools.bench import infer_setup
-
     step, lr, _, dev, _ = infer_setup(device)
     frame = {"x": lr, "n": 0}
 

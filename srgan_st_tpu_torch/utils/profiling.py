@@ -36,10 +36,10 @@ since the last boundary to the region open meanwhile. `trace_context`
 writes a Chrome trace; `tools/profile_step.py` labels its device ops by
 these regions.
 
-On a CUDA device, the timers and the one-call profile that the bench
-(`tools/bench.py`, `tools/profile_step.py`) and `chip_smoke.py` measure
-with, and `device_record`, the card's name and power limit that every such
-number is written beside.
+On a CUDA device, the timers and the one-call profile that
+`tools/profile_step.py` and `chip_smoke.py` measure with, and
+`device_record`, the card's name and power limit that every such number
+is written beside.
 """
 
 from __future__ import annotations

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 from srgan_st_tpu_torch.kernels import _checks
 from srgan_st_tpu_torch.kernels import buddy_select as bs
 

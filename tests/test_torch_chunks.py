@@ -16,17 +16,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-
-@pytest.fixture(autouse=True)
-def _two_threads():
-    """The loops here run thousands of small CPU ops. Beside the suite's
-    other workers, each with a thread per core, OpenMP threads spin against
-    each other and a 4 s test takes minutes; two threads a test keep it
-    near its time alone. Both sides of every comparison run alike."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
+
 
 @pytest.fixture
 def dev():

@@ -21,6 +21,8 @@ from PIL import Image
 import jax
 import jax.numpy as jnp
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
+
 
 def _pack(tmp_path, n=44, size=8, seed=0):
     path = tmp_path / "patches.pack.npy"

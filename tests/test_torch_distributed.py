@@ -21,6 +21,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests.torch_threads import started_env
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LR = 1e-4
 GLOBAL_BATCH = 2
@@ -253,9 +255,9 @@ def two_ranks(tmp_path_factory):
     port = _free_port()
     procs = []
     for rank in range(2):
-        env = dict(os.environ, SRGAN_ST_COORDINATOR=f"127.0.0.1:{port}",
+        # sync-BN's gradients hold their 1e-4 gate at up to 2 threads a rank, not at 4 or 8
+        env = dict(os.environ, **started_env(2, most=2), SRGAN_ST_COORDINATOR=f"127.0.0.1:{port}",
                    SRGAN_ST_NUM_PROCESSES="2", SRGAN_ST_PROCESS_ID=str(rank),
-                   OMP_NUM_THREADS="2",
                    PYTHONPATH=os.pathsep.join(p for p in (REPO, os.environ.get("PYTHONPATH"))
                                               if p))
         procs.append(subprocess.Popen([sys.executable, str(work / "child.py"), str(work)],

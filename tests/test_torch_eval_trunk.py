@@ -8,6 +8,7 @@ The kernel itself is held to the plain version on the card
 import pytest
 import torch
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 from srgan_st_tpu_torch import kernels
 from srgan_st_tpu_torch.eval.export import export_trunk_mode
 from srgan_st_tpu_torch.kernels import eval_trunk as et

@@ -17,6 +17,8 @@ import torch
 
 import jax.numpy as jnp
 
+from tests.torch_threads import started_env
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXAMPLES = os.path.join(REPO, "examples")
 BUDDY = ("BestBuddy", "Gram", "PatchwiseST")
@@ -190,8 +192,7 @@ def test_multihost_launcher_starts_two_local_ranks(tmp_path):
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    env = {**os.environ, "LOCAL_PROCESSES": "2", "COORDINATOR_PORT": str(port),
-           "OMP_NUM_THREADS": "1",
+    env = {**os.environ, **started_env(2), "LOCAL_PROCESSES": "2", "COORDINATOR_PORT": str(port),
            "PYTHONPATH": os.pathsep.join(p for p in (REPO, os.environ.get("PYTHONPATH")) if p)}
     env = {k: v for k, v in env.items() if not k.startswith("SRGAN_ST_")}
     out = subprocess.run(["bash", script, str(job)], env=env, capture_output=True,

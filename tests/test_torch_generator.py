@@ -14,6 +14,7 @@ import torch
 
 import jax.numpy as jnp
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 from srgan_st_tpu.models.generator import Generator as JaxGenerator
 from srgan_st_tpu_torch.kernels import launch_counts
 from srgan_st_tpu_torch.models.generator import Generator, random_variables

@@ -14,6 +14,8 @@ import torch
 import jax.numpy as jnp
 from jax import lax
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
+
 
 def _t(a):
     return torch.from_numpy(np.array(a, dtype=np.float32))

@@ -18,6 +18,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 from srgan_st_tpu_torch.kernels import buddy_select as bs
 from srgan_st_tpu_torch.kernels._checks import near_tie_agrees
 from srgan_st_tpu_torch.losses import functions as T

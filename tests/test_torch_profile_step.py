@@ -1,16 +1,13 @@
-"""The port's bench (`srgan_st_tpu_torch/tools/bench.py`, front end
-bench_torch.py; `tools/profile_step.py`) against the JAX package's bench.py
-on the CPU: the rows' configs, the e2e pack bit for bit, one chunk of the
+"""The rows that `srgan_st_tpu_torch/tools/profile_step.py` profiles against
+the JAX package's bench.py on the CPU: the rows' configs, one chunk of the
 headline row at a small size against JAX's chunk step, the serving row's
-feedback chain, and the output contract of `main` (`--device cpu` the only
-way off the card). bench.py imports only numpy at module level.
+feedback chain, and `main` refusing to run off the card. bench.py imports
+only numpy at module level.
 
 Small sizes, as the trajectory goldens': a 2 RCB / 16 ch G and a 4 ch D,
 chunks of k = 2 batches of 2, f32 (BENCH_DTYPE=float32).
 """
 
-import functools
-import json
 import os
 import sys
 
@@ -21,22 +18,15 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:
     sys.path.insert(0, REPO)
 
 import bench as jax_bench  # noqa: E402
 
-from srgan_st_tpu_torch.tools import bench, profile_step  # noqa: E402
-
-@pytest.fixture(autouse=True)
-def _two_threads():
-    """Two threads a test beside the suite's other workers (see
-    tests/test_torch_chunks.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from srgan_st_tpu_torch.tools import profile_step  # noqa: E402
 
 
 def _shrink(config):
@@ -45,21 +35,8 @@ def _shrink(config):
     return config
 
 
-@pytest.fixture
-def small_bench(monkeypatch):
-    """The training rows at the small size: k = 2 batches of 2 a chunk,
-    one warm-up and one measured chunk, f32."""
-    make, measure = bench.make_config, bench.measure
-    monkeypatch.setattr(bench, "make_config", lambda name: _shrink(make(name)))
-    monkeypatch.setattr(bench, "measure", functools.partial(measure, warmup=1, iters=1))
-    monkeypatch.setenv("BENCH_BATCH", "2")
-    monkeypatch.setenv("BENCH_DTYPE", "float32")
-    for knob in ("BENCH_TRUNK", "BENCH_CONV3", "BENCH_VGG_PAIR"):
-        monkeypatch.delenv(knob, raising=False)
-
-
 # ---------------------------------------------------------------------------
-# the rows' configs and the pack
+# the rows' configs
 
 @pytest.mark.parametrize("name,vgg_pair", [
     ("headline", None), ("flagship-st", None), ("flagship-st-xla", None),
@@ -72,7 +49,7 @@ def test_make_config_matches_bench_py(name, vgg_pair, monkeypatch):
         monkeypatch.delenv("BENCH_VGG_PAIR", raising=False)
     else:
         monkeypatch.setenv("BENCH_VGG_PAIR", vgg_pair)
-    got, want = bench.make_config(name), jax_bench._make_config(name)
+    got, want = profile_step.make_config(name), jax_bench._make_config(name)
     g, w = got.MODEL.G_LOSS, want.MODEL.G_LOSS
     assert list(g.CRITERIONS.items()) == list(w.CRITERIONS.items())
     assert dict(g.CRITERION_WEIGHTS) == dict(w.CRITERION_WEIGHTS)
@@ -82,31 +59,9 @@ def test_make_config_matches_bench_py(name, vgg_pair, monkeypatch):
 
 def test_make_config_rejects_an_unknown_row():
     with pytest.raises(ValueError):
-        bench.make_config("infer-4k")
+        profile_step.make_config("infer-4k")
     with pytest.raises(ValueError):
         jax_bench._make_config("infer-4k")
-
-
-@pytest.mark.parametrize("n_patches,size,seed", [(600, 96, 7), (5, 24, 3)])
-def test_ensure_pack_equals_bench_py_bit_for_bit(n_patches, size, seed, tmp_path):
-    """The e2e pack file equals bench.py's byte for byte (600 patches cross
-    the 512-patch generation chunk); an existing pack is kept as it is."""
-    ours = bench.ensure_pack(str(tmp_path / "ours" / "patches.pack.npy"), n_patches, size, seed)
-    theirs = jax_bench._ensure_pack(str(tmp_path / "jax" / "patches.pack.npy"), n_patches,
-                                    size, seed)
-    with open(ours, "rb") as a, open(theirs, "rb") as b:
-        assert a.read() == b.read()
-    before = os.path.getmtime(ours)
-    assert bench.ensure_pack(ours, n_patches + 1, size, seed) == ours
-    assert os.path.getmtime(ours) == before
-
-
-def test_default_pack_is_bench_py_path_under_tmpdir(monkeypatch, tmp_path):
-    monkeypatch.setenv("TMPDIR", str(tmp_path))
-    import tempfile
-
-    monkeypatch.setattr(tempfile, "tempdir", None)
-    assert bench.default_pack_path() == str(tmp_path / "srgan_e2e_pack" / "patches.pack.npy")
 
 
 # ---------------------------------------------------------------------------
@@ -130,10 +85,10 @@ def _jax_headline(k):
     return state, chunk_fn
 
 
-def test_headline_chunk_matches_jax_chunk_step(small_bench):
-    """One measure()-style chunk of the headline row (k = 2 batches of 2,
-    D at the chunk's start) from JAX's initial state, carried across by
-    train/checkpoint.py's mappings, on bench.py's seeded chunk: batch 0's
+def test_headline_chunk_matches_jax_chunk_step(monkeypatch):
+    """One chunk of the headline row as profile_step builds it (k = 2
+    batches of 2, D at the chunk's start) from JAX's initial state, carried
+    across by train/checkpoint.py's mappings, on bench.py's seeded chunk: batch 0's
     metrics within the chunk parity tests' bounds (tests/test_torch_chunks.py:
     2e-3 relative for G's, 5e-3 for D's), and G's and D's parameters and
     running statistics after the chunk within the f32 GAN step bounds of
@@ -144,20 +99,23 @@ def test_headline_chunk_matches_jax_chunk_step(small_bench):
         variables_from_discriminator_state_dict, variables_from_generator_state_dict,
     )
 
+    monkeypatch.setenv("BENCH_DTYPE", "float32")
+    for knob in ("BENCH_TRUNK", "BENCH_CONV3"):
+        monkeypatch.delenv(knob, raising=False)
     k = 2
     jstate, chunk_fn = _jax_headline(k)
-    config = bench.make_config("headline")
-    assert bench.apply_bench_knobs(config) == "float32"
+    config = _shrink(profile_step.make_config("headline"))
+    assert profile_step.apply_bench_knobs(config) == "float32"
     config.DATA.BATCH_SIZE = 2
     dev, mesh = torch.device("cpu"), make_mesh(config)
-    state, chunk_step, graphs = bench.build_gan(config, dev, mesh)
+    state, chunk_step, graphs = profile_step.build_gan(config, dev, mesh)
     assert graphs is None  # the CPU has no graphs: eager steps
     g_vars = jax.device_get({"params": jstate.g_params, "batch_stats": jstate.g_stats})
     d_vars = jax.device_get({"params": jstate.d_params, "batch_stats": jstate.d_stats})
     state.g_model.load_state_dict(generator_state_dict_from_variables(g_vars))
     state.d_model.load_state_dict(discriminator_state_dict_from_variables(d_vars))
 
-    chunk = bench.bench_chunk(config, dev, mesh)
+    chunk = profile_step.bench_chunk(config, dev, mesh)
     want_chunk = np.random.default_rng(0).integers(0, 256, (k, 2, 96, 96, 3), np.uint8)
     np.testing.assert_array_equal(chunk.numpy(), want_chunk)
 
@@ -179,39 +137,6 @@ def test_headline_chunk_matches_jax_chunk_step(small_bench):
             np.testing.assert_allclose(a, np.asarray(b), atol=5e-5, rtol=1e-4)
 
 
-class _FakeGraphs:
-    def __init__(self):
-        self.kinds = {}
-
-    def capture_seconds(self):
-        return dict(self.kinds)
-
-
-def test_measure_refuses_a_capture_inside_the_timed_chunks(small_bench, monkeypatch):
-    """A step graph captured after the warm-up (inside the timed window)
-    fails the row; captures during the warm-up do not."""
-    real = bench.build_gan
-
-    def build(capture_at):
-        def fake(config, dev, mesh):
-            state, chunk_step, _ = real(config, dev, mesh)
-            graphs, calls = _FakeGraphs(), [0]
-
-            def step(state, chunk, do_d=True):
-                calls[0] += 1
-                graphs.kinds[f"kind{min(calls[0], capture_at)}"] = 0.0
-                return chunk_step(state, chunk, do_d)
-
-            return state, step, graphs
-        return fake
-
-    monkeypatch.setattr(bench, "build_gan", build(capture_at=1))
-    assert bench.measure("headline", device="cpu")["value"] > 0
-    monkeypatch.setattr(bench, "build_gan", build(capture_at=2))
-    with pytest.raises(RuntimeError, match="captured inside the timed chunks"):
-        bench.measure("headline", device="cpu")
-
-
 # ---------------------------------------------------------------------------
 # the serving row's feedback chain
 
@@ -225,7 +150,7 @@ def test_infer_chain_next_input_matches_jax(monkeypatch):
     from srgan_st_tpu_torch.models.generator import random_variables
 
     monkeypatch.setenv("BENCH_DTYPE", "float32")
-    step, lr, noise, dev, s = bench.infer_setup("cpu", (24, 24))
+    step, lr, noise, dev, s = profile_step.infer_setup("cpu", (24, 24))
     assert s == 4 and dev.type == "cpu" and lr.dtype == torch.float32
     rng = np.random.default_rng(0)
     want_lr = rng.random((1, 24, 24, 3), np.float32)
@@ -260,58 +185,26 @@ def test_next_lr_keeps_the_input_dtype_and_adds_the_f32_index_term():
     sr = torch.zeros(1, 8, 8, 3)
     z = torch.zeros(1, 2, 2, 3)
     for dtype in (torch.float32, torch.bfloat16):
-        out = bench.next_lr(sr, torch.zeros(1, 2, 2, 3, dtype=dtype), z, 3, 4)
+        out = profile_step.next_lr(sr, torch.zeros(1, 2, 2, 3, dtype=dtype), z, 3, 4)
         assert out.dtype == dtype and out.shape == (1, 2, 2, 3)
-    term = bench.next_lr(sr, torch.zeros(1, 2, 2, 3), z, 12345, 4)
+    term = profile_step.next_lr(sr, torch.zeros(1, 2, 2, 3), z, 12345, 4)
     assert float(term[0, 0, 0, 0]) == float(np.float32(1e-7) * np.float32(12345))
 
 
 # ---------------------------------------------------------------------------
-# the output contract
+# the card only
 
-RECORD_KEYS = {"metric", "value", "unit", "vs_baseline", "device", "peak_mem_gb"}
-
-
-@pytest.mark.parametrize("argv,keys", [
-    (["--only", "headline"], RECORD_KEYS | {"config"}),
-    ([], RECORD_KEYS)])
-def test_main_on_the_cpu_prints_one_record(argv, keys, small_bench, capsys, tmp_path,
-                                           monkeypatch):
-    """`--only headline --device cpu` prints one JSON line with bench.py's
-    keys and the device; with no row flag the headline record drops
-    "config", as bench.py's default run does. No suite table is
-    written."""
-    monkeypatch.chdir(tmp_path)
-    records = bench.main([*argv, "--device", "cpu"])
-    lines = capsys.readouterr().out.strip().splitlines()
-    assert len(lines) == 1 and len(records) == 1
-    rec = json.loads(lines[0])
-    assert set(rec) == keys
-    assert rec["metric"] == "train_patches_per_sec_per_chip" and rec["value"] > 0
-    assert rec["device"] == {"name": "cpu", "power_limit_w": None}
-    assert rec["unit"] == ("patches/s/chip (SRGAN x4, 96px GT, batch 2/chip, "
-                           "Adversarial+Pixel, float32)")
-    assert rec["vs_baseline"] == round(rec["value"] / 312.0, 2)
-    assert not os.path.exists(tmp_path / "BENCH_SUITE_torch.md")
-
-
-@pytest.mark.parametrize("argv", [[], ["--suite"], ["--only", "e2e-stream"],
-                                  ["--only", "infer-4k"], ["--device", "cuda"]])
-def test_main_without_cuda_raises(argv, monkeypatch, capsys):
-    """With no GPU and no `--device cpu`, main raises before any row runs:
-    nothing falls back to the CPU and nothing is printed."""
+@pytest.mark.parametrize("name", ["headline", "flagship-st", "flagship-st-xla", "gram-vgg",
+                                  "warmup", "infer-4k"])
+def test_profile_step_without_cuda_raises(name, monkeypatch, capsys):
+    """With no GPU, main raises before any row is built, whatever the
+    row: nothing falls back to the CPU and nothing is printed."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    monkeypatch.setattr(bench, "measure_row", lambda *a, **k: pytest.fail("a row ran"))
+    for run in ("run_and_trace", "run_and_trace_infer"):
+        monkeypatch.setattr(profile_step, run, lambda *a, **k: pytest.fail("ran"))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        bench.main(argv)
+        profile_step.main([name])
     assert capsys.readouterr().out == ""
-
-
-def test_profile_step_without_cuda_raises(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    monkeypatch.setattr(profile_step, "run_and_trace", lambda *a, **k: pytest.fail("ran"))
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        profile_step.main(["headline"])
 
 
 @pytest.mark.parametrize("line,want", [

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 from srgan_st_tpu_torch import kernels
 from srgan_st_tpu_torch.kernels import rrdb_dense as R
 from srgan_st_tpu_torch.kernels.packed_trunk import _conv

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 from srgan_st_tpu_torch.kernels import launch_counts
 from srgan_st_tpu_torch.models.generator import random_variables
 
@@ -474,22 +475,20 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(REPO, "chip_smoke.py")
-    yield os.path.join(REPO, "bench_torch.py")
 
 
 # the data and multi-GPU modules, which keep their own copies of the JAX
 # package's pure-Python ones (data/volumes.py, data/prepare_dataset.py),
 # the figure tools (viz/training_curves.py is one such copy), and the soak,
-# the loss study, the bench and its per-op profile, the trajectory replay
-# and its probe (tools/)
+# the loss study, the per-op profile, the trajectory replay and its probe
+# (tools/)
 NEW_MODULES = ("srgan_st_tpu_torch.parallel.distributed", "srgan_st_tpu_torch.parallel.mesh",
                "srgan_st_tpu_torch.data.prepare_dataset", "srgan_st_tpu_torch.data.volumes",
                "srgan_st_tpu_torch.viz.save_image_patch", "srgan_st_tpu_torch.viz.feature_maps",
                "srgan_st_tpu_torch.viz.buddy_illustration",
                "srgan_st_tpu_torch.viz.training_curves", "srgan_st_tpu_torch.tools.soak",
-               "srgan_st_tpu_torch.tools.loss_study", "srgan_st_tpu_torch.tools.bench",
-               "srgan_st_tpu_torch.tools.profile_step", "srgan_st_tpu_torch.tools.trajectory",
-               "srgan_st_tpu_torch.tools.trajectory_probe")
+               "srgan_st_tpu_torch.tools.loss_study", "srgan_st_tpu_torch.tools.profile_step",
+               "srgan_st_tpu_torch.tools.trajectory", "srgan_st_tpu_torch.tools.trajectory_probe")
 # the JAX package's tools/ scripts (crosscheck_training_vs_reference,
 # onchip_trajectory_smoke, ...), which the port keeps its own copies of
 TOOLS = ("tools", *sorted(f[:-3] for f in os.listdir(os.path.join(REPO, "tools"))
@@ -497,8 +496,8 @@ TOOLS = ("tools", *sorted(f[:-3] for f in os.listdir(os.path.join(REPO, "tools")
 
 
 def test_port_imports_no_jax():
-    """No module of the port (viz/ and tools/ included), and neither
-    chip_smoke.py nor bench_torch.py, imports JAX, flax, the JAX package or
+    """No module of the port (viz/ and tools/ included), and not
+    chip_smoke.py, imports JAX, flax, the JAX package or
     a script of the repo's tools/ (the trajectory tool keeps its own feed
     and VGG19 stub): every import statement, lazy ones included, and every
     module actually imported in a fresh interpreter, where importing them
@@ -530,7 +529,6 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(p.__path__, 'srgan_st_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
-        "import bench_torch\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN + TOOLS!r}]\n"
         "assert not bad, bad\n"
         "assert not [m for m in ('PIL', 'matplotlib', 'tensorboard') if m in sys.modules]\n"

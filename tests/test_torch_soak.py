@@ -16,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import started_env
+
 TOY = ["MODEL.G_N_RCB=2", "MODEL.G_N_CHANNEL=16", "MODEL.D_N_CHANNEL=4", "DATA.BATCH_SIZE=4",
        "LOG_TRAIN_PERIOD=1", "TPU.CHUNK_STEPS=1", "SOLVER.D_UPDATE_INTERVAL=2",
        "TPU.COMPUTE_DTYPE=float32"]
@@ -29,7 +31,8 @@ def test_soak_kills_and_resumes_bit_for_bit_on_the_cpu(tmp_path, monkeypatch):
     g_last.npz and d_last.npz equal the uninterrupted run's bit for bit."""
     from srgan_st_tpu_torch.tools.soak import run_soak
 
-    monkeypatch.setenv("OMP_NUM_THREADS", "2")
+    for name, value in started_env().items():  # each phase's process, one at a time
+        monkeypatch.setenv(name, value)
     report = run_soak(str(tmp_path), patches=32, warmup_epochs=1, epochs=3, kill_epoch=2,
                       cases=("state_pt",), device="cpu", sets=TOY, child_timeout=240)
     assert report["ok"], report["failures"]

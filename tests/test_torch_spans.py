@@ -14,6 +14,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 from srgan_st_tpu_torch.tools import profile_step as T
 from srgan_st_tpu_torch.utils import profiling as P
 

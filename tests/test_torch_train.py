@@ -19,6 +19,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 from srgan_st_tpu_torch.kernels import packed_trunk as pt
 
 LR = 1e-4  # the default G and D learning rate

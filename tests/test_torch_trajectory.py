@@ -36,6 +36,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 from srgan_st_tpu_torch.tools import trajectory, trajectory_probe
 
 _GOLDENS = os.path.join(os.path.dirname(__file__), "goldens")

@@ -22,6 +22,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 from srgan_st_tpu_torch.kernels import packed_trunk as pt
 
 SHAPES = [(3, 22, 26, 64), (2, 12, 16, 128), (1, 3, 70, 64)]

@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -17,6 +17,7 @@ import pytest
 import torch
 from PIL import Image
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 from srgan_st_tpu_torch.core.config import Config, apply_overrides
 from srgan_st_tpu_torch.models.generator import random_variables
 

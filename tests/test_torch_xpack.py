@@ -19,6 +19,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests import torch_threads  # noqa: F401  (this process's share of the cores)
 from srgan_st_tpu_torch.kernels import xpack_trunk as xp
 from srgan_st_tpu_torch.kernels.packed_trunk import packed_trunk
 from srgan_st_tpu_torch.models.generator import Generator, random_variables
