@@ -26,10 +26,15 @@ toolkit. In order, each phase printing one JSON line:
            (1, 37, 53), (2, 64, 96) and the video frame within 2x its plain
            version's envelope, a second call's bits, one RRDB's and the
            23's times at 540p beside the bound, the plain version and the
-           cuDNN blocks, the 23's output within the same rule; then the
-           RRDB serving entry (make_generator_apply, G_ARCH "rrdb"): one
-           540p frame's launch counts, reset just before it (`--only
-           rrdb_dense`: the build and these alone);
+           cuDNN blocks, the 23's output within the same rule; then
+           kernel H (the RRDB generator's HR stage, bf16 only) at (3, 37,
+           53), (2, 17, 131) and the video frame, its u2 and frame within
+           2x its plain version's envelope, a second pair of calls' bits,
+           its time at 540p beside its bound, the plain version and the
+           torch HR stage; then the RRDB serving entry
+           (make_generator_apply, G_ARCH "rrdb"): one 540p frame's launch
+           counts, reset just before it (`--only rrdb_dense`: the build
+           and these alone);
   serve    seeded full-width weights (16 RCB, 64 channels, x4) written as
            a JAX-format npz and served in bf16 through make_infer_fn /
            upscale_image: a 960x540 frame in the composed tail mode and
@@ -329,6 +334,9 @@ E_BLOCKS = 16
 # the published trunk's RRDBs for the timing
 SHAPE_R_4K = (1, *LR_4K, 64)
 SHAPES_R = ((1, 37, 53, 64), (2, 64, 96, 64), SHAPE_R_4K)
+# kernel H's inputs (the trunk's output): a batch of odd tiles narrower
+# than one 64-pixel tile, rows ending in a partial tile, the video frame
+SHAPES_H = ((3, 37, 53, 64), (2, 17, 131, 64), SHAPE_R_4K)
 R_BLOCKS = 23
 
 # The trunk kernels' inputs: the training shape, then an edge shape whose
@@ -415,14 +423,16 @@ def nvidia_smi() -> str:
 # the training shape's width and channels)
 KERNEL_FUNCS = ("coarse_conv_wgmma", "coarse_conv_kernel", "serving_tail_wgmma",
                 "serving_tail_kernel", "trunk_conv_wgmma", "trunk_wgrad_wgmma",
-                "fused_trunk_wgmma", "buddy_mma_kernel", "eval_trunk_conv", "rrdb_dense_conv")
+                "fused_trunk_wgmma", "buddy_mma_kernel", "eval_trunk_conv", "rrdb_dense_conv",
+                "rrdb_hr_conv")
 WGMMA_SMEM = {"coarse_conv_wgmma": ("coarse_conv", "coarse_conv_s2d_bf16_smem", ()),
               "serving_tail_wgmma": ("serving_tail", "serving_tail_bf16_smem", ()),
               "trunk_conv_wgmma": ("packed_trunk", "packed_trunk_conv_smem", (24, 64)),
               "trunk_wgrad_wgmma": ("packed_trunk", "packed_trunk_wgrad_smem", (24, 64)),
               "fused_trunk_wgmma": ("fused_trunk", "fused_trunk_bf16_smem", (24, 64)),
               "eval_trunk_conv": ("eval_trunk", "eval_trunk_smem", ()),
-              "rrdb_dense_conv": ("rrdb_dense", "rrdb_dense_smem", ())}
+              "rrdb_dense_conv": ("rrdb_dense", "rrdb_dense_smem", ()),
+              "rrdb_hr_conv": ("rrdb_hr", "rrdb_hr_smem", ())}
 
 
 def _ptxas_functions(log: str) -> dict:
@@ -735,6 +745,22 @@ def rrdb_operands(gen, dev, n: int):
     return ws, bs
 
 
+def hr_operands(gen, dev):
+    """Random operands of the RRDB generator's HR stage at the published
+    widths, conv_up1, conv_up2, conv_hr, conv_last: HWIO kernels N(0, 2 /
+    fan_in) (conv_last's N(0, 1 / fan_in)), biases N(0, 0.05^2) (conv_last's
+    0.5, so that the clamped frame is mostly inside (0, 1) and clamped on
+    both sides), drawn by the torch generator `gen` on `dev`."""
+    import torch
+
+    ws, bs = [], []
+    for cout, gain in ((64, 2.0), (64, 2.0), (64, 2.0), (3, 1.0)):
+        ws.append(torch.randn((3, 3, 64, cout), generator=gen, device=dev) * (gain / 576) ** 0.5)
+        bs.append(0.05 * torch.randn(cout, generator=gen, device=dev))
+    bs[3] = bs[3] + 0.5
+    return ws, bs
+
+
 def _rrdb_model(gen, dev):
     """The published RRDB generator (23 RRDBs), bf16 on `dev`, its dense
     convs `rrdb_operands`' draw."""
@@ -846,15 +872,118 @@ def phase_kernel_r(gen, dev) -> dict:
     if not (env > 0 and rec["trunk_bf16_max_abs_err"] <= 2 * env
             and rec["trunk_vs_plain_bf16"] <= 2 * env and bool(torch.isfinite(got.float()).all())):
         raise AssertionError(f"rrdb_dense bf16, the 23 RRDBs at {SHAPE_R_4K}: {rec}")
+    del got, plain16, ref32
+    rec["kernel_h"] = _kernel_h(gen, dev, model)
+    return rec
+
+
+def _torch_hr_stage(model, xn):
+    """The RRDB generator's HR stage as its modules compute it (nearest x2
+    copies, cuDNN convs each with a bias pass, LeakyReLU passes, the
+    clamp): xn the NCHW trunk output -> the NHWC float32 frame."""
+    import torch
+    import torch.nn.functional as F
+
+    from srgan_st_tpu_torch.models.rrdb import lrelu
+
+    feat = xn
+    for conv in (model.conv_up1, model.conv_up2):
+        feat = lrelu(conv(F.interpolate(feat, scale_factor=2, mode="nearest")))
+    out = model.conv_last(lrelu(model.conv_hr(feat)))
+    return torch.clamp(out.float(), 0.0, 1.0).permute(0, 2, 3, 1)
+
+
+def _kernel_h(gen, dev, model) -> dict:
+    """Kernel H (the RRDB generator's HR stage, bf16 only) against its
+    plain version at each of SHAPES_H: the upsample call's u2 (read back
+    from its planes) and the frame within 2x the plain version's own bf16
+    envelope of the plain version in f32, and of the plain version in
+    bf16; a second pair of calls' bits. Then at (1, 540, 960, 64) the time
+    of both calls on laid-out operands (`ms`; `upsample_ms`, `tail_ms`
+    apart; `wrapper_ms` lays the operands out), the bound (benchmark/
+    work_rrdb.py `hr_stage`'s count: 1.404 TFLOP as nine-tap convs; 4.94
+    GB, each conv's input once before the nearest x2, its output once, the
+    frame in float32), the plain version's time, the modules' HR stage on
+    the same weights as `library_ms`, and the host's enqueue of both calls.
+    `model` is the published RRDB generator; its HR convs take the draw."""
+    import torch
+
+    from srgan_st_tpu_torch.kernels import rrdb_hr as H
+    from srgan_st_tpu_torch.models.rrdb import SLOPE
+
+    ws, bs = hr_operands(gen, dev)
+    laid = H.layout(ws, bs)
+    gated = []
+    for shape in SHAPES_H:
+        x = (torch.rand(shape, generator=gen, device=dev) - 0.5).bfloat16()
+        before = H.launches
+        up = H.rrdb_hr_upsample(x, ws, bs, SLOPE, laid)
+        got = H.rrdb_hr_tail(up, ws, bs, SLOPE, laid)
+        same = torch.equal(got, H.rrdb_hr_tail(H.rrdb_hr_upsample(x, ws, bs, SLOPE), ws, bs,
+                                               SLOPE))
+        torch.cuda.synchronize()
+        u16 = H.upsample_reference(x, ws, bs, SLOPE)
+        u32 = H.upsample_reference(x.float(), ws, bs, SLOPE)
+        plain16 = H.rrdb_hr_reference(x, ws, bs, SLOPE)
+        ref32 = H.rrdb_hr_reference(x.float(), ws, bs, SLOPE)
+        env, u_env = max_abs(plain16, ref32), max_abs(u16, u32)
+        rec = {"kernel": "rrdb_hr", "shape": list(shape),
+               "bf16_max_abs_err": max_abs(got, ref32), "bf16_envelope": env,
+               "vs_plain_bf16": max_abs(got, plain16),
+               "u2_bf16_max_abs_err": max_abs(up.nhwc(), u32), "u2_bf16_envelope": u_env,
+               "u2_vs_plain_bf16": max_abs(up.nhwc(), u16),
+               "calls": H.launches - before, "bitwise_repeatable": same}
+        emit("kernel", **rec)
+        if not (env > 0 and u_env > 0 and rec["bf16_max_abs_err"] <= 2 * env
+                and rec["vs_plain_bf16"] <= 2 * env and rec["u2_bf16_max_abs_err"] <= 2 * u_env
+                and rec["u2_vs_plain_bf16"] <= 2 * u_env and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"rrdb_hr bf16 at {shape}: {rec}")
+        if not same or rec["calls"] != 4:
+            raise AssertionError(f"rrdb_hr at {shape}: {rec}")
+        gated.append(rec)
+        del up, got, u16, u32, plain16, ref32
+    rec = {"kernel": "rrdb_hr", "gated_shapes": [r["shape"] for r in gated],
+           "bf16_max_abs_err": max(r["bf16_max_abs_err"] for r in gated),
+           "vs_plain_bf16": max(r["vs_plain_bf16"] for r in gated)}
+    with torch.no_grad():
+        for conv, wk, bk in zip(model._hr_convs, ws, bs):
+            conv.weight.copy_(wk.permute(3, 2, 0, 1))
+            conv.bias.copy_(bk)
+    b, h, w, c = SHAPE_R_4K
+    hw = b * h * w
+    macs = 9 * c * (c * 4 * hw + 2 * c * 16 * hw + 3 * 16 * hw)
+    nbytes = 2 * (c * hw * (5 + 20 + 32 + 16) + 9 * c * (3 * c + 3)) + 4 * 16 * hw * 3
+    x = (torch.rand(SHAPE_R_4K, generator=gen, device=dev) - 0.5).bfloat16()
+    up = H.rrdb_hr_upsample(x, ws, bs, SLOPE, laid)
+    xn = x.permute(0, 3, 1, 2)
+
+    def both(lay=laid):
+        return H.rrdb_hr_tail(H.rrdb_hr_upsample(x, ws, bs, SLOPE, lay), ws, bs, SLOPE, lay)
+    with torch.inference_mode():
+        rec.update(
+            shape=list(SHAPE_R_4K), ms=cuda_ms(both),
+            upsample_ms=cuda_ms(lambda: H.rrdb_hr_upsample(x, ws, bs, SLOPE, laid)),
+            tail_ms=cuda_ms(lambda: H.rrdb_hr_tail(up, ws, bs, SLOPE, laid)),
+            wrapper_ms=cuda_ms(lambda: both(None)),
+            plain_ms=cuda_ms(lambda: H.rrdb_hr_reference(x, ws, bs, SLOPE), iters=3),
+            library_ms=cuda_ms(lambda: _torch_hr_stage(model, xn)),
+            launch_host_ms=host_ms(both), flops=2.0 * macs, bytes=nbytes)
+        lib = _torch_hr_stage(model, xn)
+        rec["vs_library"] = max_abs(both(), lib)
+    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, rec["flops"])
+    rec["roofline_share"] = rec["bound_ms"] / rec["ms"]
+    rec["ms_over_library_ms"] = rec["ms"] / rec["library_ms"]
+    emit("kernel_time", **rec)
     return rec
 
 
 def phase_serve_rrdb(gen, dev) -> dict:
     """The RRDB generator's serving entry, as the video cell reaches kernel
-    R: `make_generator_apply` under MODEL.G_ARCH "rrdb" (bf16, the published
-    widths and depth, `_rrdb_model`'s weights), one 540p frame warmed, then
-    the launch counts reset just before one frame and read just after:
-    kernel R once, as often as the trunk, and no other kernel of the port.
+    R and H: `make_generator_apply` under MODEL.G_ARCH "rrdb" (bf16, the
+    published widths and depth, `_rrdb_model`'s weights), one 540p frame
+    warmed, then the launch counts reset just before one frame and read
+    just after: kernel R once, as often as the trunk, kernel H twice (one
+    call in `g.upsample`, one in `g.tail`), and no other kernel of the port.
     Beside it the bare model's frame: the same counts and, the same kernels
     on the same weights, the same frame."""
     import torch
@@ -886,8 +1015,9 @@ def phase_serve_rrdb(gen, dev) -> dict:
                                    if after[k] != before[k]},
            "served_vs_bare_max_abs": max_abs(sr, bare), "out_shape": list(sr.shape)}
     emit("serve", mode="rrdb", **rec)
-    want = {**{k: 0 for k in counts}, "rrdb_dense": 1, "rrdb_trunk": 1}
-    if counts != want or rec["bare_model_launches"] != {"rrdb_dense": 1, "rrdb_trunk": 1}:
+    want = {**{k: 0 for k in counts}, "rrdb_dense": 1, "rrdb_hr": 2, "rrdb_trunk": 1}
+    if counts != want or rec["bare_model_launches"] != {"rrdb_dense": 1, "rrdb_hr": 2,
+                                                        "rrdb_trunk": 1}:
         raise AssertionError(f"rrdb frame launches: served {counts}, bare model "
                              f"{rec['bare_model_launches']}")
     if sr.shape != (1, 4 * LR_4K[0], 4 * LR_4K[1], 3) or not bool(torch.isfinite(sr).all()):
@@ -1687,7 +1817,8 @@ def phase_train(dev, batch) -> dict:
     steps = TRAIN_STEPS
     want = {"packed_trunk_fwd": 2 * steps, "packed_trunk_bwd": 2 * steps,
             "coarse_conv_s2d": 2 * (steps + 3), "serving_tail": 0, "fused_trunk": 0,
-            "buddy_select": 0, "eval_trunk": 2 * 3, "rrdb_dense": 0, "rrdb_trunk": 0}
+            "buddy_select": 0, "eval_trunk": 2 * 3, "rrdb_dense": 0, "rrdb_hr": 0,
+            "rrdb_trunk": 0}
     fresh = _gan_state(cfg_t, dev)
     moved = {"g": bool((_flat(state.g_model) != _flat(fresh.g_model)).any()),
              "d": bool((_flat(state.d_model) != _flat(fresh.d_model)).any())}
@@ -2003,7 +2134,7 @@ def phase_data(dev) -> dict:
         want_counts = {"packed_trunk_fwd": DATA_STEPS, "packed_trunk_bwd": DATA_STEPS,
                        "coarse_conv_s2d": DATA_STEPS + 3, "serving_tail": 0,
                        "fused_trunk": 0, "buddy_select": 0, "eval_trunk": 3,
-                       "rrdb_dense": 0, "rrdb_trunk": 0}
+                       "rrdb_dense": 0, "rrdb_hr": 0, "rrdb_trunk": 0}
         del auto
     # (4) 120^2 tiles, crop + augment on the card against the CPU function
     with tempfile.TemporaryDirectory() as tmp:
@@ -2435,7 +2566,7 @@ def phase_dist(dev) -> dict:
     want = [{"packed_trunk_fwd": g_steps, "packed_trunk_bwd": g_steps,
              "coarse_conv_s2d": g_steps + (6 if r == 0 else 0), "serving_tail": 0,
              "fused_trunk": 0, "buddy_select": 0, "eval_trunk": 6 if r == 0 else 0,
-             "rrdb_dense": 0, "rrdb_trunk": 0}
+             "rrdb_dense": 0, "rrdb_hr": 0, "rrdb_trunk": 0}
             for r in range(2)]
     b = {"launches_per_rank": [s["launches"] for s in local], "launches_expected": want,
          "launches_one_rank": one["local"]["launches"],
@@ -3007,7 +3138,7 @@ def phase_run(dev, vgg: str) -> dict:
                 "fused_trunk": steps["fused"],
                 "buddy_select": RUN_STEPS if job in (0, 1) else 0,
                 "eval_trunk": 6 if trunk in ("packed", "hybrid", "fused") else 0,
-                "rrdb_dense": 0, "rrdb_trunk": 0}
+                "rrdb_dense": 0, "rrdb_hr": 0, "rrdb_trunk": 0}
         rec = {"job": job, "experiment": name, "trunk": trunk, "seconds": seconds,
                "launches": counts, "launches_expected": want, "results_files": files,
                "test_images": shots,
@@ -3770,6 +3901,18 @@ def run(dev) -> int:
         "bound_by": rec_r["bound_by"], "library_ms": rec_r["library_ms"],
         "trunk_library_ms": rec_r["trunk_library_ms"], "shape": rec_r["shape"],
         "train_launches": train_counts["rrdb_dense"],
+    })
+    rec_h = rec_r["kernel_h"]
+    kernels.append({
+        "name": "rrdb_hr", "tpu_kernel": None, "route": "cuda",
+        "source": "srgan_st_tpu_torch/csrc/rrdb_hr.cu",
+        "replaces": "none: port-only (Real-ESRGAN's HR stage; the JAX package has no "
+                    "RRDB generator)",
+        "launches": rec_rs["launches"]["rrdb_hr"], "max_abs_err": rec_h["bf16_max_abs_err"],
+        "ms": rec_h["ms"], "upsample_ms": rec_h["upsample_ms"], "tail_ms": rec_h["tail_ms"],
+        "plain_ms": rec_h["plain_ms"], "bound_ms": rec_h["bound_ms"],
+        "bound_by": rec_h["bound_by"], "library_ms": rec_h["library_ms"],
+        "shape": rec_h["shape"], "train_launches": train_counts["rrdb_hr"],
     })
     kernels.append({
         "name": "buddy_select", "tpu_kernel": "K7", "route": "cuda",

@@ -9,6 +9,7 @@
 | buddy_select.py | csrc/buddy_select.cu | buddy_select.py `_buddy_kernel` |
 | eval_trunk.py   | csrc/eval_trunk.cu   | none: the eval trunk, plain XLA there (kernel E) |
 | rrdb_dense.py   | csrc/rrdb_dense.cu   | none: Real-ESRGAN's dense trunk, no JAX counterpart (kernel R) |
+| rrdb_hr.py      | csrc/rrdb_hr.cu      | none: Real-ESRGAN's HR stage, no JAX counterpart (kernel H) |
 
 Each wrapper counts its launches in a module-level integer; a replay of a
 captured CUDA graph adds the launches made while it was captured
@@ -38,6 +39,7 @@ _COUNTERS = {"coarse_conv_s2d": ("coarse_conv", "launches"),
              "buddy_select": ("buddy_select", "launches"),
              "eval_trunk": ("eval_trunk", "launches"),
              "rrdb_dense": ("rrdb_dense", "launches"),
+             "rrdb_hr": ("rrdb_hr", "launches"),
              "rrdb_trunk": ("srgan_st_tpu_torch.models.rrdb", "trunk_calls")}
 
 
@@ -56,7 +58,7 @@ def reset_launch_counts() -> None:
 
 
 def launch_counts() -> dict[str, int]:
-    """Executed launches of each kernel (kernels E and R: calls), eager
+    """Executed launches of each kernel (kernels E, R and H: calls), eager
     calls and graph replays, and the dense trunk's calls ("rrdb_trunk")."""
     return {name: getattr(_module(module), attr) for name, (module, attr) in _COUNTERS.items()}
 

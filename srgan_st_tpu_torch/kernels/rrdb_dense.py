@@ -121,6 +121,8 @@ class RRDBDenseWeights:
     (`kernels.generation`): once per parameter version, not once per
     frame."""
 
+    layout = staticmethod(layout)
+
     def __init__(self) -> None:
         self._key = None
         self._ops = None
@@ -138,7 +140,7 @@ class RRDBDenseWeights:
             with torch.no_grad():
                 ws = [w.detach().permute(2, 3, 1, 0) for w, _ in convs]
                 bs = [b.detach().float() for _, b in convs]
-                laid = layout(ws, bs) if ws[0].is_cuda else None
+                laid = self.layout(ws, bs) if ws[0].is_cuda else None
             self._ops = (ws, bs, laid)
             self._key = key
         return self._ops

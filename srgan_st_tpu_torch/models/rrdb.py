@@ -35,7 +35,14 @@ concatenation is `torch.cat` of each conv's input in channels_last memory
 would be copied to a dense tensor before each conv anyway: the layout probe in PERF.md §4).
 conv_body and the global skip stay torch ops on both paths. Each call of
 the dense trunk adds one to `trunk_calls` (`kernels.launch_counts()`'s
-"rrdb_trunk"), and each kernel R call one to "rrdb_dense"."""
+"rrdb_trunk"), and each kernel R call one to "rrdb_dense".
+
+The HR stage likewise: under kernels/rrdb_hr.py's `gate` (eval, no
+gradient, CUDA, bf16, nf 64, 3 outputs) as kernel H (csrc/rrdb_hr.cu),
+one call in `g.upsample` (both nearest x2 stages, the nearest x2 folded
+into each conv's read) and one in `g.tail` (conv_hr, conv_last and the
+clamp, the float32 frame written by the kernel), each counted in
+"rrdb_hr"; everywhere else as the modules below."""
 
 from __future__ import annotations
 
@@ -118,10 +125,14 @@ class RRDBNet(nn.Module):
         self.to(memory_format=torch.channels_last)
         # kernel R's operands, laid out again only when a parameter changes
         from srgan_st_tpu_torch.kernels.rrdb_dense import RRDBDenseWeights
+        from srgan_st_tpu_torch.kernels.rrdb_hr import RRDBHRWeights
 
         self._dense_weights = RRDBDenseWeights()
         self._dense_convs = [conv for rrdb in self.body for rdb in rrdb.children()
                              for conv in rdb.children()]
+        # kernel H's operands, the same way
+        self._hr_weights = RRDBHRWeights()
+        self._hr_convs = [self.conv_up1, self.conv_up2, self.conv_hr, self.conv_last]
         self.growth = growth
 
     @classmethod
@@ -149,12 +160,28 @@ class RRDBNet(nn.Module):
             with span("g.trunk"):
                 trunk_calls += 1
                 feat = feat + self.conv_body(self._body(feat))
+            return self._hr_stage(feat)
+
+    def _hr_stage(self, feat: torch.Tensor) -> torch.Tensor:
+        """The HR stage on the NCHW trunk output, NHWC float32 out: kernel
+        H where its gate holds, one call in each region, else the modules."""
+        from srgan_st_tpu_torch.kernels import rrdb_hr as H
+
+        if H.gate(self.training, torch.is_grad_enabled(), feat.device.type, feat.dtype,
+                  feat.shape[1], self.conv_last.out_channels):
             with span("g.upsample"):
-                for conv in (self.conv_up1, self.conv_up2):
-                    feat = lrelu(conv(F.interpolate(feat, scale_factor=2, mode="nearest")))
+                ws, bs, laid = self._hr_weights.get(
+                    [(c._parameters["weight"], c._parameters["bias"]) for c in self._hr_convs])
+                up = H.rrdb_hr_upsample(feat.permute(0, 2, 3, 1).contiguous(), ws, bs, SLOPE,
+                                        laid)
             with span("g.tail"):
-                out = self.conv_last(lrelu(self.conv_hr(feat)))
-                return torch.clamp(out.float(), 0.0, 1.0).permute(0, 2, 3, 1)
+                return H.rrdb_hr_tail(up, ws, bs, SLOPE, laid)
+        with span("g.upsample"):
+            for conv in (self.conv_up1, self.conv_up2):
+                feat = lrelu(conv(F.interpolate(feat, scale_factor=2, mode="nearest")))
+        with span("g.tail"):
+            out = self.conv_last(lrelu(self.conv_hr(feat)))
+            return torch.clamp(out.float(), 0.0, 1.0).permute(0, 2, 3, 1)
 
     def _body(self, feat: torch.Tensor) -> torch.Tensor:
         """The RRDBs on the NCHW stem output: kernel R where its gate holds,

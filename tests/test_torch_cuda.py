@@ -417,7 +417,7 @@ def test_generator_train_step_launches_the_kernels(dev):
     assert launch_counts() == {"coarse_conv_s2d": 1, "serving_tail": 0,
                                "packed_trunk_fwd": 1, "packed_trunk_bwd": 1,
                                "fused_trunk": 0, "buddy_select": 0, "eval_trunk": 0,
-                               "rrdb_dense": 0, "rrdb_trunk": 0}
+                               "rrdb_dense": 0, "rrdb_hr": 0, "rrdb_trunk": 0}
     for name, p in g.named_parameters():
         assert p.grad is not None and torch.isfinite(p.grad).all(), name
     assert float(g.conv3.weight.grad.abs().max()) > 0
@@ -1329,16 +1329,18 @@ def _config_unfused():
 # The RRDB generator (Real-ESRGAN x4plus) on the serving path
 
 @pytest.mark.cuda
-def test_rrdb_frame_at_540p_matches_the_reference_and_launches_no_kernel(dev):
+def test_rrdb_frame_at_540p_matches_the_reference_and_launches_kernels_r_and_h(dev):
     """A 960 x 540 frame of the published configuration through
     make_generator_apply (bf16) against benchmark/reference/rrdb.py (f32,
     TF32 off) within the cell's limits. Of the port's kernels only kernel R
-    launches (the name is older than kernel R), once, as many times as the
-    trunk is counted; `g.trunk` holds its 345 convs (23 x 3 x 5) under
+    (once, as many times as the trunk is counted) and kernel H (twice)
+    launch; `g.trunk` holds R's 345 convs (23 x 3 x 5) under
     `kernel.rrdb_dense` and conv_body's cuDNN conv, and no conv of the HR
     stage; no `torch.cat` copy or LeakyReLU runs under it; it takes at
     least 0.65 of the four regions' device time (75% measured at 540p on an
-    H100)."""
+    H100). `g.upsample` and `g.tail` each hold one kernel H call under
+    `kernel.rrdb_hr` (two convs each, nearest x2 folded into the up convs'
+    reads) and nothing else: no nearest copy, cuDNN conv or LeakyReLU."""
     import os
     import sys
 
@@ -1370,6 +1372,7 @@ def test_rrdb_frame_at_540p_matches_the_reference_and_launches_no_kernel(dev):
         torch.cuda.synchronize()
     counts = launch_counts()
     assert counts.pop("rrdb_trunk") == counts.pop("rrdb_dense") == 1
+    assert counts.pop("rrdb_hr") == 2
     assert set(counts.values()) == {0}, counts
     ops, calls, spans = T.trace_events(prof)
     rec = T.program_trace(ops, calls, spans)
@@ -1387,6 +1390,11 @@ def test_rrdb_frame_at_540p_matches_the_reference_and_launches_no_kernel(dev):
         sorted(set(trunk_ops))
     assert rec["regions"]["g.trunk"] >= 0.65 * sum(rec["regions"][r] for r in (
         "g.stem", "g.trunk", "g.upsample", "g.tail"))
+    for region in ("g.upsample", "g.tail"):
+        here = [op[2] for op, p in zip(ops, labels) if region in p]
+        convs_h = [op[2] for op, p in zip(ops, labels)
+                   if region in p and "kernel.rrdb_hr" in p and "rrdb_hr_conv" in op[2]]
+        assert len(convs_h) == 2 and all("rrdb_hr" in n for n in here), (region, here)
     ref = upscale(sd, x)
     rms, big = compare.frame_gaps(sr, ref)
     assert sr.shape == (1, 2160, 3840, 3)
@@ -1485,10 +1493,12 @@ def test_rrdbnet_forward_with_and_without_kernel_r(dev, monkeypatch):
         reset_launch_counts()
         kern = m16(lr)
         assert launch_counts()["rrdb_dense"] == launch_counts()["rrdb_trunk"] == 1
+        assert launch_counts()["rrdb_hr"] == 2
         monkeypatch.setattr(R, "gate", lambda *a: False)
         reset_launch_counts()
         blocks = m16(lr)
         assert launch_counts()["rrdb_dense"] == 0 and launch_counts()["rrdb_trunk"] == 1
+        assert launch_counts()["rrdb_hr"] == 2
     env = _err(blocks, ref)
     print(f"rrdbnet: |kernel - f32| {_err(kern, ref)}, |blocks - f32| {env}")
     assert 0 < env and _err(kern, ref) <= 2 * env
@@ -1516,8 +1526,81 @@ def test_rrdb_tiled_eval_equals_the_whole_frame_with_kernel_r(dev):
     tiled = TiledApplier(fn, upscale=4, tile=32, halo=halo, tile_batch=4)(lr)
     counts = launch_counts()
     assert counts["rrdb_dense"] == counts["rrdb_trunk"] == 1 + 7  # 25 tiles, 4 a batch
+    assert counts["rrdb_hr"] == 2 * (1 + 7)
     with torch.inference_mode():
         env = _err(torch.from_numpy(whole), m32(lr.to(dev)).cpu())
     gap = float(np.abs(tiled - whole).max())
     print(f"rrdb tiled: |tiled - whole| {gap}, envelope {env}")
     assert tiled.shape == whole.shape and gap <= env
+
+
+def _hr_operands(dev, seed=13):
+    """chip_smoke's random operands of the HR stage at the published
+    widths, from a seeded generator on `dev`."""
+    from chip_smoke import hr_operands
+
+    return hr_operands(torch.Generator(device=dev).manual_seed(seed), dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 540, 960, 64), (3, 37, 53, 64), (2, 17, 131, 64)])
+def test_rrdb_hr_matches_plain(dev, shape):
+    """Kernel H against its plain version on the same bf16 operands: the
+    upsample call's u2 (read back from its planes) and the frame, each
+    within 2x the plain version's own bf16 envelope of the plain version in
+    f32, the frame's zero border intact; two calls counted; a second pair
+    of calls gives the same bits. (1, 540, 960) is the video cell's frame;
+    (3, 37, 53) is a batch of odd tiles narrower than one 64-pixel tile,
+    with ragged last row groups; (2, 17, 131) ends each row in a partial
+    tile."""
+    from srgan_st_tpu_torch.kernels import rrdb_hr as H
+
+    ws, bs = _hr_operands(dev)
+    laid = H.layout(ws, bs)
+    x = (torch.rand(shape, generator=torch.Generator(device=dev).manual_seed(7), device=dev)
+         - 0.5).bfloat16()
+    before = H.launches
+    up = H.rrdb_hr_upsample(x, ws, bs, 0.2, laid)
+    got = H.rrdb_hr_tail(up, ws, bs, 0.2, laid)
+    torch.cuda.synchronize()
+    assert H.launches == before + 2
+    b, h, w, _ = shape
+    assert got.dtype == torch.float32 and got.shape == (b, 4 * h, 4 * w, 3)
+    assert torch.isfinite(got).all() and float(got.min()) >= 0 and float(got.max()) <= 1
+    again = H.rrdb_hr_tail(H.rrdb_hr_upsample(x, ws, bs, 0.2), ws, bs, 0.2)
+    assert torch.equal(got, again)
+    # the zero border: rows -1 and 4h, x = -1 at index 1 and x = 4w at 4w + 2
+    # (the stored rows' unused pixels, indices 0 and 4w + 3, are not written)
+    planes = up.grid()[:, :, :, 1:4 * w + 3]
+    assert not planes[:, :, 0].any() and not planes[:, :, -1].any()
+    assert not planes[:, :, :, 0].any() and not planes[:, :, :, -1].any()
+    u16 = H.upsample_reference(x, ws, bs, 0.2)
+    u32 = H.upsample_reference(x.float(), ws, bs, 0.2)
+    u_env, u_err = _err(u16, u32), _err(up.nhwc(), u32)
+    plain16 = H.rrdb_hr_reference(x, ws, bs, 0.2)
+    ref32 = H.rrdb_hr_reference(x.float(), ws, bs, 0.2)
+    env, err32, err16 = _err(plain16, ref32), _err(got, ref32), _err(got, plain16)
+    print(f"rrdb_hr {shape}: u2 |kernel - f32| {u_err}, envelope {u_env}; frame |kernel - "
+          f"plain| {err16}, |kernel - f32| {err32}, envelope {env}")
+    assert 0 < u_env and u_err <= 2 * u_env and _err(up.nhwc(), u16) <= 2 * u_env
+    assert 0 < env and err32 <= 2 * env and err16 <= 2 * env
+    # conv_hr's bias dropped is far outside the gate
+    bad = H.rrdb_hr_reference(x, ws, [bs[0], bs[1], torch.zeros_like(bs[2]), bs[3]], 0.2)
+    assert _err(got, bad) > 4 * env
+
+
+@pytest.mark.cuda
+def test_rrdb_hr_raises_outside_its_gate(dev):
+    from srgan_st_tpu_torch.kernels import rrdb_hr as H
+
+    ws, bs = _hr_operands(dev)
+    for x in (torch.zeros(1, 8, 8, 64, device=dev),                       # f32
+              torch.zeros(1, 8, 8, 32, device=dev, dtype=torch.bfloat16),   # nf = 32
+              torch.zeros(1, 8, 8, 64, device=dev, dtype=torch.bfloat16)[:, :, 1:]):  # strided
+        with pytest.raises(ValueError, match="rrdb_hr"):
+            H.rrdb_hr_upsample(x, ws, bs, 0.2)
+    x = torch.zeros(1, 8, 8, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="rrdb_hr"):
+        H.rrdb_hr_upsample(x, ws[:3] + [ws[2]], bs[:3] + [bs[2]], 0.2)  # a 64-channel frame
+    with pytest.raises(ValueError, match="rrdb_hr"):
+        H.rrdb_hr_tail(torch.zeros(1, 32, 32, 64, device=dev, dtype=torch.bfloat16), ws, bs, 0.2)
