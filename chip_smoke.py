@@ -34,7 +34,15 @@ toolkit. In order, each phase printing one JSON line:
            torch HR stage; then the RRDB serving entry
            (make_generator_apply, G_ARCH "rrdb"): one 540p frame's launch
            counts, reset just before it (`--only rrdb_dense`: the build
-           and these alone);
+           and these alone); then the SwinIR serving entry (G_ARCH
+           "swinir", the SwinIR cell's seeded weights): one 540p frame's
+           launch counts, reset just before it, the same frame with the
+           attention on the memory-efficient backend alone, a shifted
+           block's split attention core against one call with the whole
+           additive tensor, and kernel H on the (1, 544, 960, 64) map that
+           frame gives it, with conv_last's bias plus the mean, within 2x
+           its plain version's envelope (`--only swinir`: the build and
+           this alone);
   serve    seeded full-width weights (16 RCB, 64 channels, x4) written as
            a JAX-format npz and served in bf16 through make_infer_fn /
            upscale_image: a 960x540 frame in the composed tail mode and
@@ -1025,6 +1033,118 @@ def phase_serve_rrdb(gen, dev) -> dict:
     return rec
 
 
+def phase_serve_swinir(dev) -> dict:
+    """SwinIR's serving entry, as the SwinIR video cell reaches it:
+    `make_generator_apply` under MODEL.G_ARCH "swinir" (bf16, the published
+    widths, the cell's seeded weights: benchmark/seeded_swinir.py), one 540p
+    frame warmed, then the launch counts reset just before one frame and
+    read just after: one trunk, 36 attention cores, kernel H twice and no
+    other kernel of the port. The same frame again with the attention
+    cores held to the memory-efficient backend alone gives the same bits.
+    One shifted block's core on the frame's shape, split as the program
+    runs it (the bias broadcast over the windows the mask misses, bias plus
+    mask on the 187 it reaches), against one call with the whole additive
+    tensor. Then kernel H on the map that frame gives it, (1, 544, 960, 64)
+    (the frame padded to the window), with the model's own operands
+    (conv_last's bias plus the mean, `_hr_weights`): its u2 and frame within
+    2x the plain version's own bf16 envelope of the plain version in f32
+    (`_kernel_h`'s rule), and its frame cropped equal to the served one."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    from benchmark import harness, seeded_swinir
+    from benchmark.drivers.serve_swinir import program_config
+    from srgan_st_tpu_torch import kernels
+    from srgan_st_tpu_torch.eval.validate import make_generator_apply
+    from srgan_st_tpu_torch.kernels import rrdb_hr as H
+    from srgan_st_tpu_torch.models import swinir as S
+    from srgan_st_tpu_torch.models.rrdb import SLOPE
+
+    gen = torch.Generator(device=dev)  # its own: the later phases' draws stay as they were
+    gen.manual_seed(22)
+    cfg = harness.load_json("configs", "swinir_m_realsr_x4.json")
+    fn = make_generator_apply(program_config(cfg), seeded_swinir.state(cfg, gen, dev), dev)
+    model = fn.model
+    lr = torch.rand(1, *LR_4K, 3, generator=gen, device=dev)
+    fn(lr)
+    torch.cuda.synchronize()
+    seen = []
+    upsample = H.rrdb_hr_upsample
+
+    def keep(x, *args):
+        seen.append(x)
+        return upsample(x, *args)
+    H.rrdb_hr_upsample = keep
+    try:
+        kernels.reset_launch_counts()
+        sr = fn(lr)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+    finally:
+        H.rrdb_hr_upsample = upsample
+    backends = S.SDPA_BACKENDS
+    S.SDPA_BACKENDS = [SDPBackend.EFFICIENT_ATTENTION]
+    try:
+        efficient_alone = torch.equal(fn(lr), sr)
+    finally:
+        S.SDPA_BACKENDS = backends
+    rec = {"frame": list(LR_4K), "launches": counts, "out_shape": list(sr.shape),
+           "efficient_backend_alone_same_bits": efficient_alone}
+    # one shifted block's core: split as served against the whole additive tensor
+    hp = -(-LR_4K[0] // model.window) * model.window
+    _, additive = model.plan(1, hp, LR_4K[1], dev)
+    bias, edge = additive[1]
+    blk = model._blocks[1]
+    c = model.conv_first.out_channels
+    qkv = (torch.randn(hp * LR_4K[1] // 64, 64, 3 * c, generator=gen, device=dev)
+           * 2).bfloat16()
+    whole = torch.cat([bias.expand(qkv.shape[0] - edge.shape[0], -1, -1, -1), edge])
+    with torch.inference_mode():
+        split = S.window_attention(qkv, bias, blk.attn.heads, blk.attn.scale, edge)
+        one = S.window_attention(qkv, whole, blk.attn.heads, blk.attn.scale)
+    rec.update(edge_windows=edge.shape[0], windows=qkv.shape[0],
+               split_vs_whole_max_abs=max_abs(split, one),
+               split_same_bits=torch.equal(split, one))
+    del whole, split, one, qkv
+    # kernel H at the map the frame gave it, with the model's operands
+    x = seen[0]
+    ws, bs, laid = model._hr_weights.get(
+        [(cv._parameters["weight"], cv._parameters["bias"]) for cv in model._hr_convs])
+    with torch.inference_mode():
+        up = H.rrdb_hr_upsample(x, ws, bs, SLOPE, laid)
+        got = H.rrdb_hr_tail(up, ws, bs, SLOPE, laid)
+        torch.cuda.synchronize()
+        u16 = H.upsample_reference(x, ws, bs, SLOPE)
+        u32 = H.upsample_reference(x.float(), ws, bs, SLOPE)
+        plain16 = H.rrdb_hr_reference(x, ws, bs, SLOPE)
+        ref32 = H.rrdb_hr_reference(x.float(), ws, bs, SLOPE)
+    env, u_env = max_abs(plain16, ref32), max_abs(u16, u32)
+    rec["kernel_h"] = {
+        "shape": list(x.shape), "offset": list(model._hr_weights.offset),
+        "bf16_max_abs_err": max_abs(got, ref32), "bf16_envelope": env,
+        "vs_plain_bf16": max_abs(got, plain16),
+        "u2_bf16_max_abs_err": max_abs(up.nhwc(), u32), "u2_bf16_envelope": u_env,
+        "u2_vs_plain_bf16": max_abs(up.nhwc(), u16),
+        "clamped_share": float(((ref32 <= 0) | (ref32 >= 1)).float().mean()),
+        "served_same_bits": torch.equal(got[:, :sr.shape[1], :sr.shape[2]], sr)}
+    emit("serve", mode="swinir", **rec)
+    kh = rec["kernel_h"]
+    want = {**{k: 0 for k in counts}, "swin_trunk": 1, "window_attn": 36, "rrdb_hr": 2}
+    if counts != want:
+        raise AssertionError(f"swinir frame launches: {counts}")
+    if sr.shape != (1, 4 * LR_4K[0], 4 * LR_4K[1], 3) or not bool(torch.isfinite(sr).all()):
+        raise AssertionError(f"swinir served frame: bad output {tuple(sr.shape)}")
+    if not efficient_alone or rec["split_vs_whole_max_abs"] > 0.01:
+        raise AssertionError(f"swinir attention core: {rec}")
+    if tuple(x.shape) != (1, hp, LR_4K[1], 64) or not (
+            env > 0 and u_env > 0 and kh["bf16_max_abs_err"] <= 2 * env
+            and kh["vs_plain_bf16"] <= 2 * env and kh["u2_bf16_max_abs_err"] <= 2 * u_env
+            and kh["u2_vs_plain_bf16"] <= 2 * u_env and kh["served_same_bits"]
+            and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"rrdb_hr on the swinir frame's map: {kh}")
+    return rec
+
+
 def _serve_fns(gpath, dev):
     from srgan_st_tpu_torch.core.config import Config
     from srgan_st_tpu_torch.eval.ensemble import self_ensemble
@@ -1818,7 +1938,7 @@ def phase_train(dev, batch) -> dict:
     want = {"packed_trunk_fwd": 2 * steps, "packed_trunk_bwd": 2 * steps,
             "coarse_conv_s2d": 2 * (steps + 3), "serving_tail": 0, "fused_trunk": 0,
             "buddy_select": 0, "eval_trunk": 2 * 3, "rrdb_dense": 0, "rrdb_hr": 0,
-            "rrdb_trunk": 0}
+            "rrdb_trunk": 0, "swin_trunk": 0, "window_attn": 0}
     fresh = _gan_state(cfg_t, dev)
     moved = {"g": bool((_flat(state.g_model) != _flat(fresh.g_model)).any()),
              "d": bool((_flat(state.d_model) != _flat(fresh.d_model)).any())}
@@ -2134,7 +2254,8 @@ def phase_data(dev) -> dict:
         want_counts = {"packed_trunk_fwd": DATA_STEPS, "packed_trunk_bwd": DATA_STEPS,
                        "coarse_conv_s2d": DATA_STEPS + 3, "serving_tail": 0,
                        "fused_trunk": 0, "buddy_select": 0, "eval_trunk": 3,
-                       "rrdb_dense": 0, "rrdb_hr": 0, "rrdb_trunk": 0}
+                       "rrdb_dense": 0, "rrdb_hr": 0, "rrdb_trunk": 0,
+                       "swin_trunk": 0, "window_attn": 0}
         del auto
     # (4) 120^2 tiles, crop + augment on the card against the CPU function
     with tempfile.TemporaryDirectory() as tmp:
@@ -2566,7 +2687,8 @@ def phase_dist(dev) -> dict:
     want = [{"packed_trunk_fwd": g_steps, "packed_trunk_bwd": g_steps,
              "coarse_conv_s2d": g_steps + (6 if r == 0 else 0), "serving_tail": 0,
              "fused_trunk": 0, "buddy_select": 0, "eval_trunk": 6 if r == 0 else 0,
-             "rrdb_dense": 0, "rrdb_hr": 0, "rrdb_trunk": 0}
+             "rrdb_dense": 0, "rrdb_hr": 0, "rrdb_trunk": 0,
+             "swin_trunk": 0, "window_attn": 0}
             for r in range(2)]
     b = {"launches_per_rank": [s["launches"] for s in local], "launches_expected": want,
          "launches_one_rank": one["local"]["launches"],
@@ -3138,7 +3260,8 @@ def phase_run(dev, vgg: str) -> dict:
                 "fused_trunk": steps["fused"],
                 "buddy_select": RUN_STEPS if job in (0, 1) else 0,
                 "eval_trunk": 6 if trunk in ("packed", "hybrid", "fused") else 0,
-                "rrdb_dense": 0, "rrdb_hr": 0, "rrdb_trunk": 0}
+                "rrdb_dense": 0, "rrdb_hr": 0, "rrdb_trunk": 0,
+                "swin_trunk": 0, "window_attn": 0}
         rec = {"job": job, "experiment": name, "trunk": trunk, "seconds": seconds,
                "launches": counts, "launches_expected": want, "results_files": files,
                "test_images": shots,
@@ -3652,9 +3775,11 @@ def main() -> int:
         return run_eval_trunk_only(torch.device("cuda"))
     if sys.argv[1:] == ["--only", "rrdb_dense"]:
         return run_rrdb_dense_only(torch.device("cuda"))
+    if sys.argv[1:] == ["--only", "swinir"]:
+        return run_swinir_only(torch.device("cuda"))
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]} (none, or --only "
-              "graph|soak|trajectory|eval_trunk|rrdb_dense)", file=sys.stderr)
+              "graph|soak|trajectory|eval_trunk|rrdb_dense|swinir)", file=sys.stderr)
         return 2
     return run(torch.device("cuda"))
 
@@ -3737,6 +3862,20 @@ def run_rrdb_dense_only(dev) -> int:
     return 0
 
 
+def run_swinir_only(dev) -> int:
+    """`--only swinir`: the build and the SwinIR serving phase alone (no
+    result line), for working on the SwinIR path."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    emit("env", torch=torch.__version__, cuda=torch.version.cuda,
+         device=torch.cuda.get_device_name(0), nvidia_smi=nvidia_smi())
+    phase_build()
+    phase_serve_swinir(dev)
+    return 0
+
+
 def run(dev) -> int:
     """Every phase, on the CUDA device `dev`."""
     import torch
@@ -3763,6 +3902,8 @@ def run(dev) -> int:
     rec_r = phase_kernel_r(gen, dev)
     torch.cuda.empty_cache()
     rec_rs = phase_serve_rrdb(gen, dev)
+    torch.cuda.empty_cache()
+    phase_serve_swinir(dev)
     torch.cuda.empty_cache()
 
     rng = np.random.default_rng(0)

@@ -6,8 +6,9 @@ training slices read, and its `--set GROUP.FIELD=value` CLI overrides. Key
 names and defaults are the same, so a config carries over unchanged:
 `TPU.*` names settings (compute dtype, trunk and tail modes, conv3 inner
 factoring, tiled eval, the data-parallel layout and LOCAL_BN, chunking,
-CUDA graphs, the NaN guard, remat), not hardware. `MODEL.G_ARCH` and
-`MODEL.G_N_GROW` are the port's own: its second generator. `TPU.DONATE`
+CUDA graphs, the NaN guard, remat), not hardware. `MODEL.G_ARCH`,
+`MODEL.G_N_GROW` and the SwinIR keys (`G_EMBED_DIM` .. `G_HR_CHANNEL`) are
+the port's own: its second and third generators. `TPU.DONATE`
 is no key of the port: its steps update the state in place, which is
 what donation buys in JAX. `TPU.SHARD_MAP` is not a key either.
 `EXP.ORBAX_CHECKPOINTS` keeps its name and writes
@@ -89,12 +90,23 @@ class Config:
         self.MODEL.D_WARMUP_WEIGHTS = ""
         self.MODEL.G_IN_CHANNEL = 3
         self.MODEL.G_OUT_CHANNEL = 3
-        # the generator: "srresnet" (models/generator.py) or "rrdb"
-        # (models/rrdb.py, Real-ESRGAN x4plus's RRDBNet; eval only)
+        # the generator: "srresnet" (models/generator.py), "rrdb"
+        # (models/rrdb.py, Real-ESRGAN x4plus's RRDBNet; eval only) or
+        # "swinir" (models/swinir.py, SwinIR-M x4 real-SR; eval only)
         self.MODEL.G_ARCH = "srresnet"
         self.MODEL.G_N_CHANNEL = 64         # under "rrdb": num_feat
         self.MODEL.G_N_RCB = 16             # residual blocks; under "rrdb": RRDBs
         self.MODEL.G_N_GROW = 32            # "rrdb" only: the dense blocks' growth width
+        # "swinir" only, SwinIR-M's published values: the embed width, the
+        # RSTBs, the Swin blocks an RSTB, the heads, the window, the MLP
+        # ratio and the HR stage's width (num_feat)
+        self.MODEL.G_EMBED_DIM = 180
+        self.MODEL.G_N_RSTB = 6
+        self.MODEL.G_RSTB_DEPTH = 6
+        self.MODEL.G_N_HEADS = 6
+        self.MODEL.G_WINDOW = 8
+        self.MODEL.G_MLP_RATIO = 2.0
+        self.MODEL.G_HR_CHANNEL = 64
         self.MODEL.G_LOSS = dotdict()
         # VGG19 tap points and weights of ContentVGG (reference config.py:60-64)
         self.MODEL.G_LOSS.VGG19_LAYERS = {

@@ -58,18 +58,19 @@ _MAGIC = b"SRGANX1\n"
 FORMAT = "srgan-st-tpu-torch/torch.export"
 
 
-NO_RRDB = ("export takes SRResNet generators only: the RRDB generator (MODEL.G_ARCH "
-           "'rrdb') is served live, by infer and validate")
+NO_RRDB = ("export takes SRResNet generators only: the RRDB and SwinIR generators "
+           "(MODEL.G_ARCH 'rrdb', 'swinir') are served live, by infer and validate")
 
 
 def derive_arch(variables) -> dict:
     """Recover (channels, num_rcb, upscale) from a generator variable tree:
     conv1's kernel carries the width, the ``rcb{i}`` subtrees the depth,
-    and each ``up{i}`` block's conv expands channels by r^2. An RRDBNet
-    state dict raises: export takes SRResNet generators only."""
+    and each ``up{i}`` block's conv expands channels by r^2. An RRDBNet or
+    SwinIR state dict raises: export takes SRResNet generators only."""
     from srgan_st_tpu_torch.models.rrdb import is_rrdb_state
+    from srgan_st_tpu_torch.models.swinir import is_swinir_state
 
-    if is_rrdb_state(variables):
+    if is_rrdb_state(variables) or is_swinir_state(variables):
         raise ValueError(NO_RRDB)
     params = variables.get("params", variables)
     channels = int(np.asarray(params["conv1"]["kernel"]).shape[-1])

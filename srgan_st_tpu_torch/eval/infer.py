@@ -8,8 +8,11 @@
 * weights are the JAX package's npz format (`g_best.npz`), carried into the
   torch generator by train/checkpoint.py, or a Real-ESRGAN / basicsr
   RRDBNet state dict (`.pth` in the release layout, `{"params_ema": sd}`,
-  `{"params": sd}` or bare, or an npz of its names); the checkpoint's keys
-  pick the architecture (`body.0.rdb1.conv1.weight`: RRDBNet) and its
+  `{"params": sd}` or bare, or an npz of its names), or a SwinIR real-SR
+  state dict in the same layouts (its `relative_position_index` and
+  `attn_mask` buffers dropped and recomputed); the checkpoint's keys pick
+  the architecture (`body.0.rdb1.conv1.weight`: RRDBNet,
+  `layers.0.residual_group.blocks.0.attn.qkv.weight`: SwinIR) and its
   shapes the widths, depth and factor;
 * accepts a single image file or a directory (png/jpg/bmp/tif);
 * `--tiled` runs the halo-tiled applier (eval/tiled.py): one tile-batch
@@ -72,7 +75,7 @@ def make_infer_fn(config, gpath: str | None = None, device=None):
     """`fn(lr_nhwc float32 [0,1]) -> sr_nhwc` for the generator in the
     checkpoint at `gpath` (default results/<EXP.NAME>/g_best.npz), or the
     bicubic / nearest baseline by EXP.NAME. The checkpoint, not the config,
-    defines the architecture: its keys pick SRResNet or RRDBNet
+    defines the architecture: its keys pick SRResNet, RRDBNet or SwinIR
     (MODEL.G_ARCH), its shapes the widths, depth and factor."""
     from srgan_st_tpu_torch.models.baselines import baseline
 
@@ -81,11 +84,21 @@ def make_infer_fn(config, gpath: str | None = None, device=None):
 
     from srgan_st_tpu_torch.eval.export import derive_arch
     from srgan_st_tpu_torch.eval.validate import make_generator_apply
-    from srgan_st_tpu_torch.models import rrdb
+    from srgan_st_tpu_torch.models import rrdb, swinir
 
     if not gpath:
         gpath = f"results/{config.EXP.NAME}/g_best.npz"
     variables = load_generator_weights(gpath)
+    if swinir.is_swinir_state(variables):
+        arch = swinir.arch_of_state(variables)
+        m = config.MODEL
+        m.G_ARCH, m.G_EMBED_DIM, m.G_N_RSTB, m.G_RSTB_DEPTH, m.G_N_HEADS = (
+            "swinir", arch["embed_dim"], arch["num_rstb"], arch["depth"], arch["heads"])
+        m.G_WINDOW, m.G_MLP_RATIO, m.G_HR_CHANNEL = (
+            arch["window"], arch["mlp_ratio"], arch["hr_channels"])
+        m.G_IN_CHANNEL = m.G_OUT_CHANNEL = arch["in_channels"]
+        config.DATA.UPSCALE_FACTOR = arch["upscale"]
+        return make_generator_apply(config, variables, device=device)
     if rrdb.is_rrdb_state(variables):
         arch = rrdb.arch_of_state(variables)
         m = config.MODEL

@@ -15,7 +15,8 @@ Receptive-field radius of the SRResNet generator in LR pixels:
 conv1 9x9 (4) + num_rcb RCBs x 2 conv3x3 (2*num_rcb) + conv2 (1) +
 upsample conv3x3 per stage (1 each) + conv3 9x9 at HR (= ceil(4/upscale))
 -> 40 for the default config; of the RRDB generator
-(`models/rrdb.py` `receptive_radius`) 15 a block + 4 -> 349 for 23.
+(`models/rrdb.py` `receptive_radius`) 15 a block + 4 -> 349 for 23. SwinIR
+has none (`generator_halo` raises).
 """
 
 from __future__ import annotations
@@ -35,7 +36,14 @@ def to_numpy(x) -> np.ndarray:
 
 def generator_halo(num_rcb: int = 16, upscale: int = 4, arch: str = "srresnet") -> int:
     """Receptive-field radius (LR px) of the generator `arch`
-    (MODEL.G_ARCH) of `num_rcb` blocks."""
+    (MODEL.G_ARCH) of `num_rcb` blocks. SwinIR raises: its windows are
+    aligned to the frame's origin, which moves with a tile's, and its
+    shifted windows chain the receptive field across the whole frame, so
+    no halo makes a tile exact."""
+    if arch == "swinir":
+        raise ValueError("tiled eval: SwinIR has no exact halo (its windows align to the "
+                         "frame's origin and shifted windows chain over the frame); serve it "
+                         "whole")
     if arch == "rrdb":
         from srgan_st_tpu_torch.models.rrdb import receptive_radius
 

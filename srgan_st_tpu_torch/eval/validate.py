@@ -115,8 +115,9 @@ def _write_png(path: str, bgr_img: np.ndarray) -> None:
 def make_generator_apply(config, variables, device=None):
     """Eval-mode generator `fn(lr_nhwc) -> sr_nhwc` (a float32 tensor on
     `device`) of the architecture MODEL.G_ARCH names: SRResNet with running
-    BN statistics from a JAX-format variables tree, or RRDBNet from its
-    state dict (basicsr's names; tensors or arrays). Runs on CUDA unless
+    BN statistics from a JAX-format variables tree, RRDBNet from its state
+    dict (basicsr's names; tensors or arrays), or SwinIR from its state
+    dict (SwinIR's names, its derived buffers dropped: `release_state`). Runs on CUDA unless
     `device` says otherwise; a call is the span `serve.frame`, its frame
     number as args. With config.TPU.TILED_EVAL, wraps the halo-tiled
     applier (numpy out), and with config.TPU.SELF_ENSEMBLE the x8
@@ -132,6 +133,10 @@ def make_generator_apply(config, variables, device=None):
     g_model = build_generator(config)
     if arch == "rrdb":
         g_model.load_state_dict({k: torch.as_tensor(v) for k, v in variables.items()})
+    elif arch == "swinir":
+        from srgan_st_tpu_torch.models.swinir import release_state
+
+        g_model.load_state_dict(release_state(variables))
     else:
         g_model.load_state_dict(generator_state_dict_from_variables(variables))
     g_model.to(dev).eval()

@@ -15,7 +15,9 @@ Each wrapper counts its launches in a module-level integer; a replay of a
 captured CUDA graph adds the launches made while it was captured
 (`add_launch_counts`). Beside them, "rrdb_trunk" counts the calls of
 models/rrdb.py's dense trunk, whatever computes it (kernel R, counted
-as "rrdb_dense", or the torch blocks). xpack_trunk.py has no kernel: the
+as "rrdb_dense", or the torch blocks), and "swin_trunk" and
+"window_attn" the calls of models/swinir.py's trunk and of its window
+attention core (plain torch; kernel H counts SwinIR's HR stage too). xpack_trunk.py has no kernel: the
 JAX module it ports is plain XLA, so its eval trunk is plain torch, and
 its training trunk is packed_trunk.py's.
 """
@@ -40,7 +42,9 @@ _COUNTERS = {"coarse_conv_s2d": ("coarse_conv", "launches"),
              "eval_trunk": ("eval_trunk", "launches"),
              "rrdb_dense": ("rrdb_dense", "launches"),
              "rrdb_hr": ("rrdb_hr", "launches"),
-             "rrdb_trunk": ("srgan_st_tpu_torch.models.rrdb", "trunk_calls")}
+             "rrdb_trunk": ("srgan_st_tpu_torch.models.rrdb", "trunk_calls"),
+             "swin_trunk": ("srgan_st_tpu_torch.models.swinir", "trunk_calls"),
+             "window_attn": ("srgan_st_tpu_torch.models.swinir", "attn_calls")}
 
 
 def _module(name: str):
@@ -59,7 +63,8 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict[str, int]:
     """Executed launches of each kernel (kernels E, R and H: calls), eager
-    calls and graph replays, and the dense trunk's calls ("rrdb_trunk")."""
+    calls and graph replays, the dense trunk's calls ("rrdb_trunk") and
+    SwinIR's trunk and attention-core calls ("swin_trunk", "window_attn")."""
     return {name: getattr(_module(module), attr) for name, (module, attr) in _COUNTERS.items()}
 
 

@@ -138,12 +138,16 @@ class RRDBDenseWeights:
                *[t._version for t in tensors])
         if key != self._key:
             with torch.no_grad():
-                ws = [w.detach().permute(2, 3, 1, 0) for w, _ in convs]
-                bs = [b.detach().float() for _, b in convs]
+                ws, bs = self.operands(convs)
                 laid = self.layout(ws, bs) if ws[0].is_cuda else None
             self._ops = (ws, bs, laid)
             self._key = key
         return self._ops
+
+    def operands(self, convs) -> tuple[list, list]:
+        """The HWIO kernels and the f32 biases of convs' (weight, bias)."""
+        return ([w.detach().permute(2, 3, 1, 0) for w, _ in convs],
+                [b.detach().float() for _, b in convs])
 
 
 def rrdb_dense(x, ws, bs, slope: float, scale: float, laid=None):

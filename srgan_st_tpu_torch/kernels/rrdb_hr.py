@@ -30,9 +30,12 @@ counted in `launches`) or raise; the kernel has no backward. On CUDA the
 upsample call returns u2 in the kernel's layout (`Planes`), which the
 tail call reads.
 
-`gate` is the RRDB generator's choice of this path, a pure function of
-what its forward observes; `RRDBHRWeights` keeps the kernel's layout of
-the stage's ten parameters, made again only when one of them changes.
+`gate` is the choice of this path by models/rrdb.py `hr_stage` (the HR
+stage of the RRDB generator and of SwinIR's `nearest+conv` upsampler), a
+pure function of what the forward observes; `RRDBHRWeights` keeps the
+kernel's layout of the stage's ten parameters, made again only when one
+of them changes, with an optional constant added to conv_last's bias
+(SwinIR's mean).
 """
 
 from __future__ import annotations
@@ -66,7 +69,7 @@ _SIGNATURES = {"rrdb_hr_upsample_bf16": [_P] * 7 + [_I] * 3 + [_F, _P],
 
 def gate(train: bool, grad_enabled: bool, device_type: str, dtype: torch.dtype,
          channels: int, out_channels: int) -> bool:
-    """Whether the RRDB generator's HR stage runs this kernel: eval, no
+    """Whether the HR stage (`hr_stage`) runs this kernel: eval, no
     gradient (the kernel has no backward), a CUDA bf16 activation, nf =
     CHANNELS and OUT output channels."""
     return (not train and not grad_enabled and device_type == "cuda"
@@ -149,9 +152,21 @@ class RRDBHRWeights(RRDBDenseWeights):
     the kernel (`layout`), kept as `RRDBDenseWeights` keeps the dense
     blocks': `get` takes the four convs' (weight OIHW, bias), conv_up1,
     conv_up2, conv_hr, conv_last, and lays them out again only when one of
-    the ten parameters changes."""
+    the ten parameters changes. `offset`, where given, is a per-channel
+    constant added to conv_last's bias (SwinIR's mean, added after
+    conv_last and before the clamp)."""
 
     layout = staticmethod(layout)
+
+    def __init__(self, offset: tuple | None = None) -> None:
+        super().__init__()
+        self.offset = offset
+
+    def operands(self, convs) -> tuple[list, list]:
+        ws, bs = super().operands(convs)
+        if self.offset is not None:
+            bs[-1] = bs[-1] + torch.tensor(self.offset, device=bs[-1].device)
+        return ws, bs
 
 
 def padded_width(w: int) -> int:

@@ -459,12 +459,13 @@ def random_variables(seed: int, channels: int = 64, num_rcb: int = 16,
     return {"params": params, "batch_stats": stats}
 
 
-GENERATOR_ARCHS = ("srresnet", "rrdb")
+GENERATOR_ARCHS = ("srresnet", "rrdb", "swinir")
 
 
 def build_generator(config, dtype: torch.dtype | None = None) -> nn.Module:
-    """The generator MODEL.G_ARCH names: SRResNet (`Generator.from_config`)
-    or Real-ESRGAN's RRDBNet (models/rrdb.py, eval only)."""
+    """The generator MODEL.G_ARCH names: SRResNet (`Generator.from_config`),
+    Real-ESRGAN's RRDBNet (models/rrdb.py) or SwinIR (models/swinir.py);
+    the last two eval only."""
     arch = config.MODEL.get("G_ARCH", "srresnet")
     if arch == "srresnet":
         return Generator.from_config(config, dtype)
@@ -472,4 +473,8 @@ def build_generator(config, dtype: torch.dtype | None = None) -> nn.Module:
         from srgan_st_tpu_torch.models.rrdb import RRDBNet
 
         return RRDBNet.from_config(config, dtype)
+    if arch == "swinir":
+        from srgan_st_tpu_torch.models.swinir import SwinIR
+
+        return SwinIR.from_config(config, dtype)
     raise ValueError(f"MODEL.G_ARCH={arch!r}: expected one of {GENERATOR_ARCHS}")

@@ -37,12 +37,13 @@ conv_body and the global skip stay torch ops on both paths. Each call of
 the dense trunk adds one to `trunk_calls` (`kernels.launch_counts()`'s
 "rrdb_trunk"), and each kernel R call one to "rrdb_dense".
 
-The HR stage likewise: under kernels/rrdb_hr.py's `gate` (eval, no
-gradient, CUDA, bf16, nf 64, 3 outputs) as kernel H (csrc/rrdb_hr.cu),
-one call in `g.upsample` (both nearest x2 stages, the nearest x2 folded
-into each conv's read) and one in `g.tail` (conv_hr, conv_last and the
-clamp, the float32 frame written by the kernel), each counted in
-"rrdb_hr"; everywhere else as the modules below."""
+The HR stage likewise (`hr_stage`, which SwinIR's `nearest+conv`
+upsampler shares): under kernels/rrdb_hr.py's `gate` (eval, no gradient,
+CUDA, bf16, nf 64, 3 outputs) as kernel H (csrc/rrdb_hr.cu), one call in
+`g.upsample` (both nearest x2 stages, the nearest x2 folded into each
+conv's read) and one in `g.tail` (conv_hr, conv_last and the clamp, the
+float32 frame written by the kernel), each counted in "rrdb_hr";
+everywhere else as the modules below."""
 
 from __future__ import annotations
 
@@ -160,28 +161,7 @@ class RRDBNet(nn.Module):
             with span("g.trunk"):
                 trunk_calls += 1
                 feat = feat + self.conv_body(self._body(feat))
-            return self._hr_stage(feat)
-
-    def _hr_stage(self, feat: torch.Tensor) -> torch.Tensor:
-        """The HR stage on the NCHW trunk output, NHWC float32 out: kernel
-        H where its gate holds, one call in each region, else the modules."""
-        from srgan_st_tpu_torch.kernels import rrdb_hr as H
-
-        if H.gate(self.training, torch.is_grad_enabled(), feat.device.type, feat.dtype,
-                  feat.shape[1], self.conv_last.out_channels):
-            with span("g.upsample"):
-                ws, bs, laid = self._hr_weights.get(
-                    [(c._parameters["weight"], c._parameters["bias"]) for c in self._hr_convs])
-                up = H.rrdb_hr_upsample(feat.permute(0, 2, 3, 1).contiguous(), ws, bs, SLOPE,
-                                        laid)
-            with span("g.tail"):
-                return H.rrdb_hr_tail(up, ws, bs, SLOPE, laid)
-        with span("g.upsample"):
-            for conv in (self.conv_up1, self.conv_up2):
-                feat = lrelu(conv(F.interpolate(feat, scale_factor=2, mode="nearest")))
-        with span("g.tail"):
-            out = self.conv_last(lrelu(self.conv_hr(feat)))
-            return torch.clamp(out.float(), 0.0, 1.0).permute(0, 2, 3, 1)
+            return hr_stage(feat, self._hr_convs, self._hr_weights, self.training)
 
     def _body(self, feat: torch.Tensor) -> torch.Tensor:
         """The RRDBs on the NCHW stem output: kernel R where its gate holds,
@@ -197,6 +177,35 @@ class RRDBNet(nn.Module):
             [(c._parameters["weight"], c._parameters["bias"]) for c in self._dense_convs])
         y = R.rrdb_dense(feat.permute(0, 2, 3, 1).contiguous(), ws, bs, SLOPE, RES_SCALE, laid)
         return y.permute(0, 3, 1, 2)
+
+
+def hr_stage(feat: torch.Tensor, convs, weights, training: bool) -> torch.Tensor:
+    """The x4 HR stage of RRDBNet and of SwinIR's `nearest+conv`
+    upsampler on the NCHW trunk output, NHWC float32 out: kernel H where
+    its gate holds, one call in each region, else the modules. convs:
+    conv_up1, conv_up2, conv_hr, conv_last; weights: their
+    `RRDBHRWeights`, whose offset (SwinIR's mean) is added after conv_last
+    and before the clamp on either path."""
+    from srgan_st_tpu_torch.kernels import rrdb_hr as H
+
+    up1, up2, conv_hr, conv_last = convs
+    if H.gate(training, torch.is_grad_enabled(), feat.device.type, feat.dtype,
+              feat.shape[1], conv_last.out_channels):
+        with span("g.upsample"):
+            # the tensors read from the modules' dicts, as `_body` reads them
+            ws, bs, laid = weights.get(
+                [(c._parameters["weight"], c._parameters["bias"]) for c in convs])
+            up = H.rrdb_hr_upsample(feat.permute(0, 2, 3, 1).contiguous(), ws, bs, SLOPE, laid)
+        with span("g.tail"):
+            return H.rrdb_hr_tail(up, ws, bs, SLOPE, laid)
+    with span("g.upsample"):
+        for conv in (up1, up2):
+            feat = lrelu(conv(F.interpolate(feat, scale_factor=2, mode="nearest")))
+    with span("g.tail"):
+        out = conv_last(lrelu(conv_hr(feat))).float()
+        if weights.offset is not None:
+            out = out + torch.tensor(weights.offset, device=out.device).view(1, -1, 1, 1)
+        return torch.clamp(out, 0.0, 1.0).permute(0, 2, 3, 1)
 
 
 @torch.no_grad()

@@ -69,12 +69,12 @@ def setup_run(config, device=None):
     """A training loop's start: the process group when the run has several
     processes (parallel/distributed.py), this process's device (a missing
     GPU raises), and the data-parallel group. Returns (device, mesh). A
-    generator other than SRResNet (MODEL.G_ARCH) raises: the RRDB
-    generator is served, not trained, by the port."""
+    generator other than SRResNet (MODEL.G_ARCH) raises: the RRDB and
+    SwinIR generators are served, not trained, by the port."""
     arch = config.MODEL.get("G_ARCH", "srresnet")
     if arch != "srresnet":
         raise ValueError(f"MODEL.G_ARCH={arch!r}: the port trains the SRResNet "
-                         "generator only; the RRDB generator is eval only")
+                         "generator only; the RRDB and SwinIR generators are eval only")
     from srgan_st_tpu_torch.core.device import resolve_device
     from srgan_st_tpu_torch.parallel.distributed import initialize_distributed, rank_device
     from srgan_st_tpu_torch.parallel.mesh import make_mesh

@@ -417,7 +417,8 @@ def test_generator_train_step_launches_the_kernels(dev):
     assert launch_counts() == {"coarse_conv_s2d": 1, "serving_tail": 0,
                                "packed_trunk_fwd": 1, "packed_trunk_bwd": 1,
                                "fused_trunk": 0, "buddy_select": 0, "eval_trunk": 0,
-                               "rrdb_dense": 0, "rrdb_hr": 0, "rrdb_trunk": 0}
+                               "rrdb_dense": 0, "rrdb_hr": 0, "rrdb_trunk": 0,
+                               "swin_trunk": 0, "window_attn": 0}
     for name, p in g.named_parameters():
         assert p.grad is not None and torch.isfinite(p.grad).all(), name
     assert float(g.conv3.weight.grad.abs().max()) > 0
@@ -1604,3 +1605,56 @@ def test_rrdb_hr_raises_outside_its_gate(dev):
         H.rrdb_hr_upsample(x, ws[:3] + [ws[2]], bs[:3] + [bs[2]], 0.2)  # a 64-channel frame
     with pytest.raises(ValueError, match="rrdb_hr"):
         H.rrdb_hr_tail(torch.zeros(1, 32, 32, 64, device=dev, dtype=torch.bfloat16), ws, bs, 0.2)
+
+
+@pytest.mark.cuda
+def test_swinir_frame_at_540p_launches_kernel_h_and_matches_the_torch_hr_path(dev, monkeypatch):
+    """SwinIR-M at its published widths through make_generator_apply on a
+    540p frame (padded to 544 rows, cropped back): one trunk, 36 attention
+    cores and two kernel H calls (`rrdb_hr` = 2 x `swin_trunk`), the frame
+    within the cell's limits of the plain reference; with kernel H's gate
+    shut, the torch HR modules (conv_last's bias plus the mean added after
+    it) give a frame within the same limits, and the two frames lie within
+    the rms limit of each other."""
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from benchmark import compare, harness, seeded, seeded_swinir
+    from benchmark.drivers.serve_swinir import program_config
+    from benchmark.reference.swinir import upscale
+    from srgan_st_tpu_torch.eval.validate import make_generator_apply
+    from srgan_st_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from srgan_st_tpu_torch.kernels import rrdb_hr as H
+    from srgan_st_tpu_torch.models.swinir import SwinIR
+
+    cfg = harness.load_json("configs", "swinir_m_realsr_x4.json")
+    limits = harness.load_json("workloads", "swinir_m_realsr_x4.video_4k_swinir.json")["limits"]
+    gen = seeded.generator_for(2**31 + 97, dev)
+    sd = seeded_swinir.state(cfg, gen, dev)
+    fn = make_generator_apply(program_config(cfg), sd, dev)
+    assert isinstance(fn.model, SwinIR) and fn.model.dtype == torch.bfloat16
+    x = torch.rand(1, 540, 960, 3, generator=gen, device=dev)
+    fn(x)
+    reset_launch_counts()
+    sr = fn(x)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts.pop("swin_trunk") == 1 and counts.pop("window_attn") == 36
+    assert counts.pop("rrdb_hr") == 2 and set(counts.values()) == {0}, counts
+    monkeypatch.setattr(H, "gate", lambda *a: False)
+    reset_launch_counts()
+    sr_torch = fn(x)
+    torch.cuda.synchronize()
+    assert launch_counts()["rrdb_hr"] == 0
+    ref = upscale(sd, x)
+    assert sr.shape == sr_torch.shape == (1, 2160, 3840, 3)
+    for got in (sr, sr_torch):
+        rms, big = compare.frame_gaps(got, ref)
+        assert rms <= limits["frame_rms_gap"] and big <= limits["frame_max_gap"], (rms, big)
+    between = compare.frame_gaps(sr, sr_torch)
+    print(f"swinir 540p frame: kernel H vs reference {compare.frame_gaps(sr, ref)}, torch HR "
+          f"vs reference {compare.frame_gaps(sr_torch, ref)}, between {between}")
+    assert between[0] <= limits["frame_rms_gap"]

@@ -52,10 +52,13 @@ def test_config_defaults_match_jax():
     """Every key of the port's config (nested groups key by key: the port's
     MODEL.G_LOSS holds only the criterion keys it reads) has the JAX
     package's default, but for the port's own keys: TPU.CUDA_GRAPHS (the
-    step's captured CUDA graphs, which JAX's jit has no switch for) and
-    MODEL.G_ARCH, MODEL.G_N_GROW (the port's second generator, RRDBNet)."""
+    step's captured CUDA graphs, which JAX's jit has no switch for),
+    MODEL.G_ARCH, MODEL.G_N_GROW (the port's second generator, RRDBNet) and
+    SwinIR's seven keys (its third)."""
     jcfg, cfg = _configs()
-    port_only = {("TPU", "CUDA_GRAPHS"), ("MODEL", "G_ARCH"), ("MODEL", "G_N_GROW")}
+    port_only = {("TPU", "CUDA_GRAPHS"), ("MODEL", "G_ARCH"), ("MODEL", "G_N_GROW"),
+                 *(("MODEL", k) for k in ("G_EMBED_DIM", "G_N_RSTB", "G_RSTB_DEPTH", "G_N_HEADS",
+                                          "G_WINDOW", "G_MLP_RATIO", "G_HR_CHANNEL"))}
     for section in ("EXP", "DATA", "MODEL", "TPU", "SOLVER", "SCHEDULER"):
         for key, value in getattr(cfg, section).items():
             if (section, key) in port_only:
