@@ -34,15 +34,19 @@ toolkit. In order, each phase printing one JSON line:
            torch HR stage; then the RRDB serving entry
            (make_generator_apply, G_ARCH "rrdb"): one 540p frame's launch
            counts, reset just before it (`--only rrdb_dense`: the build
-           and these alone); then the SwinIR serving entry (G_ARCH
-           "swinir", the SwinIR cell's seeded weights): one 540p frame's
-           launch counts, reset just before it, the same frame with the
-           attention on the memory-efficient backend alone, a shifted
-           block's split attention core against one call with the whole
-           additive tensor, and kernel H on the (1, 544, 960, 64) map that
-           frame gives it, with conv_last's bias plus the mean, within 2x
-           its plain version's envelope (`--only swinir`: the build and
-           this alone);
+           and these alone); then kernel W (SwinIR's window attention
+           core, bf16 only) at the SwinIR cell's core, (8160, 64, 540), an
+           unshifted and a shifted block's, within 2x its plain version's
+           distance from float64 and 2^-7 max |v|, a second call's bits,
+           its time beside its bound, the plain version and the padded
+           scaled_dot_product_attention core the port ran before; then the
+           SwinIR serving entry (G_ARCH "swinir", the SwinIR cell's seeded
+           weights): one 540p frame's launch counts, reset just before it,
+           with scaled_dot_product_attention made to raise, the same frame
+           again with the same bits, and kernel H on the (1, 544, 960, 64)
+           map that frame gives it, with conv_last's bias plus the mean,
+           within 2x its plain version's envelope (`--only swinir`: the
+           build and these alone);
   serve    seeded full-width weights (16 RCB, 64 channels, x4) written as
            a JAX-format npz and served in bf16 through make_infer_fn /
            upscale_image: a 960x540 frame in the composed tail mode and
@@ -432,7 +436,7 @@ def nvidia_smi() -> str:
 KERNEL_FUNCS = ("coarse_conv_wgmma", "coarse_conv_kernel", "serving_tail_wgmma",
                 "serving_tail_kernel", "trunk_conv_wgmma", "trunk_wgrad_wgmma",
                 "fused_trunk_wgmma", "buddy_mma_kernel", "eval_trunk_conv", "rrdb_dense_conv",
-                "rrdb_hr_conv")
+                "rrdb_hr_conv", "swin_attn_kernel")
 WGMMA_SMEM = {"coarse_conv_wgmma": ("coarse_conv", "coarse_conv_s2d_bf16_smem", ()),
               "serving_tail_wgmma": ("serving_tail", "serving_tail_bf16_smem", ()),
               "trunk_conv_wgmma": ("packed_trunk", "packed_trunk_conv_smem", (24, 64)),
@@ -1033,31 +1037,113 @@ def phase_serve_rrdb(gen, dev) -> dict:
     return rec
 
 
+def phase_kernel_w(dev) -> dict:
+    """Kernel W (SwinIR's window attention core, bf16 only) at the SwinIR
+    cell's core, (8160, 64, 540) (a 540p frame padded to 544 rows), heads
+    of 30, qkv N(0, 1.5^2) and a bias table N(0, 2^2): an unshifted
+    block's core and a shifted one's (its last 187 windows masked by the
+    labels of SwinIR's plan), each within 2x its plain version's own
+    distance from float64 and within 2^-7 max |v| (p and the output each
+    rounded once to bf16), with a second call's bits. Then the shifted
+    core's time (`ms`) beside its bound (benchmark/work_swinir.py
+    `attn_core`: q, k, v read once, the output written once, the additive
+    tensors' share; 0.754 GB, 0.225 ms), the plain version's time, and as
+    `library_ms` the core the port ran before kernel W: heads zero-padded
+    to 32, torch's scaled_dot_product_attention on its memory-efficient
+    backend twice (the bias broadcast over the windows the mask misses,
+    bias plus mask over the 187, both bf16) and the output transposed into
+    place; CUDA events, median of 10."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from benchmark import harness, work_swinir
+    from srgan_st_tpu_torch.kernels import swin_attn as W
+    from srgan_st_tpu_torch.models import swinir as S
+
+    gen = torch.Generator(device=dev)  # its own: the later phases' draws stay as they were
+    gen.manual_seed(23)
+    hp, wp, heads, hd = 544, 960, 6, 30
+    nw, scale = hp * wp // 64, hd ** -0.5
+    lab = S.shift_labels(hp, wp, 8, 4, dev)
+    labels = lab[(lab != lab[:, :1]).any(1)]
+    split = nw - labels.shape[0]
+    qkv = (torch.randn(nw, 64, 3 * heads * hd, generator=gen, device=dev) * 1.5).bfloat16()
+    table = torch.randn(225, heads, generator=gen, device=dev) * 2
+    index = S.relative_position_index(8).to(dev)
+    rec = {"kernel": "swin_attn", "shape": list(qkv.shape), "edge_windows": labels.shape[0]}
+    for name, lb in (("unshifted", None), ("shifted", labels)):
+        before = W.launches
+        got = W.swin_attn(qkv, table, index, heads, scale, lb)
+        same = torch.equal(got, W.swin_attn(qkv, table, index, heads, scale, lb))
+        torch.cuda.synchronize()
+        q, k, v = qkv.view(nw, 64, 3, heads, hd).permute(2, 0, 3, 1, 4).double()
+        s = q @ k.transpose(-2, -1) * scale + W.table_bias(table, index).double()
+        if lb is not None:
+            s[split:] += W.label_mask(lb).double().unsqueeze(1)
+        want = (torch.softmax(s, -1) @ v).transpose(1, 2).reshape(nw, 64, heads * hd)
+        del s
+        plain = W.swin_attn_reference(qkv, table, index, heads, scale, lb)
+        err, env = max_abs(got.double(), want), max_abs(plain.double(), want)
+        vmax = float(v.abs().max())
+        rec[name] = {"bf16_max_abs_err": err, "plain_vs_f64": env, "max_abs_v": vmax,
+                     "calls": W.launches - before, "bitwise_repeatable": same}
+        del want, plain, q, k, v
+        if not (0 < env and err <= 2 * env and err <= 2.0 ** -7 * vmax and same
+                and rec[name]["calls"] == 2):
+            raise AssertionError(f"swin_attn {name} at {tuple(qkv.shape)}: {rec[name]}")
+    bias = W.table_bias(table, index).unsqueeze(0)
+    bias16 = bias.bfloat16().contiguous()
+    edge16 = (bias + W.label_mask(labels).unsqueeze(1)).bfloat16().contiguous()
+
+    def library():
+        q, k, v = F.pad(qkv.view(nw, 64, 3, heads, hd), (0, -hd % 8)).permute(2, 0, 3, 1, 4)
+        out = qkv.new_empty(nw, 64, heads, hd)
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            for a, b, m in ((0, split, bias16), (split, nw, edge16)):
+                o = F.scaled_dot_product_attention(q[a:b], k[a:b], v[a:b], attn_mask=m,
+                                                   scale=scale)
+                out[a:b] = o[..., :hd].transpose(1, 2)
+        return out.view(nw, 64, heads * hd)
+    cfg = harness.load_json("configs", "swinir_m_realsr_x4.json")
+    flops, nbytes = work_swinir.attn_core(*LR_4K, cfg)
+    with torch.inference_mode():
+        rec.update(ms=cuda_ms(lambda: W.swin_attn(qkv, table, index, heads, scale, labels)),
+                   unshifted_ms=cuda_ms(lambda: W.swin_attn(qkv, table, index, heads, scale)),
+                   plain_ms=cuda_ms(lambda: W.swin_attn_reference(qkv, table, index, heads,
+                                                                  scale, labels), iters=3),
+                   library_ms=cuda_ms(library), flops=flops, bytes=nbytes)
+        rec["vs_library"] = max_abs(W.swin_attn(qkv, table, index, heads, scale, labels),
+                                    library())
+    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, flops)
+    rec["roofline_share"] = rec["bound_ms"] / rec["ms"]
+    rec["achieved_tb_per_s"] = nbytes / rec["ms"] / 1e9
+    rec["ms_over_library_ms"] = rec["ms"] / rec["library_ms"]
+    emit("kernel_time", **rec)
+    return rec
+
+
 def phase_serve_swinir(dev) -> dict:
     """SwinIR's serving entry, as the SwinIR video cell reaches it:
     `make_generator_apply` under MODEL.G_ARCH "swinir" (bf16, the published
     widths, the cell's seeded weights: benchmark/seeded_swinir.py), one 540p
     frame warmed, then the launch counts reset just before one frame and
-    read just after: one trunk, 36 attention cores, kernel H twice and no
-    other kernel of the port. The same frame again with the attention
-    cores held to the memory-efficient backend alone gives the same bits.
-    One shifted block's core on the frame's shape, split as the program
-    runs it (the bias broadcast over the windows the mask misses, bias plus
-    mask on the 187 it reaches), against one call with the whole additive
-    tensor. Then kernel H on the map that frame gives it, (1, 544, 960, 64)
-    (the frame padded to the window), with the model's own operands
-    (conv_last's bias plus the mean, `_hr_weights`): its u2 and frame within
-    2x the plain version's own bf16 envelope of the plain version in f32
+    read just after, with torch's scaled_dot_product_attention made to
+    raise: one trunk, 36 attention cores, each kernel W, kernel H twice and
+    no other kernel of the port. The same frame again gives the same bits.
+    Then kernel H on the map that frame gives it, (1, 544, 960, 64) (the
+    frame padded to the window), with the model's own operands (conv_last's
+    bias plus the mean, `_hr_weights`): its u2 and frame within 2x the
+    plain version's own bf16 envelope of the plain version in f32
     (`_kernel_h`'s rule), and its frame cropped equal to the served one."""
     import torch
-    from torch.nn.attention import SDPBackend
+    import torch.nn.functional as F
 
     from benchmark import harness, seeded_swinir
     from benchmark.drivers.serve_swinir import program_config
     from srgan_st_tpu_torch import kernels
     from srgan_st_tpu_torch.eval.validate import make_generator_apply
     from srgan_st_tpu_torch.kernels import rrdb_hr as H
-    from srgan_st_tpu_torch.models import swinir as S
     from srgan_st_tpu_torch.models.rrdb import SLOPE
 
     gen = torch.Generator(device=dev)  # its own: the later phases' draws stay as they were
@@ -1069,45 +1155,27 @@ def phase_serve_swinir(dev) -> dict:
     fn(lr)
     torch.cuda.synchronize()
     seen = []
-    upsample = H.rrdb_hr_upsample
+    upsample, sdpa = H.rrdb_hr_upsample, F.scaled_dot_product_attention
 
     def keep(x, *args):
         seen.append(x)
         return upsample(x, *args)
-    H.rrdb_hr_upsample = keep
+
+    def refused(*args, **kwargs):
+        raise AssertionError("the port called scaled_dot_product_attention")
+    H.rrdb_hr_upsample, F.scaled_dot_product_attention = keep, refused
     try:
         kernels.reset_launch_counts()
         sr = fn(lr)
         torch.cuda.synchronize()
         counts = kernels.launch_counts()
     finally:
-        H.rrdb_hr_upsample = upsample
-    backends = S.SDPA_BACKENDS
-    S.SDPA_BACKENDS = [SDPBackend.EFFICIENT_ATTENTION]
-    try:
-        efficient_alone = torch.equal(fn(lr), sr)
-    finally:
-        S.SDPA_BACKENDS = backends
+        H.rrdb_hr_upsample, F.scaled_dot_product_attention = upsample, sdpa
     rec = {"frame": list(LR_4K), "launches": counts, "out_shape": list(sr.shape),
-           "efficient_backend_alone_same_bits": efficient_alone}
-    # one shifted block's core: split as served against the whole additive tensor
-    hp = -(-LR_4K[0] // model.window) * model.window
-    _, additive = model.plan(1, hp, LR_4K[1], dev)
-    bias, edge = additive[1]
-    blk = model._blocks[1]
-    c = model.conv_first.out_channels
-    qkv = (torch.randn(hp * LR_4K[1] // 64, 64, 3 * c, generator=gen, device=dev)
-           * 2).bfloat16()
-    whole = torch.cat([bias.expand(qkv.shape[0] - edge.shape[0], -1, -1, -1), edge])
-    with torch.inference_mode():
-        split = S.window_attention(qkv, bias, blk.attn.heads, blk.attn.scale, edge)
-        one = S.window_attention(qkv, whole, blk.attn.heads, blk.attn.scale)
-    rec.update(edge_windows=edge.shape[0], windows=qkv.shape[0],
-               split_vs_whole_max_abs=max_abs(split, one),
-               split_same_bits=torch.equal(split, one))
-    del whole, split, one, qkv
+           "again_same_bits": torch.equal(fn(lr), sr)}
     # kernel H at the map the frame gave it, with the model's operands
     x = seen[0]
+    hp = -(-LR_4K[0] // model.window) * model.window
     ws, bs, laid = model._hr_weights.get(
         [(cv._parameters["weight"], cv._parameters["bias"]) for cv in model._hr_convs])
     with torch.inference_mode():
@@ -1129,13 +1197,14 @@ def phase_serve_swinir(dev) -> dict:
         "served_same_bits": torch.equal(got[:, :sr.shape[1], :sr.shape[2]], sr)}
     emit("serve", mode="swinir", **rec)
     kh = rec["kernel_h"]
-    want = {**{k: 0 for k in counts}, "swin_trunk": 1, "window_attn": 36, "rrdb_hr": 2}
+    want = {**{k: 0 for k in counts}, "swin_trunk": 1, "window_attn": 36, "swin_attn": 36,
+            "rrdb_hr": 2}
     if counts != want:
         raise AssertionError(f"swinir frame launches: {counts}")
     if sr.shape != (1, 4 * LR_4K[0], 4 * LR_4K[1], 3) or not bool(torch.isfinite(sr).all()):
         raise AssertionError(f"swinir served frame: bad output {tuple(sr.shape)}")
-    if not efficient_alone or rec["split_vs_whole_max_abs"] > 0.01:
-        raise AssertionError(f"swinir attention core: {rec}")
+    if not rec["again_same_bits"]:
+        raise AssertionError(f"swinir served frame: a second call changed bits {rec}")
     if tuple(x.shape) != (1, hp, LR_4K[1], 64) or not (
             env > 0 and u_env > 0 and kh["bf16_max_abs_err"] <= 2 * env
             and kh["vs_plain_bf16"] <= 2 * env and kh["u2_bf16_max_abs_err"] <= 2 * u_env
@@ -1938,7 +2007,7 @@ def phase_train(dev, batch) -> dict:
     want = {"packed_trunk_fwd": 2 * steps, "packed_trunk_bwd": 2 * steps,
             "coarse_conv_s2d": 2 * (steps + 3), "serving_tail": 0, "fused_trunk": 0,
             "buddy_select": 0, "eval_trunk": 2 * 3, "rrdb_dense": 0, "rrdb_hr": 0,
-            "rrdb_trunk": 0, "swin_trunk": 0, "window_attn": 0}
+            "rrdb_trunk": 0, "swin_attn": 0, "swin_trunk": 0, "window_attn": 0}
     fresh = _gan_state(cfg_t, dev)
     moved = {"g": bool((_flat(state.g_model) != _flat(fresh.g_model)).any()),
              "d": bool((_flat(state.d_model) != _flat(fresh.d_model)).any())}
@@ -2255,7 +2324,7 @@ def phase_data(dev) -> dict:
                        "coarse_conv_s2d": DATA_STEPS + 3, "serving_tail": 0,
                        "fused_trunk": 0, "buddy_select": 0, "eval_trunk": 3,
                        "rrdb_dense": 0, "rrdb_hr": 0, "rrdb_trunk": 0,
-                       "swin_trunk": 0, "window_attn": 0}
+                       "swin_attn": 0, "swin_trunk": 0, "window_attn": 0}
         del auto
     # (4) 120^2 tiles, crop + augment on the card against the CPU function
     with tempfile.TemporaryDirectory() as tmp:
@@ -2688,7 +2757,7 @@ def phase_dist(dev) -> dict:
              "coarse_conv_s2d": g_steps + (6 if r == 0 else 0), "serving_tail": 0,
              "fused_trunk": 0, "buddy_select": 0, "eval_trunk": 6 if r == 0 else 0,
              "rrdb_dense": 0, "rrdb_hr": 0, "rrdb_trunk": 0,
-             "swin_trunk": 0, "window_attn": 0}
+             "swin_attn": 0, "swin_trunk": 0, "window_attn": 0}
             for r in range(2)]
     b = {"launches_per_rank": [s["launches"] for s in local], "launches_expected": want,
          "launches_one_rank": one["local"]["launches"],
@@ -3261,7 +3330,7 @@ def phase_run(dev, vgg: str) -> dict:
                 "buddy_select": RUN_STEPS if job in (0, 1) else 0,
                 "eval_trunk": 6 if trunk in ("packed", "hybrid", "fused") else 0,
                 "rrdb_dense": 0, "rrdb_hr": 0, "rrdb_trunk": 0,
-                "swin_trunk": 0, "window_attn": 0}
+                "swin_attn": 0, "swin_trunk": 0, "window_attn": 0}
         rec = {"job": job, "experiment": name, "trunk": trunk, "seconds": seconds,
                "launches": counts, "launches_expected": want, "results_files": files,
                "test_images": shots,
@@ -3863,8 +3932,8 @@ def run_rrdb_dense_only(dev) -> int:
 
 
 def run_swinir_only(dev) -> int:
-    """`--only swinir`: the build and the SwinIR serving phase alone (no
-    result line), for working on the SwinIR path."""
+    """`--only swinir`: the build, kernel W's phase and the SwinIR serving
+    phase alone (no result line), for working on the SwinIR path."""
     import torch
 
     torch.backends.cudnn.allow_tf32 = False
@@ -3872,6 +3941,8 @@ def run_swinir_only(dev) -> int:
     emit("env", torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0), nvidia_smi=nvidia_smi())
     phase_build()
+    phase_kernel_w(dev)
+    torch.cuda.empty_cache()
     phase_serve_swinir(dev)
     return 0
 
@@ -3902,6 +3973,8 @@ def run(dev) -> int:
     rec_r = phase_kernel_r(gen, dev)
     torch.cuda.empty_cache()
     rec_rs = phase_serve_rrdb(gen, dev)
+    torch.cuda.empty_cache()
+    phase_kernel_w(dev)
     torch.cuda.empty_cache()
     phase_serve_swinir(dev)
     torch.cuda.empty_cache()

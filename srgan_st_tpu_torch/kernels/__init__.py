@@ -10,6 +10,7 @@
 | eval_trunk.py   | csrc/eval_trunk.cu   | none: the eval trunk, plain XLA there (kernel E) |
 | rrdb_dense.py   | csrc/rrdb_dense.cu   | none: Real-ESRGAN's dense trunk, no JAX counterpart (kernel R) |
 | rrdb_hr.py      | csrc/rrdb_hr.cu      | none: Real-ESRGAN's HR stage, no JAX counterpart (kernel H) |
+| swin_attn.py    | csrc/swin_attn.cu    | none: SwinIR's window attention core, no JAX counterpart (kernel W) |
 
 Each wrapper counts its launches in a module-level integer; a replay of a
 captured CUDA graph adds the launches made while it was captured
@@ -17,7 +18,8 @@ captured CUDA graph adds the launches made while it was captured
 models/rrdb.py's dense trunk, whatever computes it (kernel R, counted
 as "rrdb_dense", or the torch blocks), and "swin_trunk" and
 "window_attn" the calls of models/swinir.py's trunk and of its window
-attention core (plain torch; kernel H counts SwinIR's HR stage too). xpack_trunk.py has no kernel: the
+attention core, whatever computes it (kernel W, counted as "swin_attn",
+or its plain version; kernel H counts SwinIR's HR stage too). xpack_trunk.py has no kernel: the
 JAX module it ports is plain XLA, so its eval trunk is plain torch, and
 its training trunk is packed_trunk.py's.
 """
@@ -42,6 +44,7 @@ _COUNTERS = {"coarse_conv_s2d": ("coarse_conv", "launches"),
              "eval_trunk": ("eval_trunk", "launches"),
              "rrdb_dense": ("rrdb_dense", "launches"),
              "rrdb_hr": ("rrdb_hr", "launches"),
+             "swin_attn": ("swin_attn", "launches"),
              "rrdb_trunk": ("srgan_st_tpu_torch.models.rrdb", "trunk_calls"),
              "swin_trunk": ("srgan_st_tpu_torch.models.swinir", "trunk_calls"),
              "window_attn": ("srgan_st_tpu_torch.models.swinir", "attn_calls")}
@@ -62,7 +65,7 @@ def reset_launch_counts() -> None:
 
 
 def launch_counts() -> dict[str, int]:
-    """Executed launches of each kernel (kernels E, R and H: calls), eager
+    """Executed launches of each kernel (kernels E, R, H and W: calls), eager
     calls and graph replays, the dense trunk's calls ("rrdb_trunk") and
     SwinIR's trunk and attention-core calls ("swin_trunk", "window_attn")."""
     return {name: getattr(_module(module), attr) for name, (module, attr) in _COUNTERS.items()}

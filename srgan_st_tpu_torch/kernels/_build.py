@@ -29,7 +29,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 KERNELS = ("coarse_conv", "serving_tail", "packed_trunk", "fused_trunk", "buddy_select",
-           "eval_trunk", "rrdb_dense", "rrdb_hr")
+           "eval_trunk", "rrdb_dense", "rrdb_hr", "swin_attn")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 

@@ -38,13 +38,11 @@ partition, with its roll, is one gather of the tokens by a permutation
 made once per frame shape, and its reverse the inverse permutation. The
 gather puts the windows the shift mask reaches (the last row and column
 of windows: 187 of 8,160 at 540p) after the others, the frames' in turn,
-so that a block's additive tensor is its relative-position bias, one
-(heads, N, N) table broadcast over the other windows, and for the
-windows the mask reaches the bias and the mask summed once per frame
-shape. The attention core (`window_attention`) is torch's
-scaled_dot_product_attention with those tensors as its masks, on heads
-zero-padded to a multiple of 8, by the memory-efficient backend on
-CUDA.
+with each of their tokens' region labels (`shift_labels`), from which the
+mask is made. The attention core (`window_attention`) reads q, k and v as
+the qkv linear writes them, each block's bias through its own table and
+index, and the mask from the labels: kernel W (kernels/swin_attn.py)
+under its gate, elsewhere its plain version.
 
 The HR stage runs as kernel H (kernels/rrdb_hr.py) under its gate, with
 conv_last's bias plus the mean; elsewhere as the torch modules.
@@ -56,30 +54,28 @@ Regions: `g.forward`; `g.stem` (the pad, the mean, conv_first); `g.trunk`
 `g.mlp` (norm2 through its residual add); `g.upsample`
 (conv_before_upsample and the two nearest x2 stages); `g.tail`. Counters:
 `trunk_calls` ("swin_trunk" in `kernels.launch_counts()`), one a trunk,
-and `attn_calls` ("window_attn"), one an attention core."""
+and `attn_calls` ("window_attn"), one an attention core, whatever computes
+it (kernel W's launches count apart, "swin_attn", under the span
+`kernel.swin_attn` inside `g.attn_core`)."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.nn.attention import SDPBackend, sdpa_kernel
 
+from srgan_st_tpu_torch.kernels import swin_attn
+from srgan_st_tpu_torch.kernels.swin_attn import label_mask, table_bias
 from srgan_st_tpu_torch.models.rrdb import Conv3x3, hr_stage
 from srgan_st_tpu_torch.utils.profiling import span
 
 MEAN = (0.4488, 0.4371, 0.4040)
-MASKED = -100.0
 LN_EPS = 1e-5
 BEFORE_UPSAMPLE_SLOPE = 0.01
 # the key a state dict of this architecture has and the others have not
 MARK = "layers.0.residual_group.blocks.0.attn.qkv.weight"
 # SwinIR's buffers derived from the shapes (and, for the mask, its img_size)
 DERIVED = ("relative_position_index", "attn_mask")
-# the attention core's backends: the memory-efficient kernel where it runs
-# (CUDA), the math one elsewhere; torch's own choice on the H100, cuDNN's
-# kernel, took 1.23 ms a core against 0.71 (PERF.md section 4)
-SDPA_BACKENDS = [SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH]
 
 # calls of the trunk (`g.trunk`) and of the attention core since import or
 # the last reset
@@ -107,51 +103,44 @@ def window_order(h: int, w: int, window: int, shift: int, device=None) -> torch.
     return grid.view(h // window, window, w // window, window).permute(0, 2, 1, 3).reshape(-1)
 
 
-def shift_mask(h: int, w: int, window: int, shift: int, device=None) -> torch.Tensor:
-    """(nW, window^2, window^2) float32: 0 between two tokens of a window
-    from one region of the rolled map, -100 between two regions
-    (network_swinir.py's `calculate_mask`)."""
+def shift_labels(h: int, w: int, window: int, shift: int, device=None) -> torch.Tensor:
+    """(nW, window^2) uint8: the region (0..8) of each token of each window
+    of the map rolled by -shift, windows in row-major order and tokens
+    row-major inside each (network_swinir.py's `calculate_mask` regions)."""
     def regions(n):
-        r = torch.zeros(n, dtype=torch.int64, device=device)
+        r = torch.zeros(n, dtype=torch.uint8, device=device)
         r[n - window:n - shift] = 1
         r[n - shift:] = 2
         return r
 
     label = regions(h)[:, None] * 3 + regions(w)[None, :]
     windows = label.view(h // window, window, w // window, window).permute(0, 2, 1, 3)
-    windows = windows.reshape(-1, window * window)
-    differ = windows[:, None, :] != windows[:, :, None]
-    return torch.where(differ, MASKED, 0.0)
+    return windows.reshape(-1, window * window)
 
 
-def window_attention(qkv: torch.Tensor, bias: torch.Tensor, heads: int, scale: float,
-                     edge: torch.Tensor | None = None) -> torch.Tensor:
+def shift_mask(h: int, w: int, window: int, shift: int, device=None) -> torch.Tensor:
+    """(nW, window^2, window^2) float32: 0 between two tokens of a window
+    from one region of the rolled map, -100 between two regions
+    (network_swinir.py's `calculate_mask`)."""
+    return label_mask(shift_labels(h, w, window, shift, device))
+
+
+def window_attention(qkv: torch.Tensor, table: torch.Tensor, index: torch.Tensor, heads: int,
+                     scale: float, labels: torch.Tensor | None = None) -> torch.Tensor:
     """The attention core: qkv (W, N, 3 C) as the qkv linear writes it
-    (q, k, v, each heads x C / heads) for W windows, bias (A, heads, N, N),
-    A = 1 or the windows before the last E, added to their scores, and
-    edge (E, heads, N, N) or None, added to the last E windows' scores in
-    its place -> (W, N, C), the heads' outputs concatenated, before proj:
-    softmax(scale q k^T + additive) v, by `F.scaled_dot_product_attention`
-    on `SDPA_BACKENDS`, one call for each part. Each head is zero-padded
-    to a multiple of 8 columns (SwinIR-M's 30 to 32), the width the
-    memory-efficient backend takes with an additive mask; the zeros add
-    nothing to q k^T and p v's extra columns are dropped. That backend
-    keeps the scores and the softmax in f32 (at 30 wide only the math
-    backend takes the call, slower; PERF.md section 4)."""
+    (q, k, v, each heads x C / heads) for W windows, a block's bias table
+    and index, and labels (E, N) uint8, the regions of the last E windows'
+    tokens, or None -> (W, N, C), the heads' outputs concatenated, before
+    proj: softmax(scale q k^T + table[index] + mask) v, the mask -100
+    between tokens of two regions of the last E windows. Kernel W under
+    its gate (kernels/swin_attn.py), else its plain version."""
     global attn_calls
     attn_calls += 1
-    bw, n, c3 = qkv.shape
-    hd = c3 // (3 * heads)
-    q, k, v = F.pad(qkv.view(bw, n, 3, heads, hd), (0, -hd % 8)).permute(2, 0, 3, 1, 4)
-    split = bw - (0 if edge is None else edge.shape[0])
-    out = qkv.new_empty(bw, n, heads, hd)
-    with sdpa_kernel(SDPA_BACKENDS):
-        for a, b, m in ((0, split, bias), (split, bw, edge)):
-            if b > a:
-                o = F.scaled_dot_product_attention(q[a:b], k[a:b], v[a:b], attn_mask=m,
-                                                   scale=scale)
-                out[a:b] = o[..., :hd].transpose(1, 2)
-    return out.view(bw, n, heads * hd)
+    n = qkv.shape[1]
+    hd = qkv.shape[-1] // (3 * heads)
+    if swin_attn.gate(torch.is_grad_enabled(), qkv.device.type, qkv.dtype, n, heads, hd):
+        return swin_attn.swin_attn(qkv, table, index, heads, scale, labels)
+    return swin_attn.swin_attn_reference(qkv, table, index, heads, scale, labels)
 
 
 class WindowAttention(nn.Module):
@@ -168,9 +157,7 @@ class WindowAttention(nn.Module):
 
     def bias(self) -> torch.Tensor:
         """(heads, N, N) float32: the relative-position bias of a window."""
-        n = self.window * self.window
-        table = self.relative_position_bias_table.float()
-        return table[self.relative_position_index.view(-1)].view(n, n, -1).permute(2, 0, 1)
+        return table_bias(self.relative_position_bias_table, self.relative_position_index)
 
 
 class Mlp(nn.Module):
@@ -200,21 +187,24 @@ class SwinBlock(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.mlp = Mlp(dim, hidden)
 
-    def forward(self, x: torch.Tensor, order: tuple, additive: tuple,
+    def forward(self, x: torch.Tensor, order: tuple, labels: torch.Tensor | None,
                 dtype: torch.dtype) -> torch.Tensor:
         """x (B, H, W, C) float32, the stream; order: the gather and its
-        inverse of this block's windows; additive: this block's (bias,
-        edge), `SwinIR.plan`'s. Returns a new stream tensor."""
+        inverse of this block's windows; labels: the regions of the windows
+        its mask reaches, or None (`SwinIR.plan`'s). Returns a new stream
+        tensor."""
         b, h, w, c = x.shape
         perm, inv = order
-        n = self.attn.window ** 2
+        attn = self.attn
+        n = attn.window ** 2
         with span("g.attn"):
             tokens = _norm(x, self.norm1, dtype).view(b * h * w, c)
-            qkv = _linear(torch.index_select(tokens, 0, perm), self.attn.qkv)
+            qkv = _linear(torch.index_select(tokens, 0, perm), attn.qkv)
             with span("g.attn_core"):
-                heads = window_attention(qkv.view(-1, n, 3 * c), additive[0], self.attn.heads,
-                                         self.attn.scale, additive[1])
-            out = _linear(heads, self.attn.proj).view(b * h * w, c)
+                heads = window_attention(qkv.view(-1, n, 3 * c), attn.relative_position_bias_table,
+                                         attn.relative_position_index, attn.heads, attn.scale,
+                                         labels)
+            out = _linear(heads, attn.proj).view(b * h * w, c)
             x = x + torch.index_select(out, 0, inv).view(b, h, w, c)
         with span("g.mlp"):
             y = F.gelu(_linear(_norm(x, self.norm2, dtype), self.mlp.fc1))
@@ -301,48 +291,35 @@ class SwinIR(nn.Module):
                    upscale=config.DATA.UPSCALE_FACTOR,
                    dtype=dtype or compute_dtype(config.TPU.COMPUTE_DTYPE))
 
-    def plan(self, b: int, h: int, w: int, device) -> tuple[dict, list]:
+    def plan(self, b: int, h: int, w: int, device) -> tuple[dict, dict]:
         """The gathers of b frames of h x w ({shift: (perm, inv)}, over the
         frames' tokens flattened; the windows the shift mask reaches after
-        the others) and each block's additive tensors (bias, edge) in the
-        compute dtype: its relative-position bias (1, heads, N, N), and in
-        a shifted block the bias plus the mask of the windows the mask
-        reaches (E, heads, N, N), else None. Made again for another shape,
-        device or dtype, or when a bias table changes; only the last is
-        kept."""
-        from srgan_st_tpu_torch import kernels
-
-        tables = [blk.attn.relative_position_bias_table for blk in self._blocks]
-        key = (b, h, w, str(device), self.dtype, kernels.generation,
-               *[t.data_ptr() for t in tables], *[t._version for t in tables])
+        the others) and the region labels of those windows' tokens ({shift:
+        (E, N) uint8, frame after frame}, None for shift 0). Made again for
+        another shape or device; only the last is kept."""
+        key = (b, h, w, str(device))
         if key != self._plan_key:
             self._plan = None  # the old tensors go before the new are made
-            with torch.no_grad():
-                orders, masks = {}, {}
-                n = self.window * self.window
-                frames = torch.arange(b, device=device).view(b, 1, 1) * (h * w)
-                for shift in sorted({blk.shift for blk in self._blocks}):
-                    windows = window_order(h, w, self.window, shift, device).view(-1, n)
-                    split = windows.shape[0]
-                    if shift:
-                        mask = shift_mask(h, w, self.window, shift, device)
-                        reached = (mask != 0).flatten(1).any(1)
-                        first = torch.argsort(reached.to(torch.int8), stable=True)
-                        split -= int(reached.sum())
-                        windows = windows[first]
-                        masks[shift] = mask[first[split:]].repeat(b, 1, 1)
-                    tokens = windows + frames
-                    perm = torch.cat([tokens[:, :split].reshape(-1), tokens[:, split:].reshape(-1)])
-                    inv = torch.empty_like(perm)
-                    inv[perm] = torch.arange(perm.numel(), device=device)
-                    orders[shift] = (perm, inv)
-                additive = []
-                for blk in self._blocks:
-                    bias = blk.attn.bias().unsqueeze(0)
-                    edge = (bias + masks[blk.shift].unsqueeze(1)).to(self.dtype).contiguous() \
-                        if blk.shift else None
-                    additive.append((bias.to(self.dtype).contiguous(), edge))
-            self._plan, self._plan_key = (orders, additive), key
+            orders, labels = {}, {}
+            n = self.window * self.window
+            frames = torch.arange(b, device=device).view(b, 1, 1) * (h * w)
+            for shift in sorted({blk.shift for blk in self._blocks}):
+                windows = window_order(h, w, self.window, shift, device).view(-1, n)
+                split = windows.shape[0]
+                labels[shift] = None
+                if shift:
+                    lab = shift_labels(h, w, self.window, shift, device)
+                    reached = (lab != lab[:, :1]).any(1)
+                    first = torch.argsort(reached.to(torch.int8), stable=True)
+                    split -= int(reached.sum())
+                    windows = windows[first]
+                    labels[shift] = lab[first[split:]].repeat(b, 1)
+                tokens = windows + frames
+                perm = torch.cat([tokens[:, :split].reshape(-1), tokens[:, split:].reshape(-1)])
+                inv = torch.empty_like(perm)
+                inv[perm] = torch.arange(perm.numel(), device=device)
+                orders[shift] = (perm, inv)
+            self._plan, self._plan_key = (orders, labels), key
         return self._plan
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -372,15 +349,13 @@ class SwinIR(nn.Module):
         """conv_first's output (B, C, H, W), channels_last -> norm(the
         RSTBs' stream) (B, H, W, C) in the compute dtype."""
         _, _, hp, wp = feat.shape
-        orders, additive = self.plan(feat.shape[0], hp, wp, feat.device)
+        orders, labels = self.plan(feat.shape[0], hp, wp, feat.device)
         x = F.layer_norm(feat.permute(0, 2, 3, 1).float(), self.patch_embed.norm.normalized_shape,
                          self.patch_embed.norm.weight, self.patch_embed.norm.bias, LN_EPS)
-        i = 0
         for layer in self.layers:
             skip = x
             for blk in layer.residual_group.blocks:
-                x = blk(x, orders[blk.shift], additive[i], self.dtype)
-                i += 1
+                x = blk(x, orders[blk.shift], labels[blk.shift], self.dtype)
             conv = layer.conv(x.to(self.dtype).permute(0, 3, 1, 2))
             x = skip + conv.permute(0, 2, 3, 1)
         return _norm(x, self.norm, self.dtype)

@@ -417,8 +417,8 @@ def test_generator_train_step_launches_the_kernels(dev):
     assert launch_counts() == {"coarse_conv_s2d": 1, "serving_tail": 0,
                                "packed_trunk_fwd": 1, "packed_trunk_bwd": 1,
                                "fused_trunk": 0, "buddy_select": 0, "eval_trunk": 0,
-                               "rrdb_dense": 0, "rrdb_hr": 0, "rrdb_trunk": 0,
-                               "swin_trunk": 0, "window_attn": 0}
+                               "rrdb_dense": 0, "rrdb_hr": 0, "swin_attn": 0,
+                               "rrdb_trunk": 0, "swin_trunk": 0, "window_attn": 0}
     for name, p in g.named_parameters():
         assert p.grad is not None and torch.isfinite(p.grad).all(), name
     assert float(g.conv3.weight.grad.abs().max()) > 0
@@ -1610,9 +1610,10 @@ def test_rrdb_hr_raises_outside_its_gate(dev):
 @pytest.mark.cuda
 def test_swinir_frame_at_540p_launches_kernel_h_and_matches_the_torch_hr_path(dev, monkeypatch):
     """SwinIR-M at its published widths through make_generator_apply on a
-    540p frame (padded to 544 rows, cropped back): one trunk, 36 attention
-    cores and two kernel H calls (`rrdb_hr` = 2 x `swin_trunk`), the frame
-    within the cell's limits of the plain reference; with kernel H's gate
+    540p frame (padded to 544 rows, cropped back), torch's fused attention
+    made to raise: one trunk, 36 attention cores, each kernel W (`swin_attn`
+    = `window_attn`), and two kernel H calls (`rrdb_hr` = 2 x `swin_trunk`),
+    the frame within the cell's limits of the plain reference; with kernel H's gate
     shut, the torch HR modules (conv_last's bias plus the mean added after
     it) give a frame within the same limits, and the two frames lie within
     the rms limit of each other."""
@@ -1630,6 +1631,9 @@ def test_swinir_frame_at_540p_launches_kernel_h_and_matches_the_torch_hr_path(de
     from srgan_st_tpu_torch.kernels import rrdb_hr as H
     from srgan_st_tpu_torch.models.swinir import SwinIR
 
+    def refused(*args, **kwargs):
+        raise AssertionError("the port called scaled_dot_product_attention")
+    monkeypatch.setattr(torch.nn.functional, "scaled_dot_product_attention", refused)
     cfg = harness.load_json("configs", "swinir_m_realsr_x4.json")
     limits = harness.load_json("workloads", "swinir_m_realsr_x4.video_4k_swinir.json")["limits"]
     gen = seeded.generator_for(2**31 + 97, dev)
@@ -1642,7 +1646,8 @@ def test_swinir_frame_at_540p_launches_kernel_h_and_matches_the_torch_hr_path(de
     sr = fn(x)
     torch.cuda.synchronize()
     counts = launch_counts()
-    assert counts.pop("swin_trunk") == 1 and counts.pop("window_attn") == 36
+    assert counts.pop("swin_trunk") == 1
+    assert counts.pop("window_attn") == counts.pop("swin_attn") == 36
     assert counts.pop("rrdb_hr") == 2 and set(counts.values()) == {0}, counts
     monkeypatch.setattr(H, "gate", lambda *a: False)
     reset_launch_counts()

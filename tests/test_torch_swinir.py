@@ -3,8 +3,9 @@ the CPU against the benchmark's plain reference
 (benchmark/reference/swinir.py) at a small size with shifting on (embed
 20 in 2 heads of 10, a width no multiple of 8 as the published 30 is; 2
 RSTBs of 2 blocks, window 4; a 10 x 14 LR frame, so that the reflect pad
-and the crop act), its pieces (the window gathers, the shift mask, the
-relative-position index, the attention core), SwinIR's published
+and the crop act), its pieces (the window gathers, the shift mask and
+its labels, the relative-position index and bias, the attention core,
+kernel W's gate), SwinIR's published
 state-dict layout, the serving entry's dispatch with its spans and
 counters, `infer` on a release-layout checkpoint, and the refusals
 (training, export, tiled eval). Imports no JAX; the JAX package has no
@@ -19,6 +20,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from tests import torch_threads  # noqa: F401  (this process's share of the cores)
+from srgan_st_tpu_torch.kernels.swin_attn import label_mask, table_bias
 from srgan_st_tpu_torch.models import swinir as S
 from srgan_st_tpu_torch.models.swinir import SwinIR
 
@@ -104,10 +106,8 @@ def test_one_blocks_fault_moves_the_frame_past_the_bf16_program(fault, monkeypat
             plan = S.SwinIR.plan
 
             def without_mask(self, b, h, w, device):
-                orders, additive = plan(self, b, h, w, device)
-                additive = list(additive)
-                additive[1] = (additive[1][0], None)
-                return orders, additive
+                orders, labels = plan(self, b, h, w, device)
+                return orders, {**labels, 2: None}
 
             monkeypatch.setattr(S.SwinIR, "plan", without_mask)
         got = m(x)
@@ -194,41 +194,80 @@ def test_shift_mask_is_calculate_masks(hw):
     assert set(got.unique().tolist()) == {-100.0, 0.0}
 
 
+@pytest.mark.parametrize("hw,window,shift", [((8, 12), 4, 2), ((16, 8), 4, 2),
+                                             ((24, 32), 8, 4), ((16, 16), 8, 4)])
+def test_the_labels_give_calculate_masks_pattern(hw, window, shift):
+    """The region labels of each window's tokens give SwinIR's own mask:
+    -100 exactly where two tokens' labels differ, windows in order."""
+    labels = S.shift_labels(*hw, window, shift)
+    assert labels.dtype == torch.uint8 and labels.shape == (
+        hw[0] * hw[1] // window ** 2, window ** 2)
+    assert torch.equal(label_mask(labels), ref.attention_mask(*hw, window, shift))
+
+
+@pytest.mark.parametrize("window", [4, 8])
+def test_the_table_and_index_bias_is_the_relative_position_bias(window):
+    """The bias read through a block's table and index, as the plain core
+    and WindowAttention.bias() read it, against the relative offset of
+    every pair of a window's positions written out."""
+    heads = 3
+    attn = S.WindowAttention(heads * 4, heads, window)
+    torch.nn.init.normal_(attn.relative_position_bias_table,
+                          generator=torch.Generator().manual_seed(window))
+    table = attn.relative_position_bias_table.detach()
+    want = torch.empty(heads, window ** 2, window ** 2)
+    for i in range(window ** 2):
+        for j in range(window ** 2):
+            dy, dx = i // window - j // window, i % window - j % window
+            want[:, i, j] = table[(dy + window - 1) * (2 * window - 1) + dx + window - 1]
+    assert torch.equal(table_bias(table, attn.relative_position_index), want)
+    assert torch.equal(attn.bias().detach(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("batch", [1, 2])
-def test_window_attention_is_the_plain_softmax_attention(batch):
-    """The core (heads of 10, padded to 16 inside) against softmax(scale q
-    k^T + additive) v in float64 terms, with a bias per window (A = W),
-    with one bias for all (A = 1), and with one bias for all but the last
-    E windows, which take their own (`edge`); one call counted each."""
-    g = torch.Generator().manual_seed(4)
-    nw, n, heads, hd, e = 6, 16, 2, 10, 3
-    qkv = torch.randn(batch * nw, n, 3 * heads * hd, generator=g)
+def test_window_attention_is_the_plain_softmax_attention(batch, masked, dtype):
+    """The core (heads of 10) against softmax(scale q k^T + table[index] +
+    mask) v in float64 from the same q, k, v; the mask from the labels of
+    the last E windows, or none; one call counted each. float32 within
+    1e-5; bf16 within 2^-7 max |v|: p and the output are each rounded once
+    to bf16 (relative error at most 2^-8, bf16's unit roundoff; sum p |v|
+    and |out| are at most max |v|)."""
+    g = torch.Generator().manual_seed(4 + batch)
+    nw, ws, heads, hd, e = 6, 4, 2, 10, 3
+    n = ws * ws
+    qkv = torch.randn(batch * nw, n, 3 * heads * hd, generator=g).to(dtype)
+    table = torch.randn((2 * ws - 1) ** 2, heads, generator=g)
+    index = S.relative_position_index(ws)
+    labels = torch.randint(0, 4, (batch * e, n), generator=g, dtype=torch.uint8) \
+        if masked else None
     q, k, v = qkv.view(-1, n, 3, heads, hd).double().permute(2, 0, 3, 1, 4)
-    one = torch.randn(1, heads, n, n, generator=g)
-    edge = torch.randn(batch * e, heads, n, n, generator=g)
-    for bias, last, whole in (
-            (torch.randn(batch * nw, heads, n, n, generator=g), None, None),
-            (one, None, one.expand(batch * nw, -1, -1, -1)),
-            (one, edge, torch.cat([one.expand(batch * (nw - e), -1, -1, -1), edge]))):
-        whole = bias if whole is None else whole
-        before = S.attn_calls
-        got = S.window_attention(qkv, bias, heads, hd ** -0.5, last)
-        assert S.attn_calls == before + 1
-        p = torch.softmax(q @ k.transpose(-2, -1) * hd ** -0.5 + whole.double(), -1)
-        want = (p @ v).transpose(1, 2).reshape(batch * nw, n, heads * hd)
-        assert got.shape == want.shape and float((got.double() - want).abs().max()) <= 1e-5
+    scores = q @ k.transpose(-2, -1) * hd ** -0.5 + table_bias(table, index).double()
+    if masked:
+        scores[-batch * e:] += label_mask(labels).double().unsqueeze(1)
+    want = (torch.softmax(scores, -1) @ v).transpose(1, 2).reshape(batch * nw, n, heads * hd)
+    before = S.attn_calls
+    got = S.window_attention(qkv, table, index, heads, hd ** -0.5, labels)
+    assert S.attn_calls == before + 1
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7 * float(v.abs().max())
+    assert got.shape == want.shape and got.dtype == dtype
+    assert float((got.double() - want).abs().max()) <= tol
+    if masked:  # the mask moves the last windows far past that
+        free = S.window_attention(qkv, table, index, heads, hd ** -0.5)
+        assert float((free[-batch * e:].double() - want[-batch * e:]).abs().max()) > 10 * tol
 
 
 @pytest.mark.parametrize("batch", [1, 2])
 def test_the_plan_puts_the_windows_the_mask_reaches_last(batch):
     """A shifted block's gather holds every window of the rolled map once,
     tokens row-major inside each, those with a masked pair (the last row
-    and column of windows) after the others, frame after frame; its edge
-    tensor is the bias plus those windows' masks, its bias the table alone;
-    the inverse puts the tokens back."""
+    and column of windows) after the others, frame after frame; its labels
+    are those windows' regions, frame after frame, and give their masks;
+    the unshifted blocks have none; the inverse puts the tokens back."""
     m = _model()
     h, w, ws = 12, 16, 4
-    orders, additive = m.plan(batch, h, w, "cpu")
+    orders, labels = m.plan(batch, h, w, "cpu")
     perm, inv = orders[2]
     mask = S.shift_mask(h, w, ws, 2)
     reached = (mask != 0).flatten(1).any(1)
@@ -240,12 +279,36 @@ def test_the_plan_puts_the_windows_the_mask_reaches_last(batch):
                       torch.cat([outer + f * h * w for f in range(batch)]).reshape(-1)])
     assert torch.equal(perm, want)
     assert torch.equal(inv[perm], torch.arange(batch * h * w))
-    bias, edge = additive[1]
-    table = m._blocks[1].attn.bias()
-    assert torch.equal(bias, table.unsqueeze(0))
-    assert torch.equal(edge, (table + mask[reached].unsqueeze(1)).repeat(batch, 1, 1, 1))
-    assert additive[0][1] is None and torch.equal(orders[0][0], torch.cat(
+    assert labels[2].dtype == torch.uint8 and labels[2].is_contiguous()
+    assert torch.equal(labels[2], S.shift_labels(h, w, ws, 2)[reached].repeat(batch, 1))
+    assert torch.equal(label_mask(labels[2]), mask[reached].repeat(batch, 1, 1))
+    assert labels[0] is None and torch.equal(orders[0][0], torch.cat(
         [S.window_order(h, w, ws, 0) + f * h * w for f in range(batch)]))
+
+
+def test_kernel_ws_gate_takes_the_cards_bf16_cores_alone():
+    """Kernel W's gate: the published core (heads of 30, windows of 64) in
+    bf16 on CUDA without gradients; not the CPU, float32, a gradient, other
+    windows, odd or wider heads, or more heads than its shared memory
+    holds. The wrapper runs the plain version on the CPU and launches
+    nothing."""
+    from srgan_st_tpu_torch.kernels import swin_attn as W
+
+    bf = torch.bfloat16
+    assert W.gate(False, "cuda", bf, 64, 6, 30) and W.gate(False, "cuda", bf, 64, 8, 32)
+    for args in ((False, "cpu", bf, 64, 6, 30), (False, "cuda", torch.float32, 64, 6, 30),
+                 (True, "cuda", bf, 64, 6, 30), (False, "cuda", bf, 16, 6, 30),
+                 (False, "cuda", bf, 64, 6, 31), (False, "cuda", bf, 64, 6, 34),
+                 (False, "cuda", bf, 64, 9, 20), (False, "cuda", bf, 64, 4, 0)):
+        assert not W.gate(*args), args
+    g = torch.Generator().manual_seed(9)
+    qkv = torch.randn(3, 64, 3 * 2 * 8, generator=g).to(bf)
+    table, index = torch.randn(225, 2, generator=g), S.relative_position_index(8)
+    labels = S.shift_labels(16, 24, 8, 4)[-2:]
+    before = W.launches
+    got = W.swin_attn(qkv, table, index, 2, 8 ** -0.5, labels)
+    assert W.launches == before
+    assert torch.equal(got, W.swin_attn_reference(qkv, table, index, 2, 8 ** -0.5, labels))
 
 
 def test_two_frames_in_one_call_are_each_frame_alone():
